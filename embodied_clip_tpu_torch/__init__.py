@@ -1,0 +1,18 @@
+"""embodied-clip-tpu, PyTorch/CUDA port for one NVIDIA H100 (Hopper, sm_90a).
+
+A second package beside `embodied_clip_tpu` (JAX, the reference). This slice serves
+frozen CLIP ResNet features: uint8 frames → PIL-parity bicubic resize + centre crop +
+CLIP normalise (kernel K1, `ops/kernels/preprocess_kernel.py`, CUDA C++ in `csrc/`) →
+`ModifiedResNet` trunk → `clip_conv` / `clip_avgpool` / `clip_attnpool`.
+
+The package imports torch and numpy only — never jax, flax or `embodied_clip_tpu`.
+Entry points run on the GPU (`device="cuda"`) unless the caller asks for the CPU.
+"""
+
+__version__ = "0.1.0"
+
+from embodied_clip_tpu_torch import constants  # noqa: F401
+from embodied_clip_tpu_torch.ops.preprocess import Preprocessor, make_preprocessor
+from embodied_clip_tpu_torch.ops.resize import resample_weights, resize_plan
+
+__all__ = ["Preprocessor", "make_preprocessor", "resample_weights", "resize_plan"]

@@ -1,0 +1,90 @@
+"""Weights into the port: openai/CLIP checkpoints and the JAX package's variables.
+
+The port's modules use openai/CLIP's state_dict names, so a reference checkpoint
+loads as it is (`load_torch_checkpoint`, `visual_state_dict`). `from_flax_variables`
+carries the JAX package's `{params, batch_stats}` across, inverting the layout rules of
+`embodied_clip_tpu/models/convert.py:9-13`:
+
+  flax conv kernel (kh,kw,I,O) → torch Conv2d (O,I,kh,kw)
+  flax Dense kernel (I,O)      → torch Linear (O,I)
+  BatchNorm scale/bias         → weight/bias; batch_stats mean/var → running_mean/var
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["from_flax_variables", "load_torch_checkpoint", "visual_state_dict"]
+
+
+def _t(v) -> torch.Tensor:
+    return torch.from_numpy(np.array(v, dtype=np.float32))
+
+
+def _conv_bn(sd: Dict[str, torch.Tensor], conv: str, bn: str,
+             params: Mapping[str, Any], stats: Mapping[str, Any]) -> None:
+    sd[f"{conv}.weight"] = _t(np.asarray(params["conv"]["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in params["conv"]:  # folded tree: BN already in the conv
+        sd[f"{conv}.bias"] = _t(params["conv"]["bias"])
+    if "bn" in params:
+        sd[f"{bn}.weight"] = _t(params["bn"]["scale"])
+        sd[f"{bn}.bias"] = _t(params["bn"]["bias"])
+        sd[f"{bn}.running_mean"] = _t(stats["bn"]["mean"])
+        sd[f"{bn}.running_var"] = _t(stats["bn"]["var"])
+        sd[f"{bn}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
+def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX `CLIPVisual` (ResNet) variables, as numpy arrays → the port's state_dict.
+
+    Takes the unfolded tree ({params, batch_stats}) or the folded one
+    (conv/{kernel,bias}, no batch_stats)."""
+    params = variables["params"]
+    trunk = params["trunk"]
+    stats = variables.get("batch_stats", {}).get("trunk", {})
+    sd: Dict[str, torch.Tensor] = {}
+    for i in (1, 2, 3):
+        _conv_bn(sd, f"conv{i}", f"bn{i}", trunk[f"stem{i}"], stats.get(f"stem{i}", {}))
+    for name, block in trunk.items():
+        if not name.startswith("layer"):
+            continue
+        stage, b = name[len("layer"):].split("_")
+        t = f"layer{stage}.{b}"
+        st = stats.get(name, {})
+        for ci in (1, 2, 3):
+            _conv_bn(sd, f"{t}.conv{ci}", f"{t}.bn{ci}", block[f"cb{ci}"],
+                     st.get(f"cb{ci}", {}))
+        if "down" in block:
+            _conv_bn(sd, f"{t}.downsample.0", f"{t}.downsample.1", block["down"],
+                     st.get("down", {}))
+    pool = params["attnpool"]
+    sd["attnpool.positional_embedding"] = _t(pool["positional_embedding"])
+    for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        sd[f"attnpool.{proj}.weight"] = _t(np.asarray(pool[proj]["kernel"]).T)
+        sd[f"attnpool.{proj}.bias"] = _t(pool[proj]["bias"])
+    return sd
+
+
+def visual_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A full openai/CLIP state_dict → its `visual.*` entries with the prefix
+    stripped; a visual-only state_dict passes through."""
+    if any(k.startswith("visual.") for k in sd):
+        return {k[len("visual."):]: v for k, v in sd.items() if k.startswith("visual.")}
+    return dict(sd)
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """Load a .pt/.pth checkpoint on the CPU: a plain state_dict, `{"state_dict": …}`,
+    or a torchscript archive (the openai CLIP release format). Floating-point
+    tensors (fp16 CLIP weights included) are upcast to f32."""
+    try:
+        sd = torch.jit.load(path, map_location="cpu").state_dict()
+    except RuntimeError:  # not a torchscript archive
+        sd = torch.load(path, map_location="cpu")
+        if isinstance(sd, dict) and "state_dict" in sd:
+            sd = sd["state_dict"]
+    return {k: (v.detach().float() if v.is_floating_point() else v.detach())
+            for k, v in sd.items()}
