@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`embodied_clip_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # build the kernels, check them, drive the port
-    python3 chip_smoke.py --profile  # also print a torch.profiler breakdown of an encode
+    python3 chip_smoke.py --profile  # also print torch.profiler tables of the encodes
 
 Phases:
   1. torch version, device, and `nvidia-smi`'s name and power limit;
@@ -11,11 +11,21 @@ Phases:
      main path's shape (golden_frames(128), 300x300 → 224): ≤1.5 uint8 LSB with <1e-3
      of pixels flipped, bf16 output bit-equal to the f32 output cast; time both and
      compute the kernel's bound for this card;
-  4. drive the main path: bf16, BN-folded `clip_rn50` serving four requests of fresh
-     uint8 frames (batch 1, 8, 32, 128, NHWC and flat); check keys, shapes, finite
-     values and that K1 launched once per request; hold the bf16 features to the
-     port's unfolded f32 encoder (TF32 off) at ≤1e-3 cosine; time a batch-128 encode;
-  5. print {"kernels": [...]}, then the last line {"ok": true, "device": {...}}.
+  4. drive the bf16 path: BN-folded `clip_rn50` serving four requests of fresh uint8
+     frames (batch 1, 8, 32, 128, NHWC and flat); check keys, shapes, finite values
+     and that K1 launched once per request; hold the bf16 features to the port's
+     unfolded f32 encoder (TF32 off) at ≤1e-3 cosine; time a batch-128 encode;
+  5. quantize that encoder (calibrated on golden_frames(32)) and encode
+     golden_frames(128) through path A (K2 + K3 + K5) and path B (K2 + K3 + K4),
+     recording every kernel call's inputs; hold K2 and K3 to their plain versions at
+     ≤1 s8 step on ≤0.5% of elements, K4 and K5 bit-exactly; time each kernel and its
+     plain version on those inputs and compute its bound;
+  6. drive the int8 main path: the four requests through path A, with launches per
+     request K1 1, K2 1, K3 1, K5 3; the same through path B, with K4 12 per request;
+     keys, shapes, finite bf16; cosine distance vs the f32 encoder ≤1e-3 for the
+     pooled keys and ≤2e-3 for the conv map (`INT8_COSINE_LIMITS`); paths A and B
+     bit-identical; batch-128 encode times of both paths;
+  7. print {"kernels": [...]}, then the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero. It exits non-zero at once, and
 prints no result, where no CUDA device is available.
@@ -28,12 +38,28 @@ import subprocess
 import sys
 import time
 
-# Card → (device-memory bytes/s, f32 CUDA-core FLOP/s), NVIDIA data sheets, dense.
-# Matched by substring of the device name, most specific first.
-CARDS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H100", 3.35e12, 67e12), ("H200", 4.8e12, 67e12))
+# Card → (device-memory bytes/s, f32 CUDA-core, dense bf16 and dense int8 tensor-core
+# operations/s), NVIDIA data sheets. Matched by substring of the name, most specific
+# first.
+CARDS = (("H100 PCIe", 2.0e12, 51e12, 756e12, 1513e12),
+         ("H100 NVL", 3.9e12, 60e12, 835e12, 1671e12),
+         ("H100", 3.35e12, 67e12, 989e12, 1979e12),
+         ("H200", 4.8e12, 67e12, 989e12, 1979e12))
 REQUESTS = ((1, "nhwc"), (8, "flat"), (32, "nhwc"), (128, "flat"))
 LSB_LIMIT, FLIP_LIMIT, COSINE_LIMIT = 1.5, 1e-3, 1e-3
+# int8 vs f32 cosine distance per key. The pooled features keep the 1e-3 north star.
+# The conv map cannot: on these seed-0 weights the JAX package's own int8 trunk is at
+# 1.83e-3 (tests/test_torch_quantize.py::test_rn50_int8_fidelity_matches_jax, which
+# holds the port to it on the CPU), so the map is held to that, rounded up.
+INT8_COSINE_LIMITS = {"clip_conv": 2e-3, "clip_avgpool": 1e-3, "clip_attnpool": 1e-3}
+STEP_LIMIT, STEP_SHARE_LIMIT = 1, 0.005  # K2, K3 vs plain (tests/test_stem_kernel.py:43)
+# Launches per request on each int8 path (clip_rn50: 3 identity runs, 12 boundaries).
+PER_REQUEST = {"A": {"fused_preprocess": 1, "stem3_requant_pool_int8": 1,
+                     "fused_stage1_int8": 1, "fused_resblocks_int8": 3,
+                     "fused_cb3_cb1_int8": 0},
+               "B": {"fused_preprocess": 1, "stem3_requant_pool_int8": 1,
+                     "fused_stage1_int8": 1, "fused_resblocks_int8": 0,
+                     "fused_cb3_cb1_int8": 12}}
 
 
 def check(ok: bool, what: str) -> None:
@@ -42,14 +68,14 @@ def check(ok: bool, what: str) -> None:
 
 
 def card_rates(name: str):
-    for key, bw, flops in CARDS:
-        if key in name:
-            return bw, flops, key
-    print(f"[3] unknown card {name!r}: bound computed with H100 SXM rates")
-    return CARDS[2][1], CARDS[2][2], "H100 SXM (assumed)"
+    for card in CARDS:
+        if card[0] in name:
+            return card
+    print(f"[3] unknown card {name!r}: bounds computed with H100 SXM rates")
+    return ("H100 SXM (assumed)",) + CARDS[2][1:]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
 
     for _ in range(warmup):
@@ -80,6 +106,153 @@ def preprocess_work(n: int, in_hw, size: int, out_bytes: int):
     return nbytes, n * flops_frame
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def int8_work(name: str, args, kw, out):
+    """(bytes, int8 ops, bf16 ops) one call of kernel `name` needs: each input and
+    weight read once, each output written once; 2 operations per multiply-add."""
+    if name == "stem3_requant_pool_int8":
+        x, kernel, bias, _ = args
+        n, h, w, cin = x.shape
+        cout = kernel.shape[-1]
+        return (nbytes(x, out) + 9 * cin * cout * 2 + nbytes(bias),
+                0, 2 * n * h * w * 9 * cin * cout)
+    if name == "fused_stage1_int8":
+        x8, ops = args
+        m = x8.numel() // x8.shape[-1]
+        macs = sum(ops[f"k{i}{L}"].numel() for i in (1, 2, 3) for L in "abc")
+        w = nbytes(*(v for v in ops.values()))
+        return nbytes(x8, out) + w, 2 * m * macs, 2 * m * ops["wsc"].numel()
+    if name == "fused_cb3_cb1_int8":
+        x8, res8, ops = args
+        m = x8.numel() // x8.shape[-1]
+        macs = ops["k3"].numel() + ops["k1"].numel()
+        return nbytes(x8, res8, *out, *ops.values()), 2 * m * macs, 0
+    if name == "fused_resblocks_int8":
+        x8, blocks, scl = args
+        m = x8.numel() // x8.shape[-1]
+        macs = sum(b[k].numel() for b in blocks for k in ("k1", "k2", "k3"))
+        w = nbytes(*(v for b in blocks for v in b.values()), scl)
+        return nbytes(x8, out) + w, 2 * m * macs, 0
+    raise KeyError(name)
+
+
+def bound(work, card):
+    """(bound ms, 'bytes' | 'operations'): the larger of bytes at the memory rate and
+    the operations at their type's dense tensor-core peak."""
+    b, ops8, ops16 = work
+    _, bw, _, bf16, i8 = card
+    bytes_ms, ops_ms = b / bw * 1e3, (ops8 / i8 + ops16 / bf16) * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+class Recorder:
+    """Stands in for a kernel wrapper in its module: records each call's arguments and
+    result and calls through. `launches` reads and writes the wrapper's own count
+    (the wrapper increments it through the module's name, which is this object)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.fn, self.calls = module, name, getattr(module, name), []
+
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
+        self.calls.append((args, kw, out))
+        return out
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def check_int8_kernels(qenc, frames, card, profile):
+    """Phase 5: every K2–K5 call of a batch-128 encode on paths A and B, against the
+    plain version on the same inputs; timings and bounds summed over one encode."""
+    import torch
+
+    from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
+    from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
+    from embodied_clip_tpu_torch.ops.quantize import PATH_B
+
+    kernels = [(SK, "stem3_requant_pool_int8", "A"), (BK, "fused_stage1_int8", "A"),
+               (BK, "fused_resblocks_int8", "A"), (BK, "fused_cb3_cb1_int8", "B")]
+    recs = {}
+    for path, enc in (("A", qenc), ("B", qenc.with_kernels(**PATH_B))):
+        with Recorder(SK, "stem3_requant_pool_int8") as r2, \
+                Recorder(BK, "fused_stage1_int8") as r3, \
+                Recorder(BK, "fused_resblocks_int8") as r5, \
+                Recorder(BK, "fused_cb3_cb1_int8") as r4:
+            enc.encode(frames)
+            torch.cuda.synchronize()
+        for r in (r2, r3, r4, r5):
+            if r.calls:
+                recs.setdefault(r.name, r.calls)
+    results = {}
+    for mod, name, path in kernels:
+        fn, ref = getattr(mod, name), getattr(mod, name + "_reference")
+        calls = recs.get(name, [])
+        check(len(calls) > 0, f"{name} ran on path {path}")
+        worst_step, worst_share = 0, 0.0
+        ms = plain_ms = bound_ms = 0.0
+        by = {"bytes": 0.0, "operations": 0.0}
+        for args, kw, out in calls:
+            before = fn.launches
+            got = fn(*args, **kw)
+            want = ref(*args, **kw)
+            torch.cuda.synchronize()
+            check(fn.launches == before + 1, f"{name} launched its kernel")
+            pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+            for g, w in pairs:
+                check(g.shape == w.shape and g.dtype == w.dtype, f"{name} output shape/type")
+                if name in ("stem3_requant_pool_int8", "fused_stage1_int8"):
+                    d = (g.int() - w.int()).abs()
+                    step, share = int(d.max()), float((d != 0).float().mean())
+                    worst_step, worst_share = max(worst_step, step), max(worst_share, share)
+                    check(step <= STEP_LIMIT and share <= STEP_SHARE_LIMIT,
+                          f"{name} vs plain: {step} steps on {share:.2e} of elements")
+                else:
+                    check(torch.equal(g, w), f"{name} bit-exact vs its plain version on "
+                                             f"{tuple(args[0].shape)}")
+            k_ms = cuda_ms(lambda: fn(*args, **kw), 10)
+            p_ms = cuda_ms(lambda: ref(*args, **kw), 3, warmup=1)
+            b_ms, b_by = bound(int8_work(name, args, kw, out), card)
+            ms, plain_ms, bound_ms = ms + k_ms, plain_ms + p_ms, bound_ms + b_ms
+            by[b_by] += b_ms
+            print(f"[5] {name} {tuple(args[0].shape)}: kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}")
+        contract = (f"≤{STEP_LIMIT} step on ≤{STEP_SHARE_LIMIT:g}: worst {worst_step} step "
+                    f"on {worst_share:.2e}" if name in ("stem3_requant_pool_int8",
+                                                        "fused_stage1_int8")
+                    else "bit-exact")
+        print(f"[5] {name}: {len(calls)} call(s) per batch-128 encode (path {path}): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms; {contract}")
+        results[name] = {"max_abs_err": float(worst_step), "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": max(by, key=by.get)}
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                qenc.encode(frames)
+            torch.cuda.synchronize()
+        print("[5] int8 path A, 3 encodes of golden_frames(128), device time by op:")
+        print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
+    return results
+
+
 def main(argv) -> int:
     import torch
 
@@ -92,7 +265,10 @@ def main(argv) -> int:
     from embodied_clip_tpu_torch import constants
     from embodied_clip_tpu_torch.models.encoders import build_encoder
     from embodied_clip_tpu_torch.ops.kernels import _build
+    from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
     from embodied_clip_tpu_torch.ops.kernels import preprocess_kernel as K
+    from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
+    from embodied_clip_tpu_torch.ops.quantize import PATH_B
     from embodied_clip_tpu_torch.parity import cosine_distance, golden_frames
 
     profile = "--profile" in argv
@@ -109,7 +285,7 @@ def main(argv) -> int:
     print(f"[2] built {', '.join(_build.SOURCES)} in {time.perf_counter() - t0:.2f} s")
     for src in _build.SOURCES:
         for line in _build.build_log(src).splitlines():
-            if "ptxas info" in line:
+            if "ptxas info    : Used" in line:
                 print(f"[2]   {src}: {line.strip()}")
 
     # Full-f32 references: cuDNN convs and cuBLAS matmuls default to TF32 otherwise.
@@ -145,44 +321,50 @@ def main(argv) -> int:
 
     kernel_ms = cuda_ms(lambda: K.fused_preprocess(frames, 224, mean, std), 50)
     plain_ms = cuda_ms(lambda: K.fused_preprocess_reference(frames, 224, mean, std), 10)
-    bw, f32_peak, card = card_rates(kind)
-    nbytes, flops = preprocess_work(128, (300, 300), 224, 2)
-    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / f32_peak * 1e3
+    card = card_rates(kind)
+    bw, f32_peak = card[1], card[2]
+    pp_bytes, flops = preprocess_work(128, (300, 300), 224, 2)
+    bytes_ms, ops_ms = pp_bytes / bw * 1e3, flops / f32_peak * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     print(f"[3] K1 batch 128 bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B at {bw:.3g} B/s, "
-          f"{flops} FLOP at {f32_peak:.3g} FLOP/s, {card}); "
-          f"{nbytes / kernel_ms / 1e6:.1f} GB/s achieved")
+          f"bound {bound_ms:.4f} ms by {bound_by} ({pp_bytes} B at {bw:.3g} B/s, "
+          f"{flops} FLOP at {f32_peak:.3g} FLOP/s, {card[0]}); "
+          f"{pp_bytes / kernel_ms / 1e6:.1f} GB/s achieved")
 
-    # -- 4. the main path: bf16 BN-folded clip_rn50 serving requests -------------------
+    # -- 4. the bf16 path: BN-folded clip_rn50 serving requests -------------------------
     enc = build_encoder("clip_rn50", dtype=torch.bfloat16, device="cuda").fold_bn()
     rng = np.random.RandomState(1)
     reqs = []
     for n, layout in REQUESTS:
         f = rng.randint(0, 256, (n, 300, 300, 3), np.uint8)
         reqs.append(f.reshape(n, 300, 900) if layout == "flat" else f)
-    K.fused_preprocess.launches = 0  # count the main path's launches only
-    t0 = time.perf_counter()
-    outs = [enc.encode(f) for f in reqs]
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
+
+    def serve(encoder, label):
+        t0 = time.perf_counter()
+        outs = [encoder.encode(f) for f in reqs]
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        for (n, layout), out in zip(REQUESTS, outs):
+            shapes = {k: tuple(v.shape) for k, v in out.items()}
+            check(shapes == {"clip_conv": (n, 7, 7, 2048), "clip_avgpool": (n, 2048),
+                             "clip_attnpool": (n, 1024)}, f"response shapes {shapes}")
+            check(all(v.dtype == torch.bfloat16 and bool(torch.isfinite(v).all())
+                      for v in out.values()), f"finite bf16 features for batch {n}")
+        print(f"[{label}] {len(REQUESTS)} requests ({sum(n for n, _ in REQUESTS)} frames, "
+              f"batches {', '.join(f'{n} {lay}' for n, lay in REQUESTS)}, first call "
+              f"included) in {serve_s:.3f} s: keys, shapes, finite bf16 ok")
+
+    K.fused_preprocess.launches = 0  # count the bf16 path's launches only
+    serve(enc, "4")
     launches = K.fused_preprocess.launches
     check(launches == len(REQUESTS), f"K1 launched once per request ({launches})")
-    for (n, layout), out in zip(REQUESTS, outs):
-        shapes = {k: tuple(v.shape) for k, v in out.items()}
-        check(shapes == {"clip_conv": (n, 7, 7, 2048), "clip_avgpool": (n, 2048),
-                         "clip_attnpool": (n, 1024)}, f"response shapes {shapes}")
-        check(all(v.dtype == torch.bfloat16 and bool(torch.isfinite(v).all())
-                  for v in out.values()), f"finite bf16 features for batch {n}")
-        print(f"[4] request batch {n} ({layout}): ok")
-    print(f"[4] {len(REQUESTS)} requests ({sum(n for n, _ in REQUESTS)} frames, first "
-          f"call included) in {serve_s:.3f} s; K1 launches {launches}")
+    print(f"[4] K1 launches {launches}")
 
     g8 = golden_frames(8)
-    ref = build_encoder("clip_rn50", dtype=torch.float32, device="cuda").encode(g8)
+    f32_ref = build_encoder("clip_rn50", dtype=torch.float32, device="cuda").encode(g8)
     got = enc.encode(g8)
-    cos = {k: cosine_distance(got[k], ref[k]) for k in ref}
+    cos = {k: cosine_distance(got[k], f32_ref[k]) for k in f32_ref}
     print("[4] bf16 folded vs f32 unfolded (same weights, TF32 off), cosine distance: "
           + ", ".join(f"{k} {v:.3e}" for k, v in cos.items()) + f" (limit {COSINE_LIMIT:g})")
     check(all(v <= COSINE_LIMIT for v in cos.values()), f"cosine ≤ {COSINE_LIMIT}")
@@ -202,14 +384,76 @@ def main(argv) -> int:
             torch.cuda.synchronize()
         print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
 
-    # -- 5. results ----------------------------------------------------------------------
-    print(json.dumps({"kernels": [{
-        "name": "fused_preprocess", "route": "cuda",
-        "source": "embodied_clip_tpu_torch/csrc/preprocess.cu",
-        "replaces": "embodied_clip_tpu/ops/pallas/preprocess_kernel.py:93",
+    # -- 5. K2-K5 against their plain versions on the main path's batch-128 inputs ------
+    t0 = time.perf_counter()
+    qenc = enc.quantize(golden_frames(32))
+    torch.cuda.synchronize()
+    print(f"[5] clip_rn50 quantized (calibrated on golden_frames(32)) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    g128 = torch.from_numpy(golden_frames(128)).to(dev)
+    int8_results = check_int8_kernels(qenc, g128, card, profile)
+
+    # -- 6. the int8 main path: paths A and B serving the requests ----------------------
+    qenc_b = qenc.with_kernels(**PATH_B)
+    counted = {"fused_preprocess": K.fused_preprocess,
+               "stem3_requant_pool_int8": SK.stem3_requant_pool_int8,
+               "fused_stage1_int8": BK.fused_stage1_int8,
+               "fused_resblocks_int8": BK.fused_resblocks_int8,
+               "fused_cb3_cb1_int8": BK.fused_cb3_cb1_int8}
+    path_launches = {}
+    for path, encoder in (("A", qenc), ("B", qenc_b)):
+        for fn in counted.values():
+            fn.launches = 0  # count this path's launches only
+        serve(encoder, f"6{path}")
+        got_l = {k: fn.launches for k, fn in counted.items()}
+        want_l = {k: v * len(REQUESTS) for k, v in PER_REQUEST[path].items()}
+        print(f"[6{path}] launches over {len(REQUESTS)} requests: {got_l}")
+        check(got_l == want_l, f"path {path} launches {got_l}, expected {want_l}")
+        path_launches[path] = got_l
+
+    cos8 = {}
+    for path, encoder in (("A", qenc), ("B", qenc_b)):
+        got = encoder.encode(g8)
+        cos8[path] = {k: cosine_distance(got[k], f32_ref[k]) for k in f32_ref}
+        print(f"[6{path}] int8 vs f32 unfolded (same weights, TF32 off), cosine distance: "
+              + ", ".join(f"{k} {v:.3e} (limit {INT8_COSINE_LIMITS[k]:g})"
+                          for k, v in cos8[path].items()))
+        check(all(v <= INT8_COSINE_LIMITS[k] for k, v in cos8[path].items()),
+              f"path {path} int8 cosine within {INT8_COSINE_LIMITS}")
+    for frames_in, label in ((g8, "golden_frames(8)"), (x128, "request batch 128")):
+        a, b = qenc.encode(frames_in), qenc_b.encode(frames_in)
+        check(all(torch.equal(a[k], b[k]) for k in a), f"paths A and B agree on {label}")
+        print(f"[6] paths A and B bit-identical on {label}")
+
+    ms_a = cuda_ms(lambda: qenc.encode(x128), 5)
+    ms_b = cuda_ms(lambda: qenc_b.encode(x128), 5)
+    ms_a2 = cuda_ms(lambda: qenc.encode(x128), 5)
+    for path, ms in (("A", ms_a), ("B", ms_b), ("A", ms_a2)):
+        print(f"[6{path}] clip_rn50 int8 encode, batch 128 on the device: {ms:.3f} ms, "
+              f"{128 / ms * 1e3:.1f} frames/s on {smi}")
+
+    # -- 7. results ----------------------------------------------------------------------
+    src = "embodied_clip_tpu_torch/csrc/"
+    pallas = "embodied_clip_tpu/ops/pallas/"
+    rows = [{
+        "name": "fused_preprocess", "route": "cuda", "source": src + "preprocess.cu",
+        "replaces": pallas + "preprocess_kernel.py:93",
         "launches": launches, "max_abs_err": max_abs, "max_err_lsb": worst_lsb,
-        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]}))
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None}]
+    for name, source, replaces, path in (
+            ("stem3_requant_pool_int8", "stem_int8.cu", "stem_kernel.py:79", "A"),
+            ("fused_stage1_int8", "bottleneck_int8.cu", "bottleneck_kernel.py:312", "A"),
+            ("fused_cb3_cb1_int8", "bottleneck_int8.cu", "bottleneck_kernel.py:537", "B"),
+            ("fused_resblocks_int8", "bottleneck_int8.cu", "bottleneck_kernel.py:426", "A")):
+        rows.append({"name": name, "route": "cuda", "source": src + source,
+                     "replaces": pallas + replaces, "launches": path_launches[path][name],
+                     "path": path, **int8_results[name], "library_ms": None,
+                     "ms_unit": "per batch-128 encode (all calls)"})
+    print(json.dumps({"encode_ms_batch128": {"bf16": encode_ms, "int8_path_a": ms_a,
+                                             "int8_path_a_again": ms_a2,
+                                             "int8_path_b": ms_b}, "card": smi}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,9 +1,11 @@
 """embodied-clip-tpu, PyTorch/CUDA port for one NVIDIA H100 (Hopper, sm_90a).
 
-A second package beside `embodied_clip_tpu` (JAX, the reference). This slice serves
-frozen CLIP ResNet features: uint8 frames → PIL-parity bicubic resize + centre crop +
-CLIP normalise (kernel K1, `ops/kernels/preprocess_kernel.py`, CUDA C++ in `csrc/`) →
-`ModifiedResNet` trunk → `clip_conv` / `clip_avgpool` / `clip_attnpool`.
+A second package beside `embodied_clip_tpu` (JAX, the reference). It serves frozen
+CLIP ResNet features: uint8 frames → PIL-parity bicubic resize + centre crop + CLIP
+normalise (kernel K1, `ops/kernels/preprocess_kernel.py`) → the bf16/f32
+`ModifiedResNet` trunk, or the int8 post-training-quantized trunk (`ops/quantize.py`,
+kernels K2-K5 in `ops/kernels/stem_kernel.py` and `bottleneck_kernel.py`) →
+`clip_conv` / `clip_avgpool` / `clip_attnpool`. The kernels are CUDA C++ in `csrc/`.
 
 The package imports torch and numpy only — never jax, flax or `embodied_clip_tpu`.
 Entry points run on the GPU (`device="cuda"`) unless the caller asks for the CPU.

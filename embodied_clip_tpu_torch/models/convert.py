@@ -8,6 +8,8 @@ carries the JAX package's `{params, batch_stats}` across, inverting the layout r
   flax conv kernel (kh,kw,I,O) → torch Conv2d (O,I,kh,kw)
   flax Dense kernel (I,O)      → torch Linear (O,I)
   BatchNorm scale/bias         → weight/bias; batch_stats mean/var → running_mean/var
+
+`from_flax_qtrunk` carries a JAX quantized trunk (`qtrunk`) across as it is, in HWIO.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["from_flax_variables", "load_torch_checkpoint", "visual_state_dict"]
+__all__ = ["from_flax_variables", "from_flax_qtrunk", "load_torch_checkpoint",
+           "visual_state_dict"]
 
 
 def _t(v) -> torch.Tensor:
@@ -66,6 +69,27 @@ def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
         sd[f"attnpool.{proj}.weight"] = _t(np.asarray(pool[proj]["kernel"]).T)
         sd[f"attnpool.{proj}.bias"] = _t(pool[proj]["bias"])
     return sd
+
+
+def from_flax_qtrunk(qtrunk: Mapping[str, Any]) -> Dict[str, Any]:
+    """A JAX quantized trunk (`ops/quantize.py:quantize_trunk`'s tree, as numpy arrays)
+    → the port's quantized trunk (`embodied_clip_tpu_torch/ops/quantize.py`) on the
+    CPU, in the same HWIO layout: act_scales (0-dim f32), the fp stem/shortcut convs,
+    and the s8 bottleneck convs with their weight scales and biases. The s8
+    stem2/stem3 copies of the JAX int8-stem experiment are left out."""
+    def t(v, dtype=np.float32):
+        return torch.from_numpy(np.array(v, dtype=dtype))
+
+    q: Dict[str, Any] = {
+        "act_scales": {k: t(v).reshape(()) for k, v in qtrunk["act_scales"].items()},
+        "fp": {k: {"kernel": t(v["conv"]["kernel"]), "bias": t(v["conv"]["bias"])}
+               for k, v in qtrunk["fp"].items()},
+    }
+    for key, sub in qtrunk.items():
+        if "/" in key:
+            q[key] = {"kernel_q": t(sub["kernel_q"], np.int8), "w_scale": t(sub["w_scale"]),
+                      "bias": t(sub["bias"])}
+    return q
 
 
 def visual_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

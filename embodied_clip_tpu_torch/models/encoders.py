@@ -5,7 +5,9 @@ The raw uint8 frame batch goes to the device once; preprocess (kernel K1 in bf16
 plain f32 path otherwise), the trunk and all pooling heads run there, under
 `torch.inference_mode()`. Keys match the reference's cache schema
 (thor_image_features.py:129-138): {clip_conv, clip_avgpool, clip_attnpool}, with the
-conv map NHWC as in the JAX package.
+conv map NHWC as in the JAX package. `FrozenEncoder.quantize()` returns the int8-trunk
+encoder (`_QuantizedCLIPEncoder`, port of `embodied_clip_tpu/models/encoders.py:
+221-264,280-403`).
 """
 
 from __future__ import annotations
@@ -114,14 +116,83 @@ class FrozenEncoder:
         return FrozenEncoder(self.spec, module, self.image_size, self.dtype, self.device)
 
     def quantize(self, calibration_frames) -> "FrozenEncoder":
-        raise NotImplementedError(
-            "the int8 trunk (embodied_clip_tpu/ops/quantize.py) is not ported to "
-            "PyTorch yet; see ROADMAP.md, queue 1, M4")
+        """An int8-trunk encoder (ops/quantize.py): s8 bottleneck convs with fused
+        requant epilogues; the stem convs, the shortcut convs and the attention pool
+        stay in the compute dtype. On CUDA the trunk runs kernels K2, K3 and K5
+        (`PATH_A`); on the CPU, the same dispatch on their plain versions.
+
+        `calibration_frames` must be representative uint8 frames (real observations,
+        or parity.golden_frames), never noise: the activation scales are maxima over
+        them. They go through the encoder's own preprocess (K1 in bf16); calibration
+        runs the folded trunk in full f32 (TF32 off), from the encoder's weights
+        upcast to f32."""
+        from embodied_clip_tpu_torch.models.clip_resnet import CLIP_RESNET_CONFIGS
+        from embodied_clip_tpu_torch.ops.quantize import quantize_trunk
+
+        if self.spec.family != "clip" or self.spec.arch not in CLIP_RESNET_CONFIGS:
+            raise NotImplementedError(
+                f"no int8 path for {self.spec.arch} in the port (the torchvision and ViT "
+                "int8 trunks are not ported); see ROADMAP.md, queue 1, M8")
+        folded = self.fold_bn()
+        if isinstance(calibration_frames, np.ndarray):
+            calibration_frames = torch.from_numpy(np.ascontiguousarray(calibration_frames))
+        stage_sizes = CLIP_RESNET_CONFIGS[self.spec.arch]["stage_sizes"]
+        sd = {k: v.float() for k, v in folded.module.state_dict().items()
+              if not k.startswith("attnpool.")}
+        with torch.inference_mode():
+            x = folded.preprocess(calibration_frames.to(self.device))
+            qtrunk = quantize_trunk(sd, stage_sizes, x)
+        return _QuantizedCLIPEncoder(folded, qtrunk, stage_sizes)
 
     def load_torch_state_dict(self, sd) -> "FrozenEncoder":
         """Replace the weights with an openai/CLIP state_dict (full or `visual.*`)."""
         self.module.load_state_dict(visual_state_dict(sd))
         return self
+
+
+class _QuantizedCLIPEncoder(FrozenEncoder):
+    """CLIP ResNet encoder with an int8 trunk (see FrozenEncoder.quantize).
+
+    `kernels` holds `quantized_trunk_apply`'s four switches: `PATH_A` by default;
+    `with_kernels(...)` gives an encoder on the same quantized weights with others."""
+
+    def __init__(self, folded: FrozenEncoder, qtrunk, stage_sizes, kernels=None):
+        from embodied_clip_tpu_torch.ops.quantize import PATH_A
+
+        super().__init__(folded.spec, folded.module, folded.image_size, folded.dtype,
+                         folded.device)
+        self.qtrunk = qtrunk
+        self.stage_sizes = tuple(stage_sizes)
+        self.kernels = dict(PATH_A if kernels is None else kernels)
+
+    def with_kernels(self, **switches) -> "_QuantizedCLIPEncoder":
+        folded = FrozenEncoder(self.spec, self.module, self.image_size, self.dtype,
+                               self.device)
+        return _QuantizedCLIPEncoder(folded, self.qtrunk, self.stage_sizes,
+                                     {**self.kernels, **switches})
+
+    @torch.inference_mode()
+    def encode(self, frames) -> Dict[str, torch.Tensor]:
+        from embodied_clip_tpu_torch.ops.quantize import quantized_trunk_apply
+
+        if isinstance(frames, np.ndarray):
+            frames = torch.from_numpy(np.ascontiguousarray(frames))
+        x = self.preprocess(frames.to(self.device))
+        conv = quantized_trunk_apply(self.qtrunk, x, self.stage_sizes,
+                                     out_dtype=self.dtype, **self.kernels)
+        avg = conv.to(torch.float32).mean(dim=(1, 2)).to(conv.dtype)
+        return {"clip_conv": conv, "clip_avgpool": avg,
+                "clip_attnpool": self.module.attnpool(conv)}
+
+    def fold_bn(self) -> "FrozenEncoder":
+        return self  # already folded and quantized
+
+    def quantize(self, calibration_frames) -> "FrozenEncoder":
+        return self  # idempotent: already quantized
+
+    def load_torch_state_dict(self, sd) -> "FrozenEncoder":
+        raise NotImplementedError("load weights before quantize(): an int8 encoder "
+                                  "holds calibrated s8 weights")
 
 
 def build_encoder(name: str, dtype=torch.float32, seed: int = 0,

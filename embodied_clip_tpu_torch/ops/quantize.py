@@ -1,0 +1,398 @@
+"""Post-training int8 quantization of the frozen CLIP ResNet trunk (port of the CLIP
+part of `embodied_clip_tpu/ops/quantize.py`).
+
+Scheme (symmetric PTQ, as in the JAX package):
+  weights      s8 per output channel, scale = max|w| / 127
+  activations  s8 per tensor, scale = max / 127, calibrated on sample frames; every
+               conv input is post-ReLU, the conv shortcut's output is signed
+  stem convs and the 1×1 shortcut convs stay bf16 with f32 accumulation.
+
+The quantized trunk is a dict shaped like the JAX package's `qtrunk`:
+  {"act_scales": {name: 0-dim f32}, "fp": {"stem1"|…|"layerS_B/down": {"kernel" HWIO
+   f32, "bias"}}, "layerS_B/cbI": {"kernel_q" HWIO s8, "w_scale" (Cout,), "bias"}}
+with every tensor on the trunk's device; `models/convert.py:from_flax_qtrunk` carries a
+JAX `qtrunk` across. The kernels' derived operands are built on first use and kept
+under the key "_operands".
+
+`quantized_trunk_apply` is the dispatch of `quantize.py:381-610` without the TPU
+experiments (int8 stem, int4 stage 1, reciprocal requant). Its four switches are the
+JAX keyword arguments under the port's names:
+
+  kernel_stem      (pallas_stem)       K2 stem3_requant_pool_int8
+  kernel_stage1    (pallas_stage1)     K3 fused_stage1_int8
+  kernel_resblocks (pallas_resblocks)  K5 fused_resblocks_int8 on identity runs
+  fuse_pointwise   (fuse_pointwise)    K4 fused_cb3_cb1_int8 at block boundaries
+
+With all of them off it is the plain graph. `PATH_A` (K2 + K3 + K5) is what a
+quantized encoder runs; `PATH_B` swaps K5 for K4. What the kernels do not cover (the
+bf16 stem1/stem2 convs, and each later stage's stride block 0) runs as plain torch:
+cuDNN for the bf16 convs, `torch._int_mm` (+ im2col) for the s8 ones.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Mapping, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from embodied_clip_tpu_torch.ops.int8 import (
+    QMAX,
+    avg_pool_int8,
+    full_f32,
+    qconv_acc,
+    requant,
+    requant_signed,
+)
+from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
+from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
+
+__all__ = ["calibrate_trunk", "quantize_trunk", "quantized_trunk_apply",
+           "stage1_int8_operands", "cb3_cb1_operands", "resblocks_int8_operands",
+           "PATH_A", "PATH_B", "KERNELS_OFF", "PALLAS_RESBLOCKS_MIN_CM"]
+
+KERNELS_OFF = dict(kernel_stem=False, kernel_stage1=False, kernel_resblocks=False,
+                   fuse_pointwise=0)
+PATH_A = dict(kernel_stem=True, kernel_stage1=True, kernel_resblocks=True,
+              fuse_pointwise=0)
+PATH_B = dict(kernel_stem=True, kernel_stage1=True, kernel_resblocks=False,
+              fuse_pointwise=1)
+
+# Minimum bottleneck width for K5 (identity runs with cm ≥ this). Module-level so
+# tests can lower it to reach K5 on narrow trunks.
+PALLAS_RESBLOCKS_MIN_CM = 128
+
+
+def _block_names(stage_sizes: Sequence[int]):
+    for stage, n in enumerate(stage_sizes):
+        for b in range(n):
+            stride = 2 if (b == 0 and stage > 0) else 1
+            yield f"layer{stage + 1}_{b}", stride
+
+
+def _sd_prefix(name: str) -> str:
+    """JAX tree name → the port's (openai/CLIP) state_dict prefix."""
+    stems = {"stem1": "conv1", "stem2": "conv2", "stem3": "conv3"}
+    if name in stems:
+        return stems[name]
+    block, conv = name.split("/")
+    stage, b = block[len("layer"):].split("_")
+    conv = "downsample.0" if conv == "down" else "conv" + conv[len("cb"):]
+    return f"layer{stage}.{b}.{conv}"
+
+
+_INV_QMAX = float(np.float32(1.0) / np.float32(QMAX))
+
+
+def _per_tensor_scale(m: torch.Tensor) -> torch.Tensor:
+    """max / 127 + 1e-30 in f32, as the JAX package computes it under jit: XLA turns
+    the division by the constant 127 into a multiply by its f32 reciprocal."""
+    return m.float() * _INV_QMAX + 1e-30
+
+
+def _nhwc_conv(x: torch.Tensor, weight: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """NHWC x, OIHW weight → NHWC, 'SAME' padding; runs on a channels-last view."""
+    k = weight.shape[-1]
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight, None, stride, k // 2)
+    return y.permute(0, 2, 3, 1)
+
+
+# --------------------------------------------------------------------- calibration
+
+
+def calibrate_trunk(folded_sd: Mapping[str, torch.Tensor], stage_sizes: Sequence[int],
+                    x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Run the folded trunk in f32 on calibration input x (NHWC) and record the scale
+    of every tensor the int8 graph quantizes (keys as in the JAX package).
+
+    `folded_sd` is a BN-folded state_dict with the port's (openai) names. The convs
+    run in full f32 (TF32 off), as the JAX package's calibration does."""
+    scales: Dict[str, torch.Tensor] = {}
+
+    def record(name, t):
+        scales[name] = _per_tensor_scale(t.max())
+
+    def cb(name, t, stride=1, relu=True):
+        pre = _sd_prefix(name)
+        out = _nhwc_conv(t, folded_sd[f"{pre}.weight"].float(), stride)
+        out = out + folded_sd[f"{pre}.bias"].float()
+        return torch.relu(out) if relu else out
+
+    def pool(t, k):
+        return F.avg_pool2d(t.permute(0, 3, 1, 2), k).permute(0, 2, 3, 1)
+
+    with full_f32():
+        t = cb("stem1", x.float(), 2)
+        record("stem1.out", t)
+        t = cb("stem2", t)
+        record("stem2.out", t)
+        t = cb("stem3", t)
+        record("stem.out", t)  # pre-pool: the int8 graph requants before the pool
+        t = pool(t, 2)
+        for name, stride in _block_names(stage_sizes):
+            o = cb(f"{name}/cb1", t)
+            record(f"{name}/cb2.in", o)
+            o = cb(f"{name}/cb2", o)
+            record(f"{name}/cb3.in", o)  # pre-pool for stride blocks
+            if stride > 1:
+                o = pool(o, stride)
+            o = cb(f"{name}/cb3", o, relu=False)
+            identity = t
+            if stride > 1 or t.shape[-1] != o.shape[-1]:
+                if stride > 1:
+                    identity = pool(identity, stride)
+                identity = cb(f"{name}/down", identity, relu=False)
+                scales[f"{name}/down.out"] = _per_tensor_scale(identity.abs().max())
+            t = torch.relu(o + identity)
+            record(f"{name}.out", t)
+    return scales
+
+
+# -------------------------------------------------------------------- quantization
+
+
+def _quantize_kernel(kernel_hwio: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Per-output-channel symmetric s8 weights (round half to even, as jnp.round)."""
+    k = kernel_hwio.float()
+    scale = _per_tensor_scale(k.abs().amax(dim=(0, 1, 2)))
+    q = torch.clamp(torch.round(k / scale), -QMAX, QMAX).to(torch.int8)
+    return {"kernel_q": q, "w_scale": scale}
+
+
+def _hwio(weight_oihw: torch.Tensor) -> torch.Tensor:
+    return weight_oihw.float().permute(2, 3, 1, 0).contiguous()
+
+
+def quantize_trunk(folded_sd: Mapping[str, torch.Tensor], stage_sizes: Sequence[int],
+                   calibration_x: torch.Tensor) -> Dict[str, Any]:
+    """Folded state_dict → quantized trunk: s8 kernels + per-channel weight scales for
+    the bottleneck cb1/cb2/cb3 convs, f32 HWIO kernels for the stem and shortcut
+    convs, and the activation scales calibrated on `calibration_x`."""
+    q: Dict[str, Any] = {"act_scales": calibrate_trunk(folded_sd, stage_sizes,
+                                                       calibration_x), "fp": {}}
+
+    def fp(name):
+        pre = _sd_prefix(name)
+        return {"kernel": _hwio(folded_sd[f"{pre}.weight"]),
+                "bias": folded_sd[f"{pre}.bias"].float()}
+
+    for name in ("stem1", "stem2", "stem3"):
+        q["fp"][name] = fp(name)
+    for name, _stride in _block_names(stage_sizes):
+        for cbname in ("cb1", "cb2", "cb3"):
+            pre = _sd_prefix(f"{name}/{cbname}")
+            q[f"{name}/{cbname}"] = dict(_quantize_kernel(_hwio(folded_sd[f"{pre}.weight"])),
+                                         bias=folded_sd[f"{pre}.bias"].float())
+        if f"{_sd_prefix(name + '/down')}.weight" in folded_sd:
+            q["fp"][f"{name}/down"] = fp(f"{name}/down")
+    return q
+
+
+# ------------------------------------------------------------ kernel operand builders
+#
+# Each scale product is in_scale * w_scale in f32, exactly as qconv computes it, so
+# the kernels match the plain graph bit for bit. The JAX builders cast the s8 kernels
+# to bf16 for the MXU; the port's kernels take them as s8 (dp4a).
+
+
+def stage1_int8_operands(q: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Operands of K3 (`fused_stage1_int8`): per block a/b/c the 1×1 kernels (Cin,
+    Cout), the 3×3 kernel (3,3,Cm,Cm), the epilogue scales S and biases; the bf16
+    shortcut pair (wsc, bsc); scl = [s_in, (r2, r3, r_out) × 3, down.out]."""
+    a = q["act_scales"]
+    ops: Dict[str, torch.Tensor] = {}
+    s_prev = a["stem.out"]
+    scl = [s_prev]
+    for name, L in zip(["layer1_0", "layer1_1", "layer1_2"], "abc"):
+        s2, s3, s_out = a[f"{name}/cb2.in"], a[f"{name}/cb3.in"], a[f"{name}.out"]
+        scl += [s2, s3, s_out]
+        cb1, cb2, cb3 = (q[f"{name}/{c}"] for c in ("cb1", "cb2", "cb3"))
+        ops[f"k1{L}"] = cb1["kernel_q"][0, 0].contiguous()
+        ops[f"s1{L}"] = s_prev * cb1["w_scale"]
+        ops[f"b1{L}"] = cb1["bias"]
+        ops[f"k2{L}"] = cb2["kernel_q"]
+        ops[f"s2{L}"] = s2 * cb2["w_scale"]
+        ops[f"b2{L}"] = cb2["bias"]
+        ops[f"k3{L}"] = cb3["kernel_q"][0, 0].contiguous()
+        ops[f"s3{L}"] = s3 * cb3["w_scale"]
+        ops[f"b3{L}"] = cb3["bias"]
+        if L == "a":
+            down = q["fp"][f"{name}/down"]
+            ops["wsc"] = down["kernel"][0, 0].to(torch.bfloat16).contiguous()
+            ops["bsc"] = down["bias"]
+        s_prev = s_out
+    scl.append(a["layer1_0/down.out"])
+    ops["scl"] = torch.stack(scl).float()
+    return ops
+
+
+def cb3_cb1_operands(q: Dict[str, Any], name: str, next_name: str,
+                     r_res: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Operands of K4 (`fused_cb3_cb1_int8`): block `name`'s cb3, block `next_name`'s
+    cb1, and scl = [r_res, r_out, r_next]."""
+    a = q["act_scales"]
+    cb3, cb1n = q[f"{name}/cb3"], q[f"{next_name}/cb1"]
+    s_out = a[f"{name}.out"]
+    return {
+        "k3": cb3["kernel_q"][0, 0].contiguous(),
+        "s3": a[f"{name}/cb3.in"] * cb3["w_scale"],
+        "b3": cb3["bias"],
+        "k1": cb1n["kernel_q"][0, 0].contiguous(),
+        "s1": s_out * cb1n["w_scale"],
+        "b1": cb1n["bias"],
+        "scl": torch.stack([r_res, s_out, a[f"{next_name}/cb2.in"]]).float(),
+    }
+
+
+def resblocks_int8_operands(q: Dict[str, Any], names: Sequence[str],
+                            s_in: torch.Tensor, s_next: torch.Tensor):
+    """Operands of K5 (`fused_resblocks_int8`): per-block dicts {k1, s1, b1, k2, s2, b2,
+    k3, s3, b3} and scl = [r_in, (r2, r3, r_out) × k], whose last entry is `s_next`."""
+    a = q["act_scales"]
+    blocks, scl = [], [s_in]
+    s_prev = s_in
+    for i, name in enumerate(names):
+        s2, s3 = a[f"{name}/cb2.in"], a[f"{name}/cb3.in"]
+        s_out = s_next if i == len(names) - 1 else a[f"{name}.out"]
+        cb1, cb2, cb3 = (q[f"{name}/{c}"] for c in ("cb1", "cb2", "cb3"))
+        blocks.append({
+            "k1": cb1["kernel_q"][0, 0].contiguous(), "s1": s_prev * cb1["w_scale"],
+            "b1": cb1["bias"],
+            "k2": cb2["kernel_q"], "s2": s2 * cb2["w_scale"], "b2": cb2["bias"],
+            "k3": cb3["kernel_q"][0, 0].contiguous(), "s3": s3 * cb3["w_scale"],
+            "b3": cb3["bias"],
+        })
+        scl += [s2, s3, s_out]
+        s_prev = s_out
+    return blocks, torch.stack(scl).float()
+
+
+def _cached(q: Dict[str, Any], key: tuple, build: Callable[[], Any]):
+    cache = q.setdefault("_operands", {})
+    if key not in cache:
+        cache[key] = build()
+    return cache[key]
+
+
+# --------------------------------------------------------------------------- apply
+
+
+def _fp_conv(q, name, t, stride=1, relu=True):
+    """bf16 conv with f32 bias; the 1×1 shortcut as an f32-accumulating product of
+    bf16 operands (the JAX graph's einsum with preferred_element_type=f32)."""
+    sub = q["fp"][name]
+    k = sub["kernel"].to(torch.bfloat16)
+    tb = t.to(torch.bfloat16)
+    if k.shape[0] == 1 and k.shape[1] == 1 and stride == 1:
+        with full_f32():
+            out = torch.matmul(tb.float(), k[0, 0].float())
+    else:
+        out = _nhwc_conv(tb, k.permute(3, 2, 0, 1), stride).float()
+    out = out + sub["bias"]
+    return torch.relu(out) if relu else out
+
+
+def _qconv(sub, t8, in_scale):
+    """s8 conv → f32 with the bias added; the caller fuses the rest of the epilogue."""
+    acc = qconv_acc(t8, sub["kernel_q"])
+    return acc.float() * (in_scale * sub["w_scale"]) + sub["bias"]
+
+
+def quantized_trunk_apply(q: Dict[str, Any], x: torch.Tensor, stage_sizes: Sequence[int],
+                          out_dtype=torch.bfloat16, kernel_stem: bool = False,
+                          kernel_stage1: bool = False, kernel_resblocks: bool = False,
+                          fuse_pointwise: int = 0) -> torch.Tensor:
+    """int8 trunk forward: x is the preprocessed NHWC image batch (f32/bf16). Returns
+    the NHWC conv map in `out_dtype`. The switches route the pieces the TPU kernels
+    computed through K2–K5 (see the module docstring); `fuse_pointwise` > 0 fuses
+    every pair whose block output width is ≥ it, and is off under `kernel_resblocks`,
+    which owns those blocks."""
+    a = q["act_scales"]
+    fuse_pointwise = 0 if kernel_resblocks else fuse_pointwise
+
+    s_in = a["stem.out"]
+    t = _fp_conv(q, "stem1", x, 2)
+    t = _fp_conv(q, "stem2", t)
+    if kernel_stem and t.shape[1] % 2 == 0 and t.shape[2] % 2 == 0:
+        sub = q["fp"]["stem3"]
+        t8 = SK.stem3_requant_pool_int8(t.to(torch.bfloat16).contiguous(), sub["kernel"],
+                                        sub["bias"], s_in)
+    else:
+        t8 = avg_pool_int8(requant(_fp_conv(q, "stem3", t, relu=False), s_in), 2)
+
+    blocks = list(_block_names(stage_sizes))
+    if kernel_stage1 and stage_sizes[0] == 3:
+        t8 = BK.fused_stage1_int8(t8, _cached(q, ("stage1",),
+                                              lambda: stage1_int8_operands(q)))
+        s_in = a["layer1_2.out"]
+        blocks = blocks[3:]
+
+    def identity_run(i):
+        """Length of the run of stride-1 identity blocks with cm ≥ the gate from i."""
+        j = i
+        while (j < len(blocks) and blocks[j][1] == 1
+               and f"{blocks[j][0]}/down" not in q["fp"]
+               and (q[f"{blocks[j][0]}/cb2"]["kernel_q"].shape[-1]
+                    >= PALLAS_RESBLOCKS_MIN_CM)):
+            j += 1
+        return j - i
+
+    i = 0
+    q1_carry = None  # the next block's cb1 output (s8), made by K4
+    while i < len(blocks):
+        name, stride = blocks[i]
+        if kernel_resblocks and (run := identity_run(i)) > 0:
+            names = [blocks[i + k][0] for k in range(run)]
+            is_final = i + run == len(blocks)
+            # The final run writes the conv map: its last requant scale is unused.
+            s_next = torch.ones_like(s_in) if is_final else a[f"{names[-1]}.out"]
+            ops, scl = _cached(q, ("resblocks", tuple(names)),
+                               lambda: resblocks_int8_operands(q, names, s_in, s_next))
+            if is_final:
+                return BK.fused_resblocks_int8(t8, ops, scl, out_dtype=out_dtype)
+            t8 = BK.fused_resblocks_int8(t8, ops, scl)
+            s_in = s_next
+            i += run
+            continue
+
+        # cb1/cb2 relus fold into the next requant's clip at 0.
+        s2 = a[f"{name}/cb2.in"]
+        if q1_carry is not None:
+            q18, q1_carry = q1_carry, None
+        else:
+            q18 = requant(_qconv(q[f"{name}/cb1"], t8, s_in), s2)
+        s3 = a[f"{name}/cb3.in"]
+        o8 = requant(_qconv(q[f"{name}/cb2"], q18, s2), s3)  # pre-pool for stride blocks
+        if stride > 1:
+            o8 = avg_pool_int8(o8, stride)
+
+        if f"{name}/down" in q["fp"]:
+            # Shortcut on the int8 grid: exact integer pool of the s8 input, the bf16
+            # 1×1 conv, its output requantized to s8 on a signed per-tensor scale.
+            idsrc = avg_pool_int8(t8, stride) if stride > 1 else t8
+            down = _fp_conv(q, f"{name}/down", idsrc.float() * s_in, relu=False)
+            r_res = a[f"{name}/down.out"]
+            id8 = requant_signed(down, r_res)
+        else:
+            id8, r_res = t8, s_in
+
+        is_last = name == blocks[-1][0]
+        c_out = q[f"{name}/cb3"]["kernel_q"].shape[-1]
+        if fuse_pointwise and c_out >= fuse_pointwise and not is_last:
+            next_name = blocks[i + 1][0]
+            ops = _cached(q, ("cb3_cb1", name, next_name),
+                          lambda: cb3_cb1_operands(q, name, next_name, r_res))
+            t8, q1_carry = BK.fused_cb3_cb1_int8(o8, id8, ops)
+            s_in = a[f"{name}.out"]
+            i += 1
+            continue
+
+        o = _qconv(q[f"{name}/cb3"], o8, s3)
+        identity = id8.float() * r_res
+        if is_last:
+            return torch.relu(o + identity).to(out_dtype)
+        s_in = a[f"{name}.out"]
+        t8 = requant(o + identity, s_in)  # the block relu is the clip at 0
+        i += 1
+    raise ValueError(f"stage_sizes {tuple(stage_sizes)} leave no block after stage 1")

@@ -20,7 +20,7 @@ import jax.numpy as jnp
 from embodied_clip_tpu.models.encoders import build_encoder as jax_build_encoder
 
 from embodied_clip_tpu_torch.models.convert import from_flax_variables
-from embodied_clip_tpu_torch.models.encoders import build_encoder
+from embodied_clip_tpu_torch.models.encoders import EncoderSpec, build_encoder
 from embodied_clip_tpu_torch.parity import cosine_distance, golden_frames
 
 import torch_oracle as O
@@ -78,11 +78,14 @@ def test_torch_checkpoint_with_visual_prefix(tmp_path):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_encoder("clip_vit_b32", device="cpu")
+    for name in ("clip_vit_b32", "imagenet_rn50"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_encoder(name, device="cpu")
     enc = build_encoder("clip_rn_tiny", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        enc.quantize(golden_frames(2))
+    for spec in (EncoderSpec("imagenet", "resnet50"), EncoderSpec("clip", "ViT-B/32")):
+        enc.spec = spec  # the torchvision and ViT int8 trunks are not ported (M8)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            enc.quantize(golden_frames(2))
 
 
 def test_default_device_is_the_gpu():

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, each held to its plain PyTorch version.
+"""The port's CUDA kernels (K1–K5) on the card, each held to its plain PyTorch
+version at small shapes, with the JAX package's contracts.
 
 Marked `gpu`: each test skips where no CUDA device is present (decided inside the
 test). This file imports no JAX, so it runs on a machine without it:
@@ -11,8 +12,16 @@ import pytest
 import torch
 
 from embodied_clip_tpu_torch import constants
+from embodied_clip_tpu_torch.models.clip_resnet import ModifiedResNet
+from embodied_clip_tpu_torch.ops import quantize as Q
+from embodied_clip_tpu_torch.ops.fold_bn import fold_conv_bn_state_dict
+from embodied_clip_tpu_torch.ops.int8 import qmm, requant
+from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
 from embodied_clip_tpu_torch.ops.kernels import preprocess_kernel as K
-from embodied_clip_tpu_torch.parity import golden_frames
+from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
+from embodied_clip_tpu_torch.parity import cosine_distance, golden_frames
+
+import torch_int8_cases as C
 
 pytestmark = pytest.mark.gpu
 MEAN, STD = constants.CLIP_MEAN, constants.CLIP_STD
@@ -42,6 +51,140 @@ def test_fused_preprocess_kernel_matches_plain_version(cuda, n, in_hw, size):
     assert float(err.max()) <= 1.5 * lsb
     assert float((err > 0.5 * lsb).float().mean()) < 1e-3
     assert torch.equal(got_bf16, got.to(torch.bfloat16))
+
+
+def _t(a, dev, dtype=None):
+    return torch.from_numpy(np.asarray(a)).to(dev, dtype)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 16, 16, 32, 64), (3, 112, 112, 32, 64),
+                                            (1, 192, 192, 48, 96)])
+def test_stem3_kernel_matches_plain_version(cuda, n, h, w, cin, cout):
+    """K2 vs its plain version: ≤1 s8 step on ≤0.5% of elements (the f32 sum order)."""
+    rng = np.random.RandomState(0)
+    x = _t(np.abs(rng.randn(n, h, w, cin)).astype(np.float32) * 0.5, cuda, torch.bfloat16)
+    kernel = _t(rng.randn(3, 3, cin, cout).astype(np.float32) * 0.1, cuda)
+    bias = _t(rng.randn(cout).astype(np.float32) * 0.05, cuda)
+    scale = torch.tensor(2.3 / 127, device=cuda)
+    before = SK.stem3_requant_pool_int8.launches
+    got = SK.stem3_requant_pool_int8(x, kernel, bias, scale)
+    torch.cuda.synchronize()
+    assert SK.stem3_requant_pool_int8.launches == before + 1
+    want = SK.stem3_requant_pool_int8_reference(x, kernel, bias, scale)
+    assert got.shape == want.shape == (n, h // 2, w // 2, cout)
+    dmax, frac = C.step_diff(got, want)
+    assert dmax <= 1 and frac <= 0.005, (dmax, frac)
+
+
+@pytest.mark.parametrize("n,h", [(2, 14), (2, 56)])
+def test_stage1_kernel_matches_plain_version(cuda, n, h):
+    """K3 vs its plain version, RN50-shaped stage 1: ≤1 step on ≤0.5% of elements."""
+    rng = np.random.RandomState(0)
+    ops = Q.stage1_int8_operands(C.to_torch(C.stage1_q(rng), cuda))
+    x8 = _t(C.s8(rng, (n, h, h, 64)), cuda)
+    before = BK.fused_stage1_int8.launches
+    got = BK.fused_stage1_int8(x8, ops)
+    torch.cuda.synchronize()
+    assert BK.fused_stage1_int8.launches == before + 1
+    want = BK.fused_stage1_int8_reference(x8, ops)
+    assert got.shape == want.shape == (n, h, h, 256)
+    dmax, frac = C.step_diff(got, want)
+    assert dmax <= 1 and frac <= 0.005, (dmax, frac)
+
+
+@pytest.mark.parametrize("cin,cm,n,h", [(256, 64, 2, 7), (1280, 320, 2, 14),
+                                        (512, 128, 64, 28), (2048, 512, 8, 7)])
+def test_cb3_cb1_kernel_matches_plain_version(cuda, cin, cm, n, h):
+    """K4 vs its plain version, bit-exact (K = C > 1024 included)."""
+    rng = np.random.RandomState(1)
+    q, names = C.identity_q(rng, cin, cm, 2)
+    q = C.to_torch(q, cuda)
+    ops = Q.cb3_cb1_operands(q, names[0], names[1], torch.tensor(1.9 / 127, device=cuda))
+    x8 = _t(C.s8(rng, (n, h, h, cm)), cuda)
+    res8 = _t(C.s8(rng, (n, h, h, cin)), cuda)
+    before = BK.fused_cb3_cb1_int8.launches
+    out8, y8 = BK.fused_cb3_cb1_int8(x8, res8, ops)
+    torch.cuda.synchronize()
+    assert BK.fused_cb3_cb1_int8.launches == before + 1
+    ref8, refy = BK.fused_cb3_cb1_int8_reference(x8, res8, ops)
+    assert torch.equal(out8, ref8) and torch.equal(y8, refy)
+
+
+@pytest.mark.parametrize("cin,cm,nb,n,h,out_dtype", [
+    (32, 16, 3, 2, 6, torch.int8), (32, 16, 3, 2, 6, torch.bfloat16),
+    (32, 16, 2, 2, 6, torch.float32), (512, 128, 3, 4, 28, torch.int8),
+    (2048, 512, 2, 2, 7, torch.bfloat16)])
+def test_resblocks_kernel_matches_plain_version(cuda, cin, cm, nb, n, h, out_dtype):
+    """K5 vs its plain version, bit-exact, s8 and conv-map (bf16/f32) outputs."""
+    rng = np.random.RandomState(2)
+    q, names = C.identity_q(rng, cin, cm, nb)
+    q = C.to_torch(q, cuda)
+    s_next = (q["act_scales"][f"{names[-1]}.out"] if out_dtype == torch.int8
+              else torch.ones((), device=cuda))
+    ops, scl = Q.resblocks_int8_operands(q, names, torch.tensor(1.8 / 127, device=cuda),
+                                         s_next)
+    x8 = _t(C.s8(rng, (n, h, h, cin)), cuda)
+    before = BK.fused_resblocks_int8.launches
+    got = BK.fused_resblocks_int8(x8, ops, scl, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert BK.fused_resblocks_int8.launches == before + 1
+    want = BK.fused_resblocks_int8_reference(x8, ops, scl, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+def test_int8_trunk_paths_on_the_card(cuda, monkeypatch):
+    """A width-16 trunk with stage sizes (3, 2, 2, 2), quantized on the card: path A
+    (K2, K3, K5 with the gate lowered) and path B (K2, K3, K4) are bit-identical, and
+    both stay within 1e-3 cosine of the plain graph (K2 skips the graph's bf16
+    rounding of the stem3 conv)."""
+    monkeypatch.setattr(Q, "PALLAS_RESBLOCKS_MIN_CM", 1)
+    torch.manual_seed(0)
+    stage_sizes = (3, 2, 2, 2)
+    sd = fold_conv_bn_state_dict(ModifiedResNet(stage_sizes, 16).state_dict())
+    sd = {k: v.to(cuda) for k, v in sd.items()}
+    x = _t(np.random.RandomState(5).randn(2, 64, 64, 3).astype(np.float32), cuda)
+    q = Q.quantize_trunk(sd, stage_sizes, x)
+    counted = (SK.stem3_requant_pool_int8, BK.fused_stage1_int8,
+               BK.fused_resblocks_int8, BK.fused_cb3_cb1_int8)
+    outs, launches = {}, {}
+    for path, switches in (("A", Q.PATH_A), ("B", Q.PATH_B), ("off", Q.KERNELS_OFF)):
+        before = [f.launches for f in counted]
+        outs[path] = Q.quantized_trunk_apply(q, x, stage_sizes, torch.float32, **switches)
+        torch.cuda.synchronize()
+        launches[path] = [f.launches - b for f, b in zip(counted, before)]
+    assert launches == {"A": [1, 1, 3, 0], "B": [1, 1, 0, 5], "off": [0, 0, 0, 0]}
+    assert torch.equal(outs["A"], outs["B"])
+    assert bool(torch.isfinite(outs["A"]).all()) and outs["A"].shape == (2, 2, 2, 512)
+    assert cosine_distance(outs["A"], outs["off"]) <= 1e-3
+
+
+def test_int8_epilogue_divides_on_the_card(cuda):
+    """The plain graph's requant on CUDA divides by the device scale (IEEE, as the
+    kernels' __fdiv_rn): bit-equal to the CPU's, near-ties included."""
+    rng = np.random.RandomState(3)
+    v = rng.randn(1 << 20).astype(np.float32) * 300
+    v[: 1 << 10] = (np.arange(1 << 10, dtype=np.float32) + 0.5) * np.float32(0.0137)
+    r = torch.tensor(0.0137)
+    assert torch.equal(requant(_t(v, cuda), r.to(cuda)).cpu(), requant(torch.from_numpy(v), r))
+    a = torch.from_numpy(C.s8(rng, (5, 12), 127))
+    b = torch.from_numpy(C.s8(rng, (12, 6), 127))
+    assert torch.equal(qmm(a.to(cuda), b.to(cuda)).cpu(), a.int() @ b.int())
+
+
+def test_int8_kernels_reject_what_they_cannot_take(cuda):
+    rng = np.random.RandomState(4)
+    q, names = C.identity_q(rng, 32, 16, 2)
+    q = C.to_torch(q, cuda)
+    ops = Q.cb3_cb1_operands(q, names[0], names[1], torch.tensor(0.01, device=cuda))
+    x8 = _t(C.s8(rng, (2, 6, 6, 16)), cuda)
+    with pytest.raises(ValueError, match="int8"):
+        BK.fused_cb3_cb1_int8(x8, torch.zeros((2, 6, 6, 32), device=cuda), ops)
+    with pytest.raises(ValueError, match="chain"):
+        BK.fused_cb3_cb1_int8(x8, x8, ops)
+    x = torch.zeros((1, 15, 16, 32), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="even"):
+        SK.stem3_requant_pool_int8(x, torch.zeros((3, 3, 32, 64), device=cuda),
+                                   torch.zeros(64, device=cuda), 0.01)
 
 
 def test_fused_preprocess_kernel_rejects_what_it_cannot_take(cuda):
