@@ -13,8 +13,10 @@ Phases:
      compute the kernel's bound for this card;
   4. drive the bf16 path: BN-folded `clip_rn50` serving four requests of fresh uint8
      frames (batch 1, 8, 32, 128, NHWC and flat); check keys, shapes, finite values
-     and that K1 launched once per request; hold the bf16 features to the port's
-     unfolded f32 encoder (TF32 off) at ≤1e-3 cosine; time a batch-128 encode;
+     and the launches per request (K1 1, K7 1, K6 10); hold the bf16 features to the
+     port's unfolded f32 encoder (TF32 off) at ≤1e-3 cosine; time a batch-128 encode
+     with the kernels and on the cuDNN route (`fold_bn(fused_bottlenecks=False)`, the
+     same weights), in turns;
   5. quantize that encoder (calibrated on golden_frames(32)) and encode
      golden_frames(128) through path A (K2 + K3 + K5) and path B (K2 + K3 + K4),
      recording every kernel call's inputs; hold K2 and K3 to their plain versions at
@@ -25,7 +27,18 @@ Phases:
      keys, shapes, finite bf16; cosine distance vs the f32 encoder ≤1e-3 for the
      pooled keys and ≤2e-3 for the conv map (`INT8_COSINE_LIMITS`); paths A and B
      bit-identical; batch-128 encode times of both paths;
-  7. print {"kernels": [...]}, then the last line {"ok": true, "device": {...}}.
+  7. record every K6/K7 call of a batch-128 `clip_rn50` encode and of an
+     `imagenet_rn50` encode; hold each to its plain version (`parity.bf16_disagreement`:
+     ≤1% of elements differ, each within two bf16 steps; K7 block by block,
+     `parity.stage1_block_disagreements`, its chained output reported); time the
+     kernel, the plain version and the same block(s) on the eager cuDNN route, and
+     compute the bound;
+  8. the ImageNet family: bf16 folded `imagenet_rn50` and `imagenet_rn18` serve the four
+     requests (shapes, finite bf16, launches per request: rn50 K1 1, K7 1, K6 10; rn18
+     K1 1 and no K6/K7), ≤1e-3 cosine vs their f32 unfolded encoders, batch-128 encode
+     times; then `imagenet_rn50.quantize(golden_frames(32))` serves them, held to
+     `IMAGENET_INT8_COSINE_LIMITS`, with its encode time;
+  9. print {"kernels": [...]}, then the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero. It exits non-zero at once, and
 prints no result, where no CUDA device is available.
@@ -52,6 +65,10 @@ LSB_LIMIT, FLIP_LIMIT, COSINE_LIMIT = 1.5, 1e-3, 1e-3
 # 1.83e-3 (tests/test_torch_quantize.py::test_rn50_int8_fidelity_matches_jax, which
 # holds the port to it on the CPU), so the map is held to that, rounded up.
 INT8_COSINE_LIMITS = {"clip_conv": 2e-3, "clip_avgpool": 1e-3, "clip_attnpool": 1e-3}
+# The ImageNet int8 path, likewise: on the same seed-0 weights the JAX package's own int8
+# imagenet_rn50 is at 1.357e-3 on the conv map and 5.8e-5 on the pooled key
+# (tests/test_torch_quantize.py::test_imagenet_rn50_int8_fidelity_matches_jax).
+IMAGENET_INT8_COSINE_LIMITS = {"imagenet_conv": 1.5e-3, "imagenet_avgpool": 1e-3}
 STEP_LIMIT, STEP_SHARE_LIMIT = 1, 0.005  # K2, K3 vs plain (tests/test_stem_kernel.py:43)
 # Launches per request on each int8 path (clip_rn50: 3 identity runs, 12 boundaries).
 PER_REQUEST = {"A": {"fused_preprocess": 1, "stem3_requant_pool_int8": 1,
@@ -60,6 +77,19 @@ PER_REQUEST = {"A": {"fused_preprocess": 1, "stem3_requant_pool_int8": 1,
                "B": {"fused_preprocess": 1, "stem3_requant_pool_int8": 1,
                      "fused_stage1_int8": 1, "fused_resblocks_int8": 0,
                      "fused_cb3_cb1_int8": 12}}
+# Launches per request on the folded bf16 paths (RN50 trunks: stage 1, 3 + 5 + 2
+# identity blocks; ResNet-18's basic blocks run no bottleneck kernel).
+BF16_PER_REQUEST = {"clip_rn50": {"fused_preprocess": 1, "fused_stage1": 1,
+                                  "fused_bottleneck": 10},
+                    "imagenet_rn50": {"fused_preprocess": 1, "fused_stage1": 1,
+                                      "fused_bottleneck": 10},
+                    "imagenet_rn18": {"fused_preprocess": 1, "fused_stage1": 0,
+                                      "fused_bottleneck": 0}}
+FEATURE_SHAPES = {  # per frame
+    "clip_rn50": {"clip_conv": (7, 7, 2048), "clip_avgpool": (2048,),
+                  "clip_attnpool": (1024,)},
+    "imagenet_rn50": {"imagenet_conv": (7, 7, 2048), "imagenet_avgpool": (2048,)},
+    "imagenet_rn18": {"imagenet_conv": (7, 7, 512), "imagenet_avgpool": (512,)}}
 
 
 def check(ok: bool, what: str) -> None:
@@ -137,6 +167,22 @@ def int8_work(name: str, args, kw, out):
         w = nbytes(*(v for b in blocks for v in b.values()), scl)
         return nbytes(x8, out) + w, 2 * m * macs, 0
     raise KeyError(name)
+
+
+def bf16_work(name: str, args, kw):
+    """(bytes, 0, bf16 ops) one K6/K7 call needs: x read once, the output written
+    once, each weight and bias read once; 2 operations per multiply-add."""
+    x = args[0]
+    m = x.numel() // x.shape[-1]
+    if name == "fused_bottleneck":
+        blocks, extra = [kw], []
+    else:
+        blocks, extra = args[1], list(args[2])
+    weights = [t for b in blocks for t in b.values()] + extra
+    macs = sum(b[k].numel() for b in blocks for k in ("w1", "w2", "w3"))
+    macs += extra[0].numel() if extra else 0
+    out_bytes = m * blocks[-1]["w3"].shape[-1] * x.element_size()
+    return nbytes(x, *weights) + out_bytes, 0, 2 * m * macs
 
 
 def bound(work, card):
@@ -253,6 +299,80 @@ def check_int8_kernels(qenc, frames, card, profile):
     return results
 
 
+def check_bf16_kernels(encoders, frames, card):
+    """Phase 7: every K6/K7 call of a batch-128 encode of each encoder in `encoders`
+    ({label: folded bf16 encoder}) against its plain version; timings, bounds and the
+    cuDNN route's time of the same block(s), summed over one encode."""
+    import torch
+
+    from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
+    from embodied_clip_tpu_torch.parity import (
+        BF16_KERNEL_SHARE,
+        bf16_disagreement,
+        stage1_block_disagreements,
+    )
+
+    results = {}
+    for label, enc in encoders.items():
+        with Recorder(BK, "fused_stage1") as r7, Recorder(BK, "fused_bottleneck") as r6:
+            enc.encode(frames)
+            torch.cuda.synchronize()
+        steps = [mod for kind, mod in enc.module.fused_plan() if kind != "module"]
+        calls = [("fused_stage1", c) for c in r7.calls] + [("fused_bottleneck", c)
+                                                            for c in r6.calls]
+        check(len(calls) == len(steps) and len(r7.calls) == 1,
+              f"{label}: K6/K7 calls {len(r6.calls)}/{len(r7.calls)} match its plan")
+        for (name, (args, kw, out)), mod in zip(calls, steps):
+            fn, ref = getattr(BK, name), getattr(BK, name + "_reference")
+            before = fn.launches
+            got = fn(*args, **kw)
+            want = ref(*args, **kw)
+            torch.cuda.synchronize()
+            check(fn.launches == before + 1, f"{name} launched its kernel")
+            check(got.shape == want.shape and got.dtype == want.dtype == torch.bfloat16
+                  and bool(torch.isfinite(got.float()).all()), f"{name} output")
+            share, worst = bf16_disagreement(got, want)
+            per_block = (stage1_block_disagreements(*args) if name == "fused_stage1"
+                         else [(share, worst)])
+            # K7 is held block by block; its chained output is reported (parity.py).
+            check(all(s <= BF16_KERNEL_SHARE and w <= 1.0 for s, w in per_block),
+                  f"{label} {name} {tuple(args[0].shape)} vs plain: {share:.2e} differ, "
+                  f"worst {worst:.3f}; per block {per_block}")
+            xc = args[0].permute(0, 3, 1, 2)  # the NCHW channels-last view the block takes
+            k_ms = cuda_ms(lambda: fn(*args, **kw), 10)
+            p_ms = cuda_ms(lambda: ref(*args, **kw), 3, warmup=1)
+            c_ms = cuda_ms(lambda: mod(xc), 10)
+            b_ms, b_by = bound(bf16_work(name, args, kw), card)
+            r = results.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                          "cudnn_route_ms": 0.0, "by": {}, "share": 0.0,
+                                          "worst": 0.0, "max_abs_err": 0.0, "calls": {}})
+            if label == "clip_rn50":  # the row's numbers: one clip_rn50 encode
+                for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms),
+                               ("cudnn_route_ms", c_ms)):
+                    r[key] += v
+                r["by"][b_by] = r["by"].get(b_by, 0.0) + b_ms
+            r["calls"].setdefault(label, []).append(
+                {"shape": list(args[0].shape), "ms": k_ms, "plain_ms": p_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "cudnn_route_ms": c_ms,
+                 "share_differing": share, "worst_of_allowance": worst,
+                 **({"per_block": per_block} if name == "fused_stage1" else {})})
+            r["share"] = max(r["share"], max(s for s, _ in per_block))
+            r["worst"] = max(r["worst"], max(w for _, w in per_block))
+            r["max_abs_err"] = max(r["max_abs_err"], float((got.float() - want.float())
+                                                           .abs().max()))
+            print(f"[7] {label} {name} {tuple(args[0].shape)}: kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, cuDNN route {c_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
+                  f"{share:.2e} of elements differ, worst {worst:.3f} of the allowance"
+                  + (f"; per block {[(round(a, 6), round(b, 3)) for a, b in per_block]}"
+                     if name == "fused_stage1" else ""))
+    for name, r in results.items():
+        per_enc = {lab: sum(c["ms"] for c in calls) for lab, calls in r["calls"].items()}
+        print(f"[7] {name}: per batch-128 encode (kernel ms) {per_enc}; clip_rn50: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, cuDNN route "
+              f"{r['cudnn_route_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+    return results
+
+
 def main(argv) -> int:
     import torch
 
@@ -333,46 +453,76 @@ def main(argv) -> int:
           f"{pp_bytes / kernel_ms / 1e6:.1f} GB/s achieved")
 
     # -- 4. the bf16 path: BN-folded clip_rn50 serving requests -------------------------
-    enc = build_encoder("clip_rn50", dtype=torch.bfloat16, device="cuda").fold_bn()
+    base = build_encoder("clip_rn50", dtype=torch.bfloat16, device="cuda")
+    enc = base.fold_bn()
     rng = np.random.RandomState(1)
     reqs = []
     for n, layout in REQUESTS:
         f = rng.randint(0, 256, (n, 300, 300, 3), np.uint8)
         reqs.append(f.reshape(n, 300, 900) if layout == "flat" else f)
+    bf16_counted = {"fused_preprocess": K.fused_preprocess, "fused_stage1": BK.fused_stage1,
+                    "fused_bottleneck": BK.fused_bottleneck}
 
-    def serve(encoder, label):
+    def serve(encoder, label, model="clip_rn50"):
         t0 = time.perf_counter()
         outs = [encoder.encode(f) for f in reqs]
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
         for (n, layout), out in zip(REQUESTS, outs):
             shapes = {k: tuple(v.shape) for k, v in out.items()}
-            check(shapes == {"clip_conv": (n, 7, 7, 2048), "clip_avgpool": (n, 2048),
-                             "clip_attnpool": (n, 1024)}, f"response shapes {shapes}")
+            want = {k: (n, *v) for k, v in FEATURE_SHAPES[model].items()}
+            check(shapes == want, f"{model} response shapes {shapes}")
             check(all(v.dtype == torch.bfloat16 and bool(torch.isfinite(v).all())
                       for v in out.values()), f"finite bf16 features for batch {n}")
-        print(f"[{label}] {len(REQUESTS)} requests ({sum(n for n, _ in REQUESTS)} frames, "
-              f"batches {', '.join(f'{n} {lay}' for n, lay in REQUESTS)}, first call "
+        print(f"[{label}] {model}: {len(REQUESTS)} requests ({sum(n for n, _ in REQUESTS)} "
+              f"frames, batches {', '.join(f'{n} {lay}' for n, lay in REQUESTS)}, first call "
               f"included) in {serve_s:.3f} s: keys, shapes, finite bf16 ok")
 
-    K.fused_preprocess.launches = 0  # count the bf16 path's launches only
-    serve(enc, "4")
-    launches = K.fused_preprocess.launches
-    check(launches == len(REQUESTS), f"K1 launched once per request ({launches})")
-    print(f"[4] K1 launches {launches}")
+    def serve_bf16(encoder, label, model):
+        """Serve the requests and check the launches per request of the bf16 path."""
+        for fn in bf16_counted.values():
+            fn.launches = 0  # count this path's launches only
+        serve(encoder, label, model)
+        got_l = {k: fn.launches for k, fn in bf16_counted.items()}
+        want_l = {k: v * len(REQUESTS) for k, v in BF16_PER_REQUEST[model].items()}
+        print(f"[{label}] {model} launches over {len(REQUESTS)} requests: {got_l}")
+        check(got_l == want_l, f"{model} launches {got_l}, expected {want_l}")
+        return got_l
+
+    def fidelity(encoder, ref, label, limits):
+        got = encoder.encode(g8)
+        cos = {k: cosine_distance(got[k], ref[k]) for k in ref}
+        print(f"[{label}] vs f32 unfolded (same weights, TF32 off), cosine distance: "
+              + ", ".join(f"{k} {v:.3e} (limit {limits[k]:g})" for k, v in cos.items()))
+        check(all(v <= limits[k] for k, v in cos.items()), f"{label} cosine within {limits}")
+        return cos
+
+    def encode_times(encoders, label, model):
+        """Batch-128 encode ms of each encoder, in turns (a, b, b, a)."""
+        order = list(encoders) + list(reversed(encoders))
+        times = {}
+        for name in order:
+            ms = cuda_ms(lambda: encoders[name].encode(x128), 10)
+            times.setdefault(name, []).append(ms)
+            print(f"[{label}] {model} {name} encode, batch 128 on the device: {ms:.3f} ms, "
+                  f"{128 / ms * 1e3:.1f} frames/s on {smi}")
+        return {name: min(v) for name, v in times.items()}
+
+    bf16_launches = serve_bf16(enc, "4", "clip_rn50")
+    launches = bf16_launches["fused_preprocess"]
 
     g8 = golden_frames(8)
     f32_ref = build_encoder("clip_rn50", dtype=torch.float32, device="cuda").encode(g8)
-    got = enc.encode(g8)
-    cos = {k: cosine_distance(got[k], f32_ref[k]) for k in f32_ref}
-    print("[4] bf16 folded vs f32 unfolded (same weights, TF32 off), cosine distance: "
-          + ", ".join(f"{k} {v:.3e}" for k, v in cos.items()) + f" (limit {COSINE_LIMIT:g})")
-    check(all(v <= COSINE_LIMIT for v in cos.values()), f"cosine ≤ {COSINE_LIMIT}")
+    limits = dict.fromkeys(f32_ref, COSINE_LIMIT)
+    fidelity(enc, f32_ref, "4 bf16 folded, K6/K7", limits)
+    enc_cudnn = base.fold_bn(fused_bottlenecks=False)
+    check(not enc_cudnn.module.uses_fused_bottlenecks, "the cuDNN route is reachable")
+    fidelity(enc_cudnn, f32_ref, "4 bf16 folded, cuDNN route", limits)
 
     x128 = torch.from_numpy(reqs[-1]).to(dev)
-    encode_ms = cuda_ms(lambda: enc.encode(x128), 20)
-    print(f"[4] clip_rn50 bf16 folded encode, batch 128 on the device: {encode_ms:.3f} ms, "
-          f"{128 / encode_ms * 1e3:.1f} frames/s on {smi}")
+    clip_times = encode_times({"bf16 folded (K6/K7)": enc,
+                               "bf16 folded (cuDNN route)": enc_cudnn}, "4", "clip_rn50")
+    encode_ms = clip_times["bf16 folded (K6/K7)"]
 
     if profile:
         from torch.profiler import ProfilerActivity
@@ -432,7 +582,41 @@ def main(argv) -> int:
         print(f"[6{path}] clip_rn50 int8 encode, batch 128 on the device: {ms:.3f} ms, "
               f"{128 / ms * 1e3:.1f} frames/s on {smi}")
 
-    # -- 7. results ----------------------------------------------------------------------
+    # -- 7. K6/K7 against their plain versions on batch-128 main-path inputs -------------
+    ibase = build_encoder("imagenet_rn50", dtype=torch.bfloat16, device="cuda")
+    ienc = ibase.fold_bn()
+    with torch.inference_mode():
+        bf16_results = check_bf16_kernels({"clip_rn50": enc, "imagenet_rn50": ienc}, g128,
+                                          card)
+
+    # -- 8. the ImageNet family: bf16 folded rn50/rn18, then rn50 int8 --------------------
+    imagenet_launches, imagenet_ms, imagenet_cos = {}, {}, {}
+    for model, folded in (("imagenet_rn50", ienc), ("imagenet_rn18", None)):
+        unfolded = ibase if folded is not None else build_encoder(
+            model, dtype=torch.bfloat16, device="cuda")
+        folded = folded or unfolded.fold_bn()
+        imagenet_launches[model] = serve_bf16(folded, "8", model)
+        ref = build_encoder(model, dtype=torch.float32, device="cuda").encode(g8)
+        imagenet_cos[model] = fidelity(folded, ref, f"8 {model} bf16 folded",
+                                       dict.fromkeys(ref, COSINE_LIMIT))
+        encoders = {"bf16 folded": folded}
+        if model == "imagenet_rn50":
+            encoders["bf16 folded (cuDNN route)"] = unfolded.fold_bn(fused_bottlenecks=False)
+            iref = ref
+        imagenet_ms[model] = encode_times(encoders, "8", model)
+    t0 = time.perf_counter()
+    iqenc = ienc.quantize(golden_frames(32))
+    torch.cuda.synchronize()
+    print(f"[8] imagenet_rn50 quantized (calibrated on golden_frames(32)) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    serve(iqenc, "8 int8", "imagenet_rn50")
+    imagenet_cos["imagenet_rn50 int8"] = fidelity(iqenc, iref, "8 imagenet_rn50 int8",
+                                                  IMAGENET_INT8_COSINE_LIMITS)
+    imagenet_ms["imagenet_rn50"]["int8"] = cuda_ms(lambda: iqenc.encode(x128), 5)
+    print(f"[8] imagenet_rn50 int8 encode, batch 128 on the device: "
+          f"{imagenet_ms['imagenet_rn50']['int8']:.3f} ms on {smi}")
+
+    # -- 9. results ----------------------------------------------------------------------
     src = "embodied_clip_tpu_torch/csrc/"
     pallas = "embodied_clip_tpu/ops/pallas/"
     rows = [{
@@ -450,9 +634,25 @@ def main(argv) -> int:
                      "replaces": pallas + replaces, "launches": path_launches[path][name],
                      "path": path, **int8_results[name], "library_ms": None,
                      "ms_unit": "per batch-128 encode (all calls)"})
-    print(json.dumps({"encode_ms_batch128": {"bf16": encode_ms, "int8_path_a": ms_a,
-                                             "int8_path_a_again": ms_a2,
-                                             "int8_path_b": ms_b}, "card": smi}))
+    for name, replaces in (("fused_bottleneck", "bottleneck_kernel.py:81"),
+                           ("fused_stage1", "bottleneck_kernel.py:164")):
+        r = bf16_results[name]
+        rows.append({"name": name, "route": "cuda", "source": src + "bottleneck_bf16.cu",
+                     "replaces": pallas + replaces, "launches": bf16_launches[name],
+                     "launches_imagenet_rn50": imagenet_launches["imagenet_rn50"][name],
+                     "max_abs_err": r["max_abs_err"], "share_differing": r["share"],
+                     "worst_of_allowance": r["worst"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": max(r["by"], key=r["by"].get),
+                     "cudnn_route_ms": r["cudnn_route_ms"], "library_ms": None,
+                     "ms_unit": "per batch-128 clip_rn50 encode (all calls)",
+                     "calls": r["calls"]})
+    print(json.dumps({"encode_ms_batch128": {"clip_rn50": {**clip_times, "int8_path_a": ms_a,
+                                                           "int8_path_a_again": ms_a2,
+                                                           "int8_path_b": ms_b},
+                                             **imagenet_ms},
+                      "cosine_vs_f32": {k: v for k, v in imagenet_cos.items()},
+                      "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -25,11 +25,12 @@ class CLIPVisual(ModifiedResNet):
     A subclass of the trunk with `attnpool` beside it, so its state_dict keys are
     exactly those of openai/CLIP's `visual.*` (prefix stripped)."""
 
-    def __init__(self, model_name: str, dtype=torch.float32, folded: bool = False):
+    def __init__(self, model_name: str, dtype=torch.float32, folded: bool = False,
+                 fused_bottlenecks: bool = True):
         if model_name not in CLIP_RESNET_CONFIGS:
             raise ValueError(f"unknown CLIP ResNet visual: {model_name}")
         cfg = CLIP_RESNET_CONFIGS[model_name]
-        super().__init__(cfg["stage_sizes"], cfg["width"], dtype, folded)
+        super().__init__(cfg["stage_sizes"], cfg["width"], dtype, folded, fused_bottlenecks)
         self.attnpool = AttentionPool2d(cfg["image_size"] // 32, self.embed_dim,
                                         cfg["num_heads"], cfg["output_dim"], dtype)
 

@@ -9,7 +9,9 @@ Module and parameter names are openai/CLIP's (`conv1`/`bn1` … `layerS.B.conv1`
 `downsample.0`/`.1`, `attnpool.{q,k,v,c}_proj`), so a real checkpoint loads with
 `load_state_dict`. The public layout is the JAX package's NHWC; inside, convs run on
 channels-last tensors. BN runs in f32 under a bf16 trunk; `folded=True` trunks carry
-conv biases and no BN (ops/fold_bn.py).
+conv biases and no BN (ops/fold_bn.py). A folded bf16 trunk runs stage 1 through kernel
+K7 and its stride-1 identity blocks through K6 (models/stages.py) unless built with
+`fused_bottlenecks=False`.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from embodied_clip_tpu_torch.models.stages import StagesMixin
 
 __all__ = ["ModifiedResNet", "AttentionPool2d", "CLIPBottleneck", "CLIP_RESNET_CONFIGS"]
 
@@ -84,13 +88,14 @@ class CLIPBottleneck(nn.Module):
         return F.relu(out + identity)
 
 
-class ModifiedResNet(nn.Module):
+class ModifiedResNet(StagesMixin, nn.Module):
     """Trunk: 3-conv stem + avgpool, 4 bottleneck stages. NHWC in, NHWC conv map out
     (N,7,7,2048 for RN50 at 224px)."""
 
     def __init__(self, stage_sizes: Sequence[int], width: int = 64,
-                 dtype=torch.float32, folded: bool = False):
+                 dtype=torch.float32, folded: bool = False, fused_bottlenecks: bool = True):
         super().__init__()
+        self._init_stages(fused_bottlenecks)
         self.dtype = dtype
         self.folded = folded
         self.conv1 = _conv(3, width // 2, 3, 2, dtype, folded)
@@ -119,10 +124,7 @@ class ModifiedResNet(nn.Module):
         x = F.relu(_conv_bn(x, self.conv1, self.bn1))
         x = F.relu(_conv_bn(x, self.conv2, self.bn2))
         x = F.relu(_conv_bn(x, self.conv3, self.bn3))
-        x = self.avgpool(x)
-        for stage in range(self.n_stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
-        return x.permute(0, 2, 3, 1).contiguous()
+        return self.run_stages(self.avgpool(x))
 
 
 class AttentionPool2d(nn.Module):

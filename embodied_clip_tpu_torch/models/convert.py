@@ -9,7 +9,9 @@ carries the JAX package's `{params, batch_stats}` across, inverting the layout r
   flax Dense kernel (I,O)      → torch Linear (O,I)
   BatchNorm scale/bias         → weight/bias; batch_stats mean/var → running_mean/var
 
-`from_flax_qtrunk` carries a JAX quantized trunk (`qtrunk`) across as it is, in HWIO.
+`from_flax_resnet_variables` does the same for the JAX torchvision-style `ResNet`
+(inverting `embodied_clip_tpu/models/convert.py:57-76`). `from_flax_qtrunk` carries a
+JAX quantized trunk (`qtrunk`, CLIP or torchvision) across as it is, in HWIO.
 """
 
 from __future__ import annotations
@@ -19,8 +21,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["from_flax_variables", "from_flax_qtrunk", "load_torch_checkpoint",
-           "visual_state_dict"]
+__all__ = ["from_flax_variables", "from_flax_resnet_variables", "from_flax_qtrunk",
+           "load_torch_checkpoint", "visual_state_dict"]
 
 
 def _t(v) -> torch.Tensor:
@@ -71,10 +73,34 @@ def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     return sd
 
 
+def from_flax_resnet_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX `ResNet` variables, as numpy arrays → the port's torchvision-named state_dict
+    (`conv1`/`bn1`, `layerS.B.convK`/`bnK`, `downsample.0`/`.1`).
+
+    Takes the unfolded tree ({params, batch_stats}) or the folded one."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+    _conv_bn(sd, "conv1", "bn1", params["stem"], stats.get("stem", {}))
+    for name, block in params.items():
+        if not name.startswith("layer"):
+            continue
+        stage, b = name[len("layer"):].split("_")
+        t = f"layer{stage}.{b}"
+        st = stats.get(name, {})
+        for conv in sorted(k for k in block if k.startswith("cb")):
+            ci = conv[len("cb"):]
+            _conv_bn(sd, f"{t}.conv{ci}", f"{t}.bn{ci}", block[conv], st.get(conv, {}))
+        if "down" in block:
+            _conv_bn(sd, f"{t}.downsample.0", f"{t}.downsample.1", block["down"],
+                     st.get("down", {}))
+    return sd
+
+
 def from_flax_qtrunk(qtrunk: Mapping[str, Any]) -> Dict[str, Any]:
-    """A JAX quantized trunk (`ops/quantize.py:quantize_trunk`'s tree, as numpy arrays)
-    → the port's quantized trunk (`embodied_clip_tpu_torch/ops/quantize.py`) on the
-    CPU, in the same HWIO layout: act_scales (0-dim f32), the fp stem/shortcut convs,
+    """A JAX quantized trunk (`ops/quantize.py:quantize_trunk`'s or
+    `quantize_resnet_trunk`'s tree, as numpy arrays) → the port's quantized trunk
+    (`embodied_clip_tpu_torch/ops/quantize.py`) on the CPU, in the same HWIO layout: act_scales (0-dim f32), the fp stem/shortcut convs,
     and the s8 bottleneck convs with their weight scales and biases. The s8
     stem2/stem3 copies of the JAX int8-stem experiment are left out."""
     def t(v, dtype=np.float32):

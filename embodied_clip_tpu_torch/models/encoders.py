@@ -1,13 +1,15 @@
 """Frozen visual encoders: uint8 frames → features (port of
-`embodied_clip_tpu/models/encoders.py` for the CLIP ResNets).
+`embodied_clip_tpu/models/encoders.py` for the CLIP and torchvision ResNets).
 
 The raw uint8 frame batch goes to the device once; preprocess (kernel K1 in bf16, the
 plain f32 path otherwise), the trunk and all pooling heads run there, under
 `torch.inference_mode()`. Keys match the reference's cache schema
-(thor_image_features.py:129-138): {clip_conv, clip_avgpool, clip_attnpool}, with the
-conv map NHWC as in the JAX package. `FrozenEncoder.quantize()` returns the int8-trunk
-encoder (`_QuantizedCLIPEncoder`, port of `embodied_clip_tpu/models/encoders.py:
-221-264,280-403`).
+(thor_image_features.py:129-138): {clip_conv, clip_avgpool, clip_attnpool} and
+{imagenet_conv, imagenet_avgpool}, with the conv map NHWC as in the JAX package.
+`fold_bn()` gives the serving configuration, whose bf16 bottleneck trunks run kernels
+K6/K7 (models/stages.py). `FrozenEncoder.quantize()` returns the int8-trunk encoder
+(`_QuantizedCLIPEncoder`, `_QuantizedResNetEncoder`; port of
+`embodied_clip_tpu/models/encoders.py:221-264,280-403,436-457`).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch.nn as nn
 
 from embodied_clip_tpu_torch.models.clip import CLIPVisual, image_size_of
 from embodied_clip_tpu_torch.models.convert import load_torch_checkpoint, visual_state_dict
+from embodied_clip_tpu_torch.models.resnet import RESNET_CONFIGS, ResNet
 from embodied_clip_tpu_torch.ops.fold_bn import fold_conv_bn_state_dict
 from embodied_clip_tpu_torch.ops.preprocess import make_preprocessor
 
@@ -29,11 +32,13 @@ __all__ = ["EncoderSpec", "FrozenEncoder", "build_encoder", "ENCODER_SPECS"]
 
 @dataclasses.dataclass(frozen=True)
 class EncoderSpec:
-    family: str  # 'clip': the preprocess constant set
-    arch: str    # 'RN50' | 'RN50x16' | 'RNtiny'
+    family: str  # 'imagenet' | 'clip': the preprocess constant set and key prefix
+    arch: str    # 'resnet18' | 'resnet50' | 'RN50' | 'RN50x16' | 'RNtiny'
 
 
 ENCODER_SPECS = {
+    "imagenet_rn50": EncoderSpec("imagenet", "resnet50"),
+    "imagenet_rn18": EncoderSpec("imagenet", "resnet18"),
     "clip_rn50": EncoderSpec("clip", "RN50"),
     "clip_rn50x16": EncoderSpec("clip", "RN50x16"),
     # Smoke-scale CLIP ResNet (full code path, CPU-test cost; not a paper model).
@@ -49,12 +54,20 @@ def _device(device) -> torch.device:
     return device
 
 
-def _random_state_dict(arch: str, seed: int) -> Dict[str, torch.Tensor]:
+def _new_module(spec: EncoderSpec, dtype=torch.float32, folded: bool = False,
+                fused_bottlenecks: bool = True) -> nn.Module:
+    if spec.family == "imagenet":
+        return ResNet(dtype=dtype, folded=folded, fused_bottlenecks=fused_bottlenecks,
+                      **RESNET_CONFIGS[spec.arch])
+    return CLIPVisual(spec.arch, dtype, folded=folded, fused_bottlenecks=fused_bottlenecks)
+
+
+def _random_state_dict(spec: EncoderSpec, seed: int) -> Dict[str, torch.Tensor]:
     """Random f32 weights from a seeded generator, made on the CPU, so every device
     and dtype built from one seed holds the same weights. Flax's defaults: truncated
     LeCun-normal kernels, zero biases, identity BN, N(0, 1/c) positional embedding."""
     with torch.device("meta"):
-        module = CLIPVisual(arch)
+        module = _new_module(spec)
     module = module.to_empty(device="cpu")
     gen = torch.Generator().manual_seed(seed)
     for m in module.modules():
@@ -66,24 +79,38 @@ def _random_state_dict(arch: str, seed: int) -> Dict[str, torch.Tensor]:
                 nn.init.zeros_(m.bias)
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
-    pos = module.attnpool.positional_embedding
-    nn.init.normal_(pos, 0.0, pos.shape[1] ** -0.5, generator=gen)
+    if spec.family == "clip":
+        pos = module.attnpool.positional_embedding
+        nn.init.normal_(pos, 0.0, pos.shape[1] ** -0.5, generator=gen)
     return module.state_dict()
 
 
-def _make_module(arch: str, dtype, folded: bool, sd, device) -> CLIPVisual:
-    """CLIPVisual on `device` in `dtype` holding `sd`: frozen, eval, channels-last."""
+def _make_module(spec: EncoderSpec, dtype, folded: bool, sd, device,
+                 fused_bottlenecks: bool = True) -> nn.Module:
+    """The spec's module on `device` in `dtype` holding `sd`: frozen, eval,
+    channels-last."""
     with torch.device("meta"):
-        module = CLIPVisual(arch, dtype, folded=folded)
+        module = _new_module(spec, dtype, folded, fused_bottlenecks)
     module = module.to_empty(device=device)
     module.load_state_dict(sd)
     return module.to(memory_format=torch.channels_last).eval().requires_grad_(False)
 
 
+def _frames(frames) -> torch.Tensor:
+    if isinstance(frames, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(frames))
+    return frames
+
+
+def _avgpool(conv: torch.Tensor) -> torch.Tensor:
+    """Global mean of an NHWC map in f32, cast back (encoders.py:120-125)."""
+    return conv.to(torch.float32).mean(dim=(1, 2)).to(conv.dtype)
+
+
 class FrozenEncoder:
     """A frozen encoder: module + fused preprocess, with `encode(frames_u8)`."""
 
-    def __init__(self, spec: EncoderSpec, module: CLIPVisual, image_size: int,
+    def __init__(self, spec: EncoderSpec, module: nn.Module, image_size: int,
                  dtype=torch.float32, device="cuda"):
         self.spec = spec
         self.module = module
@@ -100,19 +127,28 @@ class FrozenEncoder:
     def encode(self, frames) -> Dict[str, torch.Tensor]:
         """uint8 NHWC frames (any HxW), or the flat (n, h, w*3) view, as a tensor or
         a numpy array → feature dict on the encoder's device."""
-        if isinstance(frames, np.ndarray):
-            frames = torch.from_numpy(np.ascontiguousarray(frames))
-        feats = self.module(self.preprocess(frames.to(self.device)))
+        x = self.preprocess(_frames(frames).to(self.device))
+        if self.spec.family == "imagenet":
+            conv = self.module(x)
+            return {"imagenet_conv": conv, "imagenet_avgpool": _avgpool(conv)}
+        feats = self.module(x)
         return {"clip_conv": feats["conv"], "clip_avgpool": feats["avgpool"],
                 "clip_attnpool": feats["embed"]}
 
-    def fold_bn(self) -> "FrozenEncoder":
+    def fold_bn(self, fused_bottlenecks: bool = True) -> "FrozenEncoder":
         """A new encoder with frozen BN folded into the conv weights (ops/fold_bn.py):
-        the serving configuration, pure conv+bias+relu in the compute dtype."""
+        the serving configuration, conv+bias+relu in the compute dtype. In bf16 its
+        bottleneck trunk runs stage 1 through kernel K7 and the stride-1 identity blocks
+        through K6; `fused_bottlenecks=False` keeps every block on the cuDNN route (the
+        yardstick). f32 encoders always take the cuDNN route."""
         if self.module.folded:
-            return self
-        sd = fold_conv_bn_state_dict(self.module.state_dict())
-        module = _make_module(self.spec.arch, self.dtype, True, sd, self.device)
+            if self.module.fused_bottlenecks == fused_bottlenecks:
+                return self
+            sd = self.module.state_dict()
+        else:
+            sd = fold_conv_bn_state_dict(self.module.state_dict())
+        module = _make_module(self.spec, self.dtype, True, sd, self.device,
+                              fused_bottlenecks)
         return FrozenEncoder(self.spec, module, self.image_size, self.dtype, self.device)
 
     def quantize(self, calibration_frames) -> "FrozenEncoder":
@@ -121,70 +157,55 @@ class FrozenEncoder:
         stay in the compute dtype. On CUDA the trunk runs kernels K2, K3 and K5
         (`PATH_A`); on the CPU, the same dispatch on their plain versions.
 
+        A torchvision-family encoder gets `_QuantizedResNetEncoder`: the same scheme on
+        its 7×7 stem (bf16, requantized before an int8 max pool) and its stride-2 convs;
+        no kernel runs on that trunk, as in the JAX package.
+
         `calibration_frames` must be representative uint8 frames (real observations,
         or parity.golden_frames), never noise: the activation scales are maxima over
         them. They go through the encoder's own preprocess (K1 in bf16); calibration
         runs the folded trunk in full f32 (TF32 off), from the encoder's weights
         upcast to f32."""
         from embodied_clip_tpu_torch.models.clip_resnet import CLIP_RESNET_CONFIGS
-        from embodied_clip_tpu_torch.ops.quantize import quantize_trunk
+        from embodied_clip_tpu_torch.ops.quantize import quantize_resnet_trunk, quantize_trunk
 
-        if self.spec.family != "clip" or self.spec.arch not in CLIP_RESNET_CONFIGS:
+        if self.spec.family == "clip" and self.spec.arch not in CLIP_RESNET_CONFIGS:
             raise NotImplementedError(
-                f"no int8 path for {self.spec.arch} in the port (the torchvision and ViT "
-                "int8 trunks are not ported); see ROADMAP.md, queue 1, M8")
+                f"no int8 path for {self.spec.arch} in the port (the ViT int8 trunk is "
+                "not ported); see ROADMAP.md, queue 1, M8")
         folded = self.fold_bn()
-        if isinstance(calibration_frames, np.ndarray):
-            calibration_frames = torch.from_numpy(np.ascontiguousarray(calibration_frames))
-        stage_sizes = CLIP_RESNET_CONFIGS[self.spec.arch]["stage_sizes"]
         sd = {k: v.float() for k, v in folded.module.state_dict().items()
               if not k.startswith("attnpool.")}
         with torch.inference_mode():
-            x = folded.preprocess(calibration_frames.to(self.device))
+            x = folded.preprocess(_frames(calibration_frames).to(self.device))
+            if self.spec.family == "imagenet":
+                cfg = RESNET_CONFIGS[self.spec.arch]
+                qtrunk = quantize_resnet_trunk(sd, cfg["stage_sizes"], cfg["block"], x)
+                return _QuantizedResNetEncoder(folded, qtrunk, cfg["stage_sizes"],
+                                               cfg["block"])
+            stage_sizes = CLIP_RESNET_CONFIGS[self.spec.arch]["stage_sizes"]
             qtrunk = quantize_trunk(sd, stage_sizes, x)
         return _QuantizedCLIPEncoder(folded, qtrunk, stage_sizes)
 
     def load_torch_state_dict(self, sd) -> "FrozenEncoder":
-        """Replace the weights with an openai/CLIP state_dict (full or `visual.*`)."""
-        self.module.load_state_dict(visual_state_dict(sd))
+        """Replace the weights with a reference state_dict: openai/CLIP's (full or
+        `visual.*`) for the CLIP family, torchvision's (its `fc.*` head dropped, as the
+        reference truncates the model) for the ImageNet family."""
+        self.module.load_state_dict(_module_state_dict(self.spec, sd))
         return self
 
 
-class _QuantizedCLIPEncoder(FrozenEncoder):
-    """CLIP ResNet encoder with an int8 trunk (see FrozenEncoder.quantize).
+class _QuantizedEncoder(FrozenEncoder):
+    """An encoder whose bottleneck trunk is int8 (see FrozenEncoder.quantize); the
+    module keeps the folded weights of the parts that stay in the compute dtype."""
 
-    `kernels` holds `quantized_trunk_apply`'s four switches: `PATH_A` by default;
-    `with_kernels(...)` gives an encoder on the same quantized weights with others."""
-
-    def __init__(self, folded: FrozenEncoder, qtrunk, stage_sizes, kernels=None):
-        from embodied_clip_tpu_torch.ops.quantize import PATH_A
-
+    def __init__(self, folded: FrozenEncoder, qtrunk, stage_sizes):
         super().__init__(folded.spec, folded.module, folded.image_size, folded.dtype,
                          folded.device)
         self.qtrunk = qtrunk
         self.stage_sizes = tuple(stage_sizes)
-        self.kernels = dict(PATH_A if kernels is None else kernels)
 
-    def with_kernels(self, **switches) -> "_QuantizedCLIPEncoder":
-        folded = FrozenEncoder(self.spec, self.module, self.image_size, self.dtype,
-                               self.device)
-        return _QuantizedCLIPEncoder(folded, self.qtrunk, self.stage_sizes,
-                                     {**self.kernels, **switches})
-
-    @torch.inference_mode()
-    def encode(self, frames) -> Dict[str, torch.Tensor]:
-        from embodied_clip_tpu_torch.ops.quantize import quantized_trunk_apply
-
-        if isinstance(frames, np.ndarray):
-            frames = torch.from_numpy(np.ascontiguousarray(frames))
-        x = self.preprocess(frames.to(self.device))
-        conv = quantized_trunk_apply(self.qtrunk, x, self.stage_sizes,
-                                     out_dtype=self.dtype, **self.kernels)
-        avg = conv.to(torch.float32).mean(dim=(1, 2)).to(conv.dtype)
-        return {"clip_conv": conv, "clip_avgpool": avg,
-                "clip_attnpool": self.module.attnpool(conv)}
-
-    def fold_bn(self) -> "FrozenEncoder":
+    def fold_bn(self, fused_bottlenecks: bool = True) -> "FrozenEncoder":
         return self  # already folded and quantized
 
     def quantize(self, calibration_frames) -> "FrozenEncoder":
@@ -195,11 +216,63 @@ class _QuantizedCLIPEncoder(FrozenEncoder):
                                   "holds calibrated s8 weights")
 
 
+class _QuantizedCLIPEncoder(_QuantizedEncoder):
+    """CLIP ResNet encoder with an int8 trunk.
+
+    `kernels` holds `quantized_trunk_apply`'s four switches: `PATH_A` by default;
+    `with_kernels(...)` gives an encoder on the same quantized weights with others."""
+
+    def __init__(self, folded: FrozenEncoder, qtrunk, stage_sizes, kernels=None):
+        from embodied_clip_tpu_torch.ops.quantize import PATH_A
+
+        super().__init__(folded, qtrunk, stage_sizes)
+        self.kernels = dict(PATH_A if kernels is None else kernels)
+
+    def with_kernels(self, **switches) -> "_QuantizedCLIPEncoder":
+        return _QuantizedCLIPEncoder(self, self.qtrunk, self.stage_sizes,
+                                     {**self.kernels, **switches})
+
+    @torch.inference_mode()
+    def encode(self, frames) -> Dict[str, torch.Tensor]:
+        from embodied_clip_tpu_torch.ops.quantize import quantized_trunk_apply
+
+        x = self.preprocess(_frames(frames).to(self.device))
+        conv = quantized_trunk_apply(self.qtrunk, x, self.stage_sizes,
+                                     out_dtype=self.dtype, **self.kernels)
+        return {"clip_conv": conv, "clip_avgpool": _avgpool(conv),
+                "clip_attnpool": self.module.attnpool(conv)}
+
+
+class _QuantizedResNetEncoder(_QuantizedEncoder):
+    """torchvision-family encoder with an int8 trunk: the plain int8 graph
+    (`ops/quantize.quantized_resnet_apply`), which runs no kernel."""
+
+    def __init__(self, folded: FrozenEncoder, qtrunk, stage_sizes, block: str):
+        super().__init__(folded, qtrunk, stage_sizes)
+        self.block = block
+
+    @torch.inference_mode()
+    def encode(self, frames) -> Dict[str, torch.Tensor]:
+        from embodied_clip_tpu_torch.ops.quantize import quantized_resnet_apply
+
+        x = self.preprocess(_frames(frames).to(self.device))
+        conv = quantized_resnet_apply(self.qtrunk, x, self.stage_sizes, self.block,
+                                      out_dtype=self.dtype)
+        return {"imagenet_conv": conv, "imagenet_avgpool": _avgpool(conv)}
+
+
+def _module_state_dict(spec: EncoderSpec, sd) -> Dict[str, torch.Tensor]:
+    if spec.family == "imagenet":
+        return {k: v for k, v in sd.items() if not k.startswith("fc.")}
+    return visual_state_dict(sd)
+
+
 def build_encoder(name: str, dtype=torch.float32, seed: int = 0,
                   torch_checkpoint: Optional[str] = None,
                   device="cuda") -> FrozenEncoder:
     """name ∈ ENCODER_SPECS. Random-init from `seed` unless a torch checkpoint path is
-    given. Runs on the GPU unless `device` says otherwise."""
+    given (openai/CLIP's for `clip_*`, torchvision's for `imagenet_*`). Runs on the GPU
+    unless `device` says otherwise."""
     if name not in ENCODER_SPECS:
         raise NotImplementedError(
             f"encoder {name!r} is not ported to PyTorch (ported: "
@@ -207,8 +280,9 @@ def build_encoder(name: str, dtype=torch.float32, seed: int = 0,
     device = _device(device)
     spec = ENCODER_SPECS[name]
     if torch_checkpoint is not None:
-        sd = visual_state_dict(load_torch_checkpoint(torch_checkpoint))
+        sd = _module_state_dict(spec, load_torch_checkpoint(torch_checkpoint))
     else:
-        sd = _random_state_dict(spec.arch, seed)
-    module = _make_module(spec.arch, dtype, False, sd, device)
-    return FrozenEncoder(spec, module, image_size_of(spec.arch), dtype, device)
+        sd = _random_state_dict(spec, seed)
+    module = _make_module(spec, dtype, False, sd, device)
+    size = 224 if spec.family == "imagenet" else image_size_of(spec.arch)
+    return FrozenEncoder(spec, module, size, dtype, device)

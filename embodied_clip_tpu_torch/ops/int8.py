@@ -10,7 +10,8 @@ by one s8 step on near-ties; a division by a device tensor is the IEEE divide th
 kernels use (`__fdiv_rn`).
 
 s8 products go through `torch._int_mm` (s8×s8→s32, exact; cuBLASLt on CUDA), with
-the 3×3 conv as im2col. No PyTorch CUDA op computes an s8 convolution.
+the 3×3 conv (stride 1 or 2, symmetric padding 1) as im2col. No PyTorch CUDA op
+computes an s8 convolution.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["QMAX", "qmm", "qconv_acc", "requant", "requant_signed", "avg_pool_int8",
-           "im2col3x3", "full_f32"]
+           "max_pool_int8", "im2col3x3", "full_f32"]
 
 QMAX = 127.0
 
@@ -56,23 +57,29 @@ def qmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a.contiguous(), b.t().contiguous().t())[:m, :n]
 
 
-def im2col3x3(x: torch.Tensor) -> torch.Tensor:
-    """NHWC (n, h, w, c) → (n, h, w, 9c): the 3×3 'SAME' window, zero halo, taps in
-    HWIO order (k = (ky·3 + kx)·c + ci), so an HWIO kernel reshaped to (9c, cout)
-    is the matching weight matrix."""
+def im2col3x3(x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """NHWC (n, h, w, c) → (n, oh, ow, 9c): the 3×3 window with a zero halo of 1 on
+    every side (stride 1: 'SAME'; stride 2: the JAX graph's symmetric (1, 1) padding,
+    oh = (h - 1) // 2 + 1), taps in HWIO order (k = (ky·3 + kx)·c + ci), so an HWIO
+    kernel reshaped to (9c, cout) is the matching weight matrix."""
     n, h, w, _ = x.shape
+    oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-    return torch.cat([xp[:, ky:ky + h, kx:kx + w] for ky in range(3) for kx in range(3)],
-                     dim=-1)
+    return torch.cat([xp[:, ky:ky + stride * (oh - 1) + 1:stride,
+                         kx:kx + stride * (ow - 1) + 1:stride]
+                      for ky in range(3) for kx in range(3)], dim=-1)
 
 
-def qconv_acc(t8: torch.Tensor, kernel_q: torch.Tensor) -> torch.Tensor:
-    """s8 NHWC × s8 HWIO kernel (1×1 or 3×3, stride 1, 'SAME') → s32 NHWC."""
+def qconv_acc(t8: torch.Tensor, kernel_q: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """s8 NHWC × s8 HWIO kernel → s32 NHWC: 1×1 at stride 1, or 3×3 at stride 1 or 2
+    with padding 1."""
     kh, kw, cin, cout = kernel_q.shape
-    if kh == 1 and kw == 1:
+    if kh == 1 and kw == 1 and stride == 1:
         cols = t8
+    elif kh == 3 and kw == 3:
+        cols = im2col3x3(t8, stride)
     else:
-        cols = im2col3x3(t8)
+        raise ValueError(f"no s8 conv for a {kh}×{kw} kernel at stride {stride}")
     n, h, w, k = cols.shape
     out = qmm(cols.reshape(n * h * w, k), kernel_q.reshape(kh * kw * cin, cout))
     return out.reshape(n, h, w, cout)
@@ -100,3 +107,19 @@ def avg_pool_int8(x8: torch.Tensor, window: int) -> torch.Tensor:
     s = x.reshape(n_img, h2, window, w2, window, c).sum(dim=(2, 4))
     n = window * window
     return torch.div(s + n // 2, n, rounding_mode="floor").to(torch.int8)
+
+
+def max_pool_int8(x8: torch.Tensor, window: int = 3, stride: int = 2,
+                  pad: int = 1) -> torch.Tensor:
+    """torchvision's stem max pool on an NHWC s8 tensor, padded with -128
+    (`quantize.py:79-86`): exact, since max commutes with the monotone requant."""
+    n, h, w, c = x8.shape
+    oh, ow = (h + 2 * pad - window) // stride + 1, (w + 2 * pad - window) // stride + 1
+    xp = F.pad(x8, (0, 0, pad, pad, pad, pad), value=-128)
+    out = None
+    for ky in range(window):
+        for kx in range(window):
+            tap = xp[:, ky:ky + stride * (oh - 1) + 1:stride,
+                     kx:kx + stride * (ow - 1) + 1:stride]
+            out = tap if out is None else torch.maximum(out, tap)
+    return out

@@ -22,7 +22,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 # Every kernel source of the port; chip_smoke.py builds them all before it runs.
-SOURCES = ("preprocess", "stem_int8", "bottleneck_int8")
+SOURCES = ("preprocess", "stem_int8", "bottleneck_int8", "bottleneck_bf16")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

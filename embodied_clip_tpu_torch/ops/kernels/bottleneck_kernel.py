@@ -1,13 +1,16 @@
-"""Kernels K3, K4 and K5: the int8 bottlenecks of the quantized CLIP trunk.
+"""Kernels K3-K7: the bottlenecks of the quantized and the folded bf16 ResNet trunks.
 
 Replaces, in `embodied_clip_tpu/ops/pallas/bottleneck_kernel.py`:
   K3 `fused_stage1_int8`     the whole int8 stage 1 (3 bottlenecks, bf16 shortcut)
   K4 `fused_cb3_cb1_int8`    block n's cb3 + residual + requant with block n+1's cb1
   K5 `fused_resblocks_int8`  k stride-1 identity bottlenecks
-Each has the TPU kernel's signature and result. The CUDA source is
-`embodied_clip_tpu_torch/csrc/bottleneck_int8.cu`; its header states the bound and the
-design. A stage does not fit one SM's shared memory as it fits a TPU core's VMEM, so
-K3 and K5 are short sequences of launches through one set of device functions:
+  K6 `fused_bottleneck`      one bf16 stride-1 identity bottleneck, BN folded
+  K7 `fused_stage1`          the whole bf16 stage 1 (conv shortcut on block 0)
+Each has the TPU kernel's signature and result. The CUDA sources are
+`embodied_clip_tpu_torch/csrc/bottleneck_int8.cu` (K3-K5) and `bottleneck_bf16.cu`
+(K6, K7); their headers state the bound and the design. A stage does not fit one SM's
+shared memory as it fits a TPU core's VMEM, so each is a short sequence of launches
+through a few device functions:
 
   K4  1 launch   cb3_cb1 (c)
   K5  2k+1       cb1 (a), then per block: 3×3 cb2 (b), and cb3 + residual + requant
@@ -15,26 +18,31 @@ K3 and K5 are short sequences of launches through one set of device functions:
                  the residual epilogue (s8 requant, or the relu'd bf16/f32 conv map)
   K3  8          cb1a (a), shortcut (d), cb2a (b), cb3a·cb1b (c), cb2b (b), cb3b·cb1c
                  (c), cb2c (b), cb3c + residual + requant (a)
+  K6  3          cb1 (a), 3×3 cb2 (b), cb3 + residual (c), each + bias + relu → bf16
+  K7  3 a block  as K6; block 0's cb3 adds the conv shortcut as a second K loop
 
 Every wrapper takes its plain version for a CPU tensor, and only for a CPU tensor;
 on a CUDA tensor it launches or raises. Each counts its calls that launch (`.launches`),
-once per call, whatever the number of launches inside. The plain versions use the
-int8 graph's primitives (`ops/int8.py`) in the TPU kernels' op order.
+once per call, whatever the number of launches inside. The int8 plain versions use the
+int8 graph's primitives (`ops/int8.py`) in the TPU kernels' op order; the bf16 ones
+round to bf16 exactly where the TPU kernels do.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Sequence
+from typing import Dict, Mapping, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from embodied_clip_tpu_torch.ops.int8 import full_f32, qconv_acc, qmm, requant, requant_signed
 
 __all__ = ["fused_stage1_int8", "fused_cb3_cb1_int8", "fused_resblocks_int8",
            "fused_stage1_int8_reference", "fused_cb3_cb1_int8_reference",
-           "fused_resblocks_int8_reference"]
+           "fused_resblocks_int8_reference", "fused_bottleneck", "fused_stage1",
+           "fused_bottleneck_reference", "fused_stage1_reference"]
 
 _SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block can opt in to
 _OUT_KIND = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 3}  # residual epilogues
@@ -351,3 +359,186 @@ def fused_stage1_int8(x8: torch.Tensor, ops: Dict[str, torch.Tensor]) -> torch.T
 fused_stage1_int8.launches = 0
 fused_cb3_cb1_int8.launches = 0
 fused_resblocks_int8.launches = 0
+
+
+# ------------------------------------------------------- K6, K7: bf16 plain versions
+#
+# A block's weights are a dict {w1 (C, Cm), b1 (Cm,), w2 (3, 3, Cm, Cm) HWIO, b2 (Cm,),
+# w3 (Cm, C'), b3 (C',)}, as the JAX kernels take them. The plain versions accept any
+# float x; they cast the weights to x's dtype and round to it where the TPU kernels do:
+# h1 and h2 once each, the block output once.
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a (…, K) · w (K, N) in f32 on values in a's dtype (exact products for bf16)."""
+    return torch.matmul(a.float(), w.to(a.dtype).float())
+
+
+def _bottleneck_pre(x: torch.Tensor, blk: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """One stride-1 bottleneck before its residual: f32 h2·w3 + b3 (`_bottleneck_body`)."""
+    dt = x.dtype
+    with full_f32():
+        h1 = torch.relu(_mm(x, blk["w1"]) + blk["b1"].float()).to(dt)
+        k2 = blk["w2"].to(dt).float().permute(3, 2, 0, 1)  # HWIO → OIHW
+        acc = F.conv2d(h1.float().permute(0, 3, 1, 2), k2, padding=1).permute(0, 2, 3, 1)
+        h2 = torch.relu(acc + blk["b2"].float()).to(dt)
+        return _mm(h2, blk["w3"]) + blk["b3"].float()
+
+
+def _block(w1, b1, w2, b2, w3, b3) -> Dict[str, torch.Tensor]:
+    return {"w1": w1, "b1": b1, "w2": w2, "b2": b2, "w3": w3, "b3": b3}
+
+
+def fused_bottleneck_reference(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+    """Plain version of K6: relu(h2·w3 + b3 + x) in f32, cast to x's dtype."""
+    pre = _bottleneck_pre(x, _block(w1, b1, w2, b2, w3, b3))
+    return torch.relu(pre + x.float()).to(x.dtype)
+
+
+def fused_stage1_reference(x, blocks: Sequence[Mapping[str, torch.Tensor]],
+                           shortcut: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Plain version of K7: block 0 with the conv shortcut, then identity blocks."""
+    ws, bs = shortcut
+    with full_f32():
+        sc = _mm(x, ws) + bs.float()
+    out = torch.relu(_bottleneck_pre(x, blocks[0]) + sc).to(x.dtype)
+    for blk in blocks[1:]:
+        out = torch.relu(_bottleneck_pre(out, blk) + out.float()).to(x.dtype)
+    return out
+
+
+# ------------------------------------------------------------------ K6, K7: wrappers
+
+
+@functools.lru_cache(maxsize=1)
+def _lib_bf16():
+    from embodied_clip_tpu_torch.ops.kernels import _build
+
+    lib = _build.load("bottleneck_bf16")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ect_gemm_bf16.argtypes = [p, i, i, p, i, p, p, i, p, p, p, p, i, i, i, i, p]
+    lib.ect_gemm_bf16.restype = ctypes.c_int
+    lib.ect_error_string.argtypes = [ctypes.c_int]
+    lib.ect_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_bf16(name: str, t: torch.Tensor, device, shape) -> None:
+    if (t.dtype != torch.bfloat16 or t.device != device or not t.is_contiguous()
+            or tuple(t.shape) != tuple(shape)):
+        raise ValueError(f"{name}: expected a contiguous bfloat16 {tuple(shape)} tensor on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the data must be 16-byte aligned")
+
+
+def _cuda_bf16_input(kernel: str, x: torch.Tensor) -> bool:
+    """True for a CPU tensor (take the plain version); raise unless the kernel takes x."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{kernel}: no kernel for device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{kernel}: the kernel takes bfloat16, got {x.dtype}")
+    if x.ndim != 4 or not x.is_contiguous():
+        raise ValueError(f"{kernel}: expected a contiguous NHWC tensor, got shape "
+                         f"{tuple(x.shape)}, strides {x.stride()}")
+    if x.shape[-1] % 8 or x.data_ptr() % 16:
+        raise ValueError(f"{kernel}: C must be a multiple of 8 and the data 16-byte "
+                         f"aligned, got C = {x.shape[-1]}")
+    return False
+
+
+def _gemm(a, w, bias, out, conv3=False, res=None, a2=None, w2=None, bias2=None) -> None:
+    """One launch: out = bf16(relu(a·w [+ a2·w2] + bias [+ bias2] [+ res])); `conv3`
+    makes a·w the 3×3 'SAME' convolution of NHWC a with the HWIO kernel w."""
+    dev = a.device
+    c, n = a.shape[-1], out.shape[-1]
+    k = 9 * c if conv3 else c
+    _check_bf16("kernel", w, dev, (3, 3, c, n) if conv3 else (c, n))
+    _check_f32("bias", bias, dev, n)
+    if res is not None:
+        _check_bf16("residual", res, dev, out.shape)
+    k2 = 0
+    if a2 is not None:
+        k2 = a2.shape[-1]
+        _check_bf16("shortcut kernel", w2, dev, (k2, n))
+        _check_f32("shortcut bias", bias2, dev, n)
+    if n % 8:
+        raise ValueError(f"output channels must be a multiple of 8, got {n}")
+    h, wd = (a.shape[1], a.shape[2]) if conv3 else (1, 1)
+    lib = _lib_bf16()
+    err = lib.ect_gemm_bf16(
+        a.data_ptr(), a.numel() // c, k, w.data_ptr(), n, bias.data_ptr(),
+        a2.data_ptr() if a2 is not None else 0, k2, w2.data_ptr() if a2 is not None else 0,
+        bias2.data_ptr() if a2 is not None else 0, res.data_ptr() if res is not None else 0,
+        out.data_ptr(), c if conv3 else 0, h, wd, *_stream(a))
+    if err:
+        raise RuntimeError("ect_gemm_bf16 launch failed: " + lib.ect_error_string(err).decode())
+
+
+def _bottleneck_launches(x, blk, h1, h2, shortcut=None) -> torch.Tensor:
+    """K6's three launches (with K7's shortcut on block 0's last); h1/h2 are scratch."""
+    cm = blk["w1"].shape[-1]
+    if blk["w2"].shape[-1] != cm or h1.shape[-1] != cm or cm % 8:
+        raise ValueError(f"bottleneck width Cm = {cm} must be a multiple of 8 and chain "
+                         f"through w2 {tuple(blk['w2'].shape)}")
+    out = torch.empty((*x.shape[:-1], blk["w3"].shape[-1]), dtype=x.dtype, device=x.device)
+    _gemm(x, blk["w1"], blk["b1"], h1)
+    _gemm(h1, blk["w2"], blk["b2"], h2, conv3=True)
+    if shortcut is None:
+        if out.shape != x.shape:
+            raise ValueError(f"identity bottleneck: w3 {tuple(blk['w3'].shape)} does not "
+                             f"map back to C = {x.shape[-1]}")
+        _gemm(h2, blk["w3"], blk["b3"], out, res=x)
+    else:
+        _gemm(h2, blk["w3"], blk["b3"], out, a2=x, w2=shortcut[0], bias2=shortcut[1])
+    return out
+
+
+def fused_bottleneck(x: torch.Tensor, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+    """One stride-1 bottleneck with BN folded in: relu(conv1x1_3(relu(conv3x3(relu(
+    conv1x1_1(x))))) + x).
+
+    x (N, H, W, C) NHWC; w1 (C, Cm), w2 (3, 3, Cm, Cm) HWIO, w3 (Cm, C) in x's dtype;
+    b1, b2 (Cm,), b3 (C,) f32. On CUDA the kernel takes contiguous bf16 x and weights,
+    with C and Cm multiples of 8, and raises on anything else; it agrees with the plain
+    version up to the bf16 roundings of h1/h2 that the f32 sum order flips on near-ties.
+
+    Not ported from the TPU kernel: `batch_tile` (a VMEM grid knob),
+    `supports_fused_bottleneck` (a TPU VMEM budget) and `_unscale` (the int8
+    `ECT_RECIP_REQUANT` experiment)."""
+    if _cuda_bf16_input("fused_bottleneck", x):
+        return fused_bottleneck_reference(x, w1, b1, w2, b2, w3, b3)
+    shape = (*x.shape[:-1], w1.shape[-1])
+    h1 = torch.empty(shape, dtype=x.dtype, device=x.device)
+    out = _bottleneck_launches(x, _block(w1, b1, w2, b2, w3, b3), h1, torch.empty_like(h1))
+    fused_bottleneck.launches += 1
+    return out
+
+
+def fused_stage1(x: torch.Tensor, blocks: Sequence[Mapping[str, torch.Tensor]],
+                 shortcut: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """The whole stage 1 of a folded bottleneck trunk: block 0 maps Cin → Cout with the
+    1×1 conv `shortcut` = (ws (Cin, Cout), bs (Cout,)) added before its relu; the blocks
+    after it are identity bottlenecks (3 blocks in RN50; any number ≥ 1 here).
+
+    x (N, H, W, Cin) NHWC; `blocks` as for `fused_bottleneck` (block 0's w1 is
+    (Cin, Cm), its w3 (Cm, Cout)). Rounds where K6 rounds, the block outputs once each.
+    The same kernel requirements as `fused_bottleneck`; `batch_tile` is not ported."""
+    if _cuda_bf16_input("fused_stage1", x):
+        return fused_stage1_reference(x, blocks, shortcut)
+    cm = blocks[0]["w1"].shape[-1]
+    if any(b["w1"].shape[-1] != cm for b in blocks):
+        raise ValueError("fused_stage1: every block must have the same width Cm")
+    h1 = torch.empty((*x.shape[:-1], cm), dtype=x.dtype, device=x.device)
+    h2 = torch.empty_like(h1)
+    out = _bottleneck_launches(x, blocks[0], h1, h2, shortcut=shortcut)
+    for blk in blocks[1:]:
+        out = _bottleneck_launches(out, blk, h1, h2)
+    fused_stage1.launches += 1
+    return out
+
+
+fused_bottleneck.launches = 0
+fused_stage1.launches = 0

@@ -1,5 +1,6 @@
-"""Post-training int8 quantization of the frozen CLIP ResNet trunk (port of the CLIP
-part of `embodied_clip_tpu/ops/quantize.py`).
+"""Post-training int8 quantization of the frozen ResNet trunks (port of
+`embodied_clip_tpu/ops/quantize.py`: the CLIP trunk, and the torchvision trunk at
+`:613-738`).
 
 Scheme (symmetric PTQ, as in the JAX package):
   weights      s8 per output channel, scale = max|w| / 127
@@ -27,10 +28,17 @@ With all of them off it is the plain graph. `PATH_A` (K2 + K3 + K5) is what a
 quantized encoder runs; `PATH_B` swaps K5 for K4. What the kernels do not cover (the
 bf16 stem1/stem2 convs, and each later stage's stride block 0) runs as plain torch:
 cuDNN for the bf16 convs, `torch._int_mm` (+ im2col) for the s8 ones.
+
+The torchvision trunk (`calibrate_resnet_trunk`, `quantize_resnet_trunk`,
+`quantized_resnet_apply`) has the same scheme and tree, with the 7×7/2 stem ("stem")
+requantized before an exact int8 max pool, stride-2 3×3 s8 convs (a strided im2col),
+and bf16 `down` convs whose output makes the signed s8 round trip. Like the JAX
+package's, it runs no kernel.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Mapping, Sequence
 
 import numpy as np
@@ -41,6 +49,7 @@ from embodied_clip_tpu_torch.ops.int8 import (
     QMAX,
     avg_pool_int8,
     full_f32,
+    max_pool_int8,
     qconv_acc,
     requant,
     requant_signed,
@@ -49,6 +58,7 @@ from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
 from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
 
 __all__ = ["calibrate_trunk", "quantize_trunk", "quantized_trunk_apply",
+           "calibrate_resnet_trunk", "quantize_resnet_trunk", "quantized_resnet_apply",
            "stage1_int8_operands", "cb3_cb1_operands", "resblocks_int8_operands",
            "PATH_A", "PATH_B", "KERNELS_OFF", "PALLAS_RESBLOCKS_MIN_CM"]
 
@@ -72,8 +82,9 @@ def _block_names(stage_sizes: Sequence[int]):
 
 
 def _sd_prefix(name: str) -> str:
-    """JAX tree name → the port's (openai/CLIP) state_dict prefix."""
-    stems = {"stem1": "conv1", "stem2": "conv2", "stem3": "conv3"}
+    """JAX tree name → the port's state_dict prefix (openai/CLIP and torchvision names:
+    "stem" is torchvision's `conv1`)."""
+    stems = {"stem": "conv1", "stem1": "conv1", "stem2": "conv2", "stem3": "conv3"}
     if name in stems:
         return stems[name]
     block, conv = name.split("/")
@@ -101,6 +112,14 @@ def _nhwc_conv(x: torch.Tensor, weight: torch.Tensor, stride: int = 1) -> torch.
 # --------------------------------------------------------------------- calibration
 
 
+def _folded_conv(folded_sd, name, t, stride=1, relu=True):
+    """Folded conv `name` (+ bias, relu) on NHWC t in f32, as the calibration runs it."""
+    pre = _sd_prefix(name)
+    out = _nhwc_conv(t, folded_sd[f"{pre}.weight"].float(), stride)
+    out = out + folded_sd[f"{pre}.bias"].float()
+    return torch.relu(out) if relu else out
+
+
 def calibrate_trunk(folded_sd: Mapping[str, torch.Tensor], stage_sizes: Sequence[int],
                     x: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Run the folded trunk in f32 on calibration input x (NHWC) and record the scale
@@ -113,11 +132,7 @@ def calibrate_trunk(folded_sd: Mapping[str, torch.Tensor], stage_sizes: Sequence
     def record(name, t):
         scales[name] = _per_tensor_scale(t.max())
 
-    def cb(name, t, stride=1, relu=True):
-        pre = _sd_prefix(name)
-        out = _nhwc_conv(t, folded_sd[f"{pre}.weight"].float(), stride)
-        out = out + folded_sd[f"{pre}.bias"].float()
-        return torch.relu(out) if relu else out
+    cb = functools.partial(_folded_conv, folded_sd)
 
     def pool(t, k):
         return F.avg_pool2d(t.permute(0, 3, 1, 2), k).permute(0, 2, 3, 1)
@@ -164,6 +179,20 @@ def _hwio(weight_oihw: torch.Tensor) -> torch.Tensor:
     return weight_oihw.float().permute(2, 3, 1, 0).contiguous()
 
 
+def _fp_entry(folded_sd: Mapping[str, torch.Tensor], name: str) -> Dict[str, torch.Tensor]:
+    """A conv that stays in the compute dtype: f32 HWIO kernel and bias."""
+    pre = _sd_prefix(name)
+    return {"kernel": _hwio(folded_sd[f"{pre}.weight"]),
+            "bias": folded_sd[f"{pre}.bias"].float()}
+
+
+def _s8_entry(folded_sd: Mapping[str, torch.Tensor], name: str) -> Dict[str, torch.Tensor]:
+    """An s8 conv: per-output-channel s8 HWIO kernel, weight scales, f32 bias."""
+    pre = _sd_prefix(name)
+    return dict(_quantize_kernel(_hwio(folded_sd[f"{pre}.weight"])),
+                bias=folded_sd[f"{pre}.bias"].float())
+
+
 def quantize_trunk(folded_sd: Mapping[str, torch.Tensor], stage_sizes: Sequence[int],
                    calibration_x: torch.Tensor) -> Dict[str, Any]:
     """Folded state_dict → quantized trunk: s8 kernels + per-channel weight scales for
@@ -171,22 +200,18 @@ def quantize_trunk(folded_sd: Mapping[str, torch.Tensor], stage_sizes: Sequence[
     convs, and the activation scales calibrated on `calibration_x`."""
     q: Dict[str, Any] = {"act_scales": calibrate_trunk(folded_sd, stage_sizes,
                                                        calibration_x), "fp": {}}
-
-    def fp(name):
-        pre = _sd_prefix(name)
-        return {"kernel": _hwio(folded_sd[f"{pre}.weight"]),
-                "bias": folded_sd[f"{pre}.bias"].float()}
-
     for name in ("stem1", "stem2", "stem3"):
-        q["fp"][name] = fp(name)
-    for name, _stride in _block_names(stage_sizes):
-        for cbname in ("cb1", "cb2", "cb3"):
-            pre = _sd_prefix(f"{name}/{cbname}")
-            q[f"{name}/{cbname}"] = dict(_quantize_kernel(_hwio(folded_sd[f"{pre}.weight"])),
-                                         bias=folded_sd[f"{pre}.bias"].float())
-        if f"{_sd_prefix(name + '/down')}.weight" in folded_sd:
-            q["fp"][f"{name}/down"] = fp(f"{name}/down")
+        q["fp"][name] = _fp_entry(folded_sd, name)
+    _quantize_blocks(q, folded_sd, stage_sizes, ("cb1", "cb2", "cb3"))
     return q
+
+
+def _quantize_blocks(q, folded_sd, stage_sizes, convs) -> None:
+    for name, _stride in _block_names(stage_sizes):
+        for cbname in convs:
+            q[f"{name}/{cbname}"] = _s8_entry(folded_sd, f"{name}/{cbname}")
+        if f"{_sd_prefix(name + '/down')}.weight" in folded_sd:
+            q["fp"][f"{name}/down"] = _fp_entry(folded_sd, f"{name}/down")
 
 
 # ------------------------------------------------------------ kernel operand builders
@@ -278,13 +303,14 @@ def _cached(q: Dict[str, Any], key: tuple, build: Callable[[], Any]):
 # --------------------------------------------------------------------------- apply
 
 
-def _fp_conv(q, name, t, stride=1, relu=True):
-    """bf16 conv with f32 bias; the 1×1 shortcut as an f32-accumulating product of
-    bf16 operands (the JAX graph's einsum with preferred_element_type=f32)."""
+def _fp_conv(q, name, t, stride=1, relu=True, f32_pointwise=True):
+    """bf16 conv (its output rounded to bf16) with f32 bias; with `f32_pointwise`, the
+    CLIP graph's 1×1 stride-1 shortcut as an f32-accumulating product of bf16 operands
+    (the JAX graph's einsum with preferred_element_type=f32)."""
     sub = q["fp"][name]
     k = sub["kernel"].to(torch.bfloat16)
     tb = t.to(torch.bfloat16)
-    if k.shape[0] == 1 and k.shape[1] == 1 and stride == 1:
+    if f32_pointwise and k.shape[0] == 1 and k.shape[1] == 1 and stride == 1:
         with full_f32():
             out = torch.matmul(tb.float(), k[0, 0].float())
     else:
@@ -293,9 +319,9 @@ def _fp_conv(q, name, t, stride=1, relu=True):
     return torch.relu(out) if relu else out
 
 
-def _qconv(sub, t8, in_scale):
+def _qconv(sub, t8, in_scale, stride=1):
     """s8 conv → f32 with the bias added; the caller fuses the rest of the epilogue."""
-    acc = qconv_acc(t8, sub["kernel_q"])
+    acc = qconv_acc(t8, sub["kernel_q"], stride)
     return acc.float() * (in_scale * sub["w_scale"]) + sub["bias"]
 
 
@@ -396,3 +422,90 @@ def quantized_trunk_apply(q: Dict[str, Any], x: torch.Tensor, stage_sizes: Seque
         t8 = requant(o + identity, s_in)  # the block relu is the clip at 0
         i += 1
     raise ValueError(f"stage_sizes {tuple(stage_sizes)} leave no block after stage 1")
+
+
+# ------------------------------------------------------ torchvision ResNet (imagenet)
+
+
+def _resnet_convs(block: str):
+    return ("cb1", "cb2", "cb3") if block == "bottleneck" else ("cb1", "cb2")
+
+
+def calibrate_resnet_trunk(folded_sd: Mapping[str, torch.Tensor], stage_sizes: Sequence[int],
+                           block: str, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """`calibrate_trunk` for the torchvision trunk (`quantize.py:627-665`): the folded
+    trunk in full f32 on x (NHWC), recording the stem output before the max pool, each
+    block's conv inputs and output, and the shortcut's |max|."""
+    scales: Dict[str, torch.Tensor] = {}
+
+    def record(name, t):
+        scales[name] = _per_tensor_scale(t.max())
+
+    cb = functools.partial(_folded_conv, folded_sd)
+    with full_f32():
+        t = cb("stem", x.float(), 2)
+        record("stem.out", t)  # pre-pool: the int8 graph pools on the int8 grid
+        t = F.max_pool2d(t.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+        for name, stride in _block_names(stage_sizes):
+            if block == "bottleneck":
+                o = cb(f"{name}/cb1", t)
+                record(f"{name}/cb2.in", o)
+                o = cb(f"{name}/cb2", o, stride)
+                record(f"{name}/cb3.in", o)
+                o = cb(f"{name}/cb3", o, relu=False)
+            else:
+                o = cb(f"{name}/cb1", t, stride)
+                record(f"{name}/cb2.in", o)
+                o = cb(f"{name}/cb2", o, relu=False)
+            identity = t
+            if stride > 1 or t.shape[-1] != o.shape[-1]:
+                identity = cb(f"{name}/down", identity, stride, relu=False)
+                scales[f"{name}/down.out"] = _per_tensor_scale(identity.abs().max())
+            t = torch.relu(o + identity)
+            record(f"{name}.out", t)
+    return scales
+
+
+def quantize_resnet_trunk(folded_sd: Mapping[str, torch.Tensor], stage_sizes: Sequence[int],
+                          block: str, calibration_x: torch.Tensor) -> Dict[str, Any]:
+    """Folded torchvision state_dict → quantized trunk: s8 block convs, f32 stem and
+    shortcut convs (kept for bf16), activation scales calibrated on `calibration_x`."""
+    q: Dict[str, Any] = {
+        "act_scales": calibrate_resnet_trunk(folded_sd, stage_sizes, block, calibration_x),
+        "fp": {"stem": _fp_entry(folded_sd, "stem")}}
+    _quantize_blocks(q, folded_sd, stage_sizes, _resnet_convs(block))
+    return q
+
+
+def quantized_resnet_apply(q: Dict[str, Any], x: torch.Tensor, stage_sizes: Sequence[int],
+                           block: str, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """int8 torchvision-ResNet forward (`quantize.py:685-738`): x is the preprocessed
+    NHWC batch; returns the NHWC conv map in `out_dtype`. The stem and the shortcut
+    convs run in bf16 with bf16 outputs, as the JAX graph's convs without a preferred
+    element type; relus fold into the requants' clip at 0."""
+    a = q["act_scales"]
+    s_in = a["stem.out"]
+    t8 = max_pool_int8(requant(_fp_conv(q, "stem", x, 2, relu=False), s_in))
+    blocks = list(_block_names(stage_sizes))
+    for name, stride in blocks:
+        s2 = a[f"{name}/cb2.in"]
+        if block == "bottleneck":
+            o = _qconv(q[f"{name}/cb1"], t8, s_in)
+            o = _qconv(q[f"{name}/cb2"], requant(o, s2), s2, stride)
+            s3 = a[f"{name}/cb3.in"]
+            o = _qconv(q[f"{name}/cb3"], requant(o, s3), s3)
+        else:
+            o = _qconv(q[f"{name}/cb1"], t8, s_in, stride)
+            o = _qconv(q[f"{name}/cb2"], requant(o, s2), s2)
+        if f"{name}/down" in q["fp"]:
+            down = _fp_conv(q, f"{name}/down", t8.float() * s_in, stride, relu=False,
+                            f32_pointwise=False)
+            ds = a[f"{name}/down.out"]
+            identity = requant_signed(down, ds).float() * ds
+        else:
+            identity = t8.float() * s_in
+        if name == blocks[-1][0]:
+            return torch.relu(o + identity).to(out_dtype)
+        s_in = a[f"{name}.out"]
+        t8 = requant(o + identity, s_in)
+    raise ValueError(f"stage_sizes {tuple(stage_sizes)} have no block")

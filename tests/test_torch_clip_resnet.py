@@ -126,3 +126,43 @@ def test_openai_state_dict_loads_and_matches_oracle():
         got = port(x.permute(0, 2, 3, 1))
     _assert_close(got["conv"], conv_ref.permute(0, 2, 3, 1))
     _assert_close(got["embed"], embed_ref, atol=5e-4, rtol=5e-4)
+
+
+def test_folded_bf16_trunk_runs_k6_k7_and_matches_jax():
+    """A width-8 CLIP trunk with stage sizes (3, 2, 2, 2): its folded bf16 forward runs
+    stage 1 through K7 and the identity blocks of stages 2-4 through K6 (their plain
+    versions on the CPU). Held to JAX's folded bf16 trunk and to the port's own f32
+    trunk at ≤1e-3 cosine, and to its cuDNN route (fused_bottlenecks=False) likewise."""
+    from embodied_clip_tpu.models.clip_resnet import ModifiedResNet as JaxResNet
+    from embodied_clip_tpu.ops.fold_bn import fold_conv_bn_tree
+
+    from embodied_clip_tpu_torch.parity import cosine_distance
+
+    stage_sizes = (3, 2, 2, 2)
+    x = np.random.RandomState(0).randn(2, 64, 64, 3).astype(np.float32)
+    variables = jax.tree.map(np.asarray, JaxResNet(stage_sizes, 8).init(
+        jax.random.PRNGKey(1), jnp.asarray(x)))
+    folded = jax.tree.map(np.asarray, jax.jit(fold_conv_bn_tree)(
+        variables["params"], variables["batch_stats"]))
+    ref = np.asarray(jax.jit(JaxResNet(stage_sizes, 8, jnp.bfloat16, folded=True).apply)(
+        {"params": folded}, jnp.asarray(x)), np.float32)
+    pool = {"positional_embedding": np.zeros((1, 1), np.float32),
+            **{p: {"kernel": np.zeros((1, 1), np.float32), "bias": np.zeros(1, np.float32)}
+               for p in ("q_proj", "k_proj", "v_proj", "c_proj")}}
+    sd = {k: v for k, v in from_flax_variables(
+        {"params": {"trunk": folded, "attnpool": pool}}).items()
+        if not k.startswith("attnpool.")}
+    outs = {}
+    for label, dtype, fused in (("k6k7", torch.bfloat16, True), ("cudnn", torch.bfloat16, False),
+                                ("f32", torch.float32, True)):
+        trunk = ModifiedResNet(stage_sizes, 8, dtype, folded=True, fused_bottlenecks=fused)
+        trunk.load_state_dict(sd)
+        with torch.no_grad():
+            outs[label] = trunk(torch.from_numpy(x))
+    kinds = [k for k, _ in trunk.fused_plan()]
+    assert kinds.count("stage1") == 1 and kinds.count("bottleneck") == 3
+    assert outs["k6k7"].dtype == torch.bfloat16 and outs["k6k7"].shape == (2, 2, 2, 256)
+    assert not torch.equal(outs["k6k7"], outs["cudnn"])  # the routes round differently
+    for label in ("k6k7", "cudnn"):
+        assert cosine_distance(outs[label], ref) <= 1e-3, label
+        assert cosine_distance(outs[label], outs["f32"]) <= 1e-3, label

@@ -1,9 +1,12 @@
 """The PyTorch port's frozen encoder end to end vs the JAX package, on the CPU.
 
-Same weights (carried across by `from_flax_variables`) and the same uint8 frames go
-through both `build_encoder("clip_rn_tiny")` encoders: per-key cosine distance ≤1e-4
-in f32 and ≤1e-3 in bf16 (the BASELINE.json north star). Also: the port's entry points
-stay off the CPU unless asked, and the package imports no JAX.
+Same weights (carried across by `from_flax_variables` / `from_flax_resnet_variables`)
+and the same uint8 frames go through both packages' encoders: per-key cosine distance
+≤1e-4 in f32 and ≤1e-3 in bf16 (the BASELINE.json north star), for `clip_rn_tiny` and
+the full-size torchvision `imagenet_rn18` / `imagenet_rn50`. The port's folded bf16
+encoders run their bottleneck trunks through K6/K7 (the plain versions, on the CPU).
+Also: the port's entry points stay off the CPU unless asked, and the package imports
+no JAX.
 """
 
 import os
@@ -19,7 +22,10 @@ import jax.numpy as jnp
 
 from embodied_clip_tpu.models.encoders import build_encoder as jax_build_encoder
 
-from embodied_clip_tpu_torch.models.convert import from_flax_variables
+from embodied_clip_tpu_torch.models.convert import (
+    from_flax_resnet_variables,
+    from_flax_variables,
+)
 from embodied_clip_tpu_torch.models.encoders import EncoderSpec, build_encoder
 from embodied_clip_tpu_torch.parity import cosine_distance, golden_frames
 
@@ -53,6 +59,42 @@ def test_encode_matches_jax(frames, dtype, fold, limit):
         assert cosine_distance(got[key], np.asarray(ref[key], np.float32)) <= limit, key
 
 
+@pytest.mark.parametrize("name,width", [("imagenet_rn18", 512), ("imagenet_rn50", 2048)])
+@pytest.mark.parametrize("dtype,fold,limit", [("float32", False, 1e-4),
+                                              ("bfloat16", True, 1e-3)])
+def test_imagenet_encode_matches_jax(frames, name, width, dtype, fold, limit):
+    jenc = jax_build_encoder(name, dtype=getattr(jnp, dtype))
+    enc = build_encoder(name, dtype=getattr(torch, dtype), device="cpu")
+    sd = from_flax_resnet_variables(jax.tree.map(np.asarray, jenc.variables))
+    enc.load_torch_state_dict({**sd, "fc.weight": torch.zeros(1000, width)})  # fc dropped
+    if fold:
+        jenc, enc = jenc.fold_bn(), enc.fold_bn()
+        assert enc.module.uses_fused_bottlenecks
+    ref = jenc.encode(frames)
+    got = enc.encode(frames)
+    shapes = {"imagenet_conv": (2, 7, 7, width), "imagenet_avgpool": (2, width)}
+    assert set(got) == set(ref) == set(shapes)
+    for key, shape in shapes.items():
+        assert tuple(got[key].shape) == shape == ref[key].shape
+        assert got[key].dtype == getattr(torch, dtype)
+        assert cosine_distance(got[key], np.asarray(ref[key], np.float32)) <= limit, key
+
+
+def test_fold_bn_keeps_the_cudnn_route_reachable(frames):
+    """`fold_bn(fused_bottlenecks=False)` is the same folded weights on the cuDNN route;
+    the two bf16 routes round differently, and each stays within 1e-3 of f32."""
+    enc = build_encoder("clip_rn_tiny", dtype=torch.bfloat16, device="cpu")
+    fused, cudnn = enc.fold_bn(), enc.fold_bn(fused_bottlenecks=False)
+    assert fused.module.uses_fused_bottlenecks and not cudnn.module.uses_fused_bottlenecks
+    assert fused.fold_bn() is fused
+    assert fused.fold_bn(fused_bottlenecks=False).module is not fused.module
+    ref = build_encoder("clip_rn_tiny", device="cpu").encode(frames)
+    for e in (fused, cudnn):
+        got = e.encode(frames)
+        for key in KEYS:
+            assert cosine_distance(got[key], ref[key]) <= 1e-3, key
+
+
 def test_encode_layouts_agree(frames):
     enc = build_encoder("clip_rn_tiny", device="cpu").fold_bn()
     nhwc = enc.encode(frames)
@@ -78,14 +120,12 @@ def test_torch_checkpoint_with_visual_prefix(tmp_path):
 
 
 def test_unported_paths_raise():
-    for name in ("clip_vit_b32", "imagenet_rn50"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_encoder(name, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_encoder("clip_vit_b32", device="cpu")
     enc = build_encoder("clip_rn_tiny", device="cpu")
-    for spec in (EncoderSpec("imagenet", "resnet50"), EncoderSpec("clip", "ViT-B/32")):
-        enc.spec = spec  # the torchvision and ViT int8 trunks are not ported (M8)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            enc.quantize(golden_frames(2))
+    enc.spec = EncoderSpec("clip", "ViT-B/32")  # the ViT int8 trunk is not ported (M8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        enc.quantize(golden_frames(2))
 
 
 def test_default_device_is_the_gpu():

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1–K5) on the card, each held to its plain PyTorch
-version at small shapes, with the JAX package's contracts.
+"""The port's CUDA kernels (K1–K7) on the card, each held to its plain PyTorch
+version at small shapes and at the main path's widths, with the JAX package's contracts
+(K6/K7: `parity.bf16_disagreement`).
 
 Marked `gpu`: each test skips where no CUDA device is present (decided inside the
 test). This file imports no JAX, so it runs on a machine without it:
@@ -13,13 +14,20 @@ import torch
 
 from embodied_clip_tpu_torch import constants
 from embodied_clip_tpu_torch.models.clip_resnet import ModifiedResNet
+from embodied_clip_tpu_torch.models.encoders import build_encoder
 from embodied_clip_tpu_torch.ops import quantize as Q
 from embodied_clip_tpu_torch.ops.fold_bn import fold_conv_bn_state_dict
 from embodied_clip_tpu_torch.ops.int8 import qmm, requant
 from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
 from embodied_clip_tpu_torch.ops.kernels import preprocess_kernel as K
 from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
-from embodied_clip_tpu_torch.parity import cosine_distance, golden_frames
+from embodied_clip_tpu_torch.parity import (
+    BF16_KERNEL_SHARE,
+    bf16_disagreement,
+    cosine_distance,
+    golden_frames,
+    stage1_block_disagreements,
+)
 
 import torch_int8_cases as C
 
@@ -195,3 +203,106 @@ def test_fused_preprocess_kernel_rejects_what_it_cannot_take(cuda):
         K.fused_preprocess(x.float(), 224, MEAN, STD)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         K.fused_preprocess(x, 224, MEAN, STD, dtype=torch.float16)
+
+
+def _bf16_block(rng, c_in, cm, c_out, dev):
+    """A folded bottleneck's weights, scaled so activations stay O(1): bf16 weights in
+    the JAX layout, f32 biases."""
+    def w(*shape, fan):
+        return _t(rng.randn(*shape).astype(np.float32) / np.sqrt(fan), dev, torch.bfloat16)
+
+    def b(c):
+        return _t(rng.randn(c).astype(np.float32) * 0.1, dev)
+
+    return {"w1": w(c_in, cm, fan=c_in), "b1": b(cm), "w2": w(3, 3, cm, cm, fan=9 * cm),
+            "b2": b(cm), "w3": w(cm, c_out, fan=2 * cm), "b3": b(c_out)}
+
+
+def _assert_bf16_contract(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all())
+    share, worst = bf16_disagreement(got, want)
+    print(f"bf16 kernel vs plain on {tuple(got.shape)}: {share:.2e} of elements differ, "
+          f"worst {worst:.3f} of the allowance")
+    assert share <= BF16_KERNEL_SHARE and worst <= 1.0, (share, worst)
+
+
+# (n, h, c, cm): test width (Cm 8), RN50 stages 2-4, RN50x16 stages 3-4.
+@pytest.mark.parametrize("n,h,c,cm", [(2, 6, 32, 8), (2, 10, 64, 16), (4, 28, 512, 128),
+                                      (4, 14, 1024, 256), (16, 7, 2048, 512),
+                                      (2, 24, 1536, 384), (2, 12, 3072, 768)])
+def test_fused_bottleneck_kernel_matches_plain_version(cuda, n, h, c, cm):
+    """K6 vs its plain version (bf16, f32 accumulation): the card contract."""
+    rng = np.random.RandomState(6)
+    blk = _bf16_block(rng, c, cm, c, cuda)
+    x = _t(np.abs(rng.randn(n, h, h, c)).astype(np.float32), cuda, torch.bfloat16)
+    args = (x, blk["w1"], blk["b1"], blk["w2"], blk["b2"], blk["w3"], blk["b3"])
+    before = BK.fused_bottleneck.launches
+    got = BK.fused_bottleneck(*args)
+    torch.cuda.synchronize()
+    assert BK.fused_bottleneck.launches == before + 1
+    _assert_bf16_contract(got, BK.fused_bottleneck_reference(*args))
+
+
+# (n, h, cin, cm, cout, blocks): RN50 stage 1, RN50x16 stage 1, clip_rn_tiny's 1 block.
+@pytest.mark.parametrize("n,h,cin,cm,cout,nb", [(2, 56, 64, 64, 256, 3),
+                                                (1, 96, 96, 96, 384, 3),
+                                                (2, 8, 8, 8, 32, 1)])
+def test_fused_stage1_kernel_matches_plain_version(cuda, n, h, cin, cm, cout, nb):
+    """K7 vs its plain version (bf16, f32 accumulation): the card contract block by
+    block (`parity.stage1_block_disagreements`); the chained output is reported."""
+    rng = np.random.RandomState(7)
+    blocks = [_bf16_block(rng, cin if i == 0 else cout, cm, cout, cuda) for i in range(nb)]
+    shortcut = (_t(rng.randn(cin, cout).astype(np.float32) / np.sqrt(cin), cuda,
+                   torch.bfloat16), _t(rng.randn(cout).astype(np.float32) * 0.1, cuda))
+    x = _t(np.abs(rng.randn(n, h, h, cin)).astype(np.float32), cuda, torch.bfloat16)
+    before = BK.fused_stage1.launches
+    got = BK.fused_stage1(x, blocks, shortcut)
+    torch.cuda.synchronize()
+    assert BK.fused_stage1.launches == before + 1
+    assert got.shape == (n, h, h, cout)
+    want = BK.fused_stage1_reference(x, blocks, shortcut)
+    share, worst = bf16_disagreement(got, want)
+    print(f"K7 chained on {tuple(got.shape)}: {share:.2e} differ, worst {worst:.3f}")
+    assert bool(torch.isfinite(got.float()).all())
+    per_block = stage1_block_disagreements(x, blocks, shortcut)
+    print(f"K7 per block (share, worst): {per_block}")
+    assert all(s <= BF16_KERNEL_SHARE and w <= 1.0 for s, w in per_block), per_block
+
+
+def test_bf16_kernels_reject_what_they_cannot_take(cuda):
+    rng = np.random.RandomState(8)
+    blk = _bf16_block(rng, 32, 8, 32, cuda)
+    w = (blk["w1"], blk["b1"], blk["w2"], blk["b2"], blk["w3"], blk["b3"])
+    x = torch.ones((2, 6, 6, 32), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        BK.fused_bottleneck(x.float(), *w)
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        BK.fused_bottleneck(x.permute(0, 2, 1, 3), *w)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        BK.fused_bottleneck(x[..., :28].contiguous(), *w)
+    narrow = _bf16_block(rng, 32, 4, 32, cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        BK.fused_bottleneck(x, *(narrow[k] for k in ("w1", "b1", "w2", "b2", "w3", "b3")))
+    with pytest.raises(ValueError, match="bfloat16"):
+        BK.fused_bottleneck(x, blk["w1"].float(), *w[1:])
+    with pytest.raises(ValueError, match="bfloat16"):
+        BK.fused_stage1(x.float(), [blk], (blk["w1"], blk["b1"]))
+
+
+@pytest.mark.parametrize("name,k7,k6", [("clip_rn50", 1, 10), ("imagenet_rn50", 1, 10),
+                                        ("imagenet_rn18", 0, 0)])
+def test_bf16_folded_encoder_launch_counts(cuda, name, k7, k6):
+    """One request through a folded bf16 encoder launches K1 once, K7 once per
+    bottleneck stage 1 and K6 once per stride-1 identity bottleneck; its cuDNN route
+    (`fold_bn(fused_bottlenecks=False)`) launches neither."""
+    base = build_encoder(name, dtype=torch.bfloat16)
+    counted = (K.fused_preprocess, BK.fused_stage1, BK.fused_bottleneck)
+    for enc, want in ((base.fold_bn(), [1, k7, k6]),
+                      (base.fold_bn(fused_bottlenecks=False), [1, 0, 0])):
+        before = [f.launches for f in counted]
+        out = enc.encode(golden_frames(2))
+        torch.cuda.synchronize()
+        assert [f.launches - b for f, b in zip(counted, before)] == want
+        assert all(v.dtype == torch.bfloat16 and bool(torch.isfinite(v.float()).all())
+                   for v in out.values())
