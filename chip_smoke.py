@@ -6,7 +6,8 @@
 
 Phases:
   1. torch version, device, and `nvidia-smi`'s name and power limit;
-  2. build every CUDA source of the port with nvcc (in parallel) and time it;
+  2. build every CUDA source of the port with nvcc (in parallel) and time it; check that
+     the SASS of `bottleneck_bf16` (K6/K7) holds wgmma (HGMMA) and no mma.sync (HMMA);
   3. hold kernel K1 (fused preprocess) to its plain PyTorch version on the card, at the
      main path's shape (golden_frames(128), 300x300 → 224): ≤1.5 uint8 LSB with <1e-3
      of pixels flipped, bf16 output bit-equal to the f32 output cast; time both and
@@ -31,8 +32,8 @@ Phases:
      `imagenet_rn50` encode; hold each to its plain version (`parity.bf16_disagreement`:
      ≤1% of elements differ, each within two bf16 steps; K7 block by block,
      `parity.stage1_block_disagreements`, its chained output reported); time the
-     kernel, the plain version and the same block(s) on the eager cuDNN route, and
-     compute the bound;
+     kernel, the plain version and the same block(s) on the eager cuDNN route, compute
+     the bound, and print each call's achieved TFLOP/s and share of the bound;
   8. the ImageNet family: bf16 folded `imagenet_rn50` and `imagenet_rn18` serve the four
      requests (shapes, finite bf16, launches per request: rn50 K1 1, K7 1, K6 10; rn18
      K1 1 and no K6/K7), ≤1e-3 cosine vs their f32 unfolded encoders, batch-128 encode
@@ -47,6 +48,7 @@ prints no result, where no CUDA device is available.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -342,7 +344,9 @@ def check_bf16_kernels(encoders, frames, card):
             k_ms = cuda_ms(lambda: fn(*args, **kw), 10)
             p_ms = cuda_ms(lambda: ref(*args, **kw), 3, warmup=1)
             c_ms = cuda_ms(lambda: mod(xc), 10)
-            b_ms, b_by = bound(bf16_work(name, args, kw), card)
+            work = bf16_work(name, args, kw)
+            b_ms, b_by = bound(work, card)
+            tflops = work[2] / k_ms / 1e9
             r = results.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                                           "cudnn_route_ms": 0.0, "by": {}, "share": 0.0,
                                           "worst": 0.0, "max_abs_err": 0.0, "calls": {}})
@@ -353,14 +357,16 @@ def check_bf16_kernels(encoders, frames, card):
                 r["by"][b_by] = r["by"].get(b_by, 0.0) + b_ms
             r["calls"].setdefault(label, []).append(
                 {"shape": list(args[0].shape), "ms": k_ms, "plain_ms": p_ms,
-                 "bound_ms": b_ms, "bound_by": b_by, "cudnn_route_ms": c_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "tflops": tflops,
+                 "share_of_bound": b_ms / k_ms, "cudnn_route_ms": c_ms,
                  "share_differing": share, "worst_of_allowance": worst,
                  **({"per_block": per_block} if name == "fused_stage1" else {})})
             r["share"] = max(r["share"], max(s for s, _ in per_block))
             r["worst"] = max(r["worst"], max(w for _, w in per_block))
             r["max_abs_err"] = max(r["max_abs_err"], float((got.float() - want.float())
                                                            .abs().max()))
-            print(f"[7] {label} {name} {tuple(args[0].shape)}: kernel {k_ms:.4f} ms, plain "
+            print(f"[7] {label} {name} {tuple(args[0].shape)}: kernel {k_ms:.4f} ms "
+                  f"({tflops:.1f} TFLOP/s, {b_ms / k_ms:.1%} of the bound), plain "
                   f"{p_ms:.4f} ms, cuDNN route {c_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
                   f"{share:.2e} of elements differ, worst {worst:.3f} of the allowance"
                   + (f"; per block {[(round(a, 6), round(b, 3)) for a, b in per_block]}"
@@ -405,8 +411,16 @@ def main(argv) -> int:
     print(f"[2] built {', '.join(_build.SOURCES)} in {time.perf_counter() - t0:.2f} s")
     for src in _build.SOURCES:
         for line in _build.build_log(src).splitlines():
-            if "ptxas info    : Used" in line:
+            if "ptxas info    : Used" in line or "(C75" in line:
                 print(f"[2]   {src}: {line.strip()}")
+    # K6/K7's GEMM runs on wgmma: its SASS holds HGMMA and no mma.sync (HMMA).
+    sass = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump",
+                           "-sass", str(_build.library_path("bottleneck_bf16"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    hgmma, hmma = sass.count("HGMMA."), sass.count("HMMA.")
+    print(f"[2] bottleneck_bf16 SASS: {hgmma} HGMMA (wgmma) instructions, {hmma} HMMA "
+          f"(mma.sync)")
+    check(hgmma > 0 and hmma == 0, "bottleneck_bf16 runs on wgmma alone")
 
     # Full-f32 references: cuDNN convs and cuBLAS matmuls default to TF32 otherwise.
     torch.backends.cudnn.allow_tf32 = False

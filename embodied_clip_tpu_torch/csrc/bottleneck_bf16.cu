@@ -8,291 +8,603 @@
 //                        shortcut x·wsc + bsc added before the block relu; the identity
 //                        blocks after it are K6's function
 // The host wrappers (embodied_clip_tpu_torch/ops/kernels/bottleneck_kernel.py) run K6 as
-// 3 launches of the one kernel below and K7 as 3 per block.
-//
-// Bound on an H100 at batch 128 (RN50 shapes; 3.35 TB/s, 989 TFLOP/s dense bf16): K7
-// does 1.71e11 operations against ~0.2 GB of input, output and weights (≈0.173 ms,
-// operations); a stage-3 or stage-4 K6 call ≈5.6e10 operations (≈0.0565 ms, operations);
-// a stage-2 K6 call moves ≈0.2 GB for 5.6e10 operations (≈0.061 ms, bytes).
-//
-// Design. A TPU core keeps a whole image's stage in VMEM; one RN50 stage-1 image is
-// 56·56·256 bf16 = 1.6 MB, far above one SM's 227 KB of shared memory. So a bottleneck is
-// three launches of one tensor-core GEMM, each with its epilogue fused, and the Cm-wide
-// intermediates h1/h2 (¼ of C) go through device memory (mostly L2) as bf16:
-//   (a) 1×1 conv: A = the pixel rows of x (M = N·H·W, K = C), + bias, relu → bf16
+// 3 launches of the one GEMM kernel below and K7 as 3 per block:
+//   (a) 1×1 conv: A = the pixel rows of x (M = N·H·W, K = C), + bias, relu → bf16 h1
 //   (b) 3×3 conv, stride 1, zero halo, as an implicit GEMM: K = 9·Cm, k = (ky·3+kx)·Cm + c
-//       (the HWIO weight flattened), the halo gathered while staging A (cp.async with a
-//       zero fill for taps outside the image), + bias, relu → bf16
+//       (the HWIO weight flattened), + bias, relu → bf16 h2
 //   (c) 1×1 conv + bias + residual (bf16 x) + relu → bf16; for K7's block 0 the conv
-//       shortcut is a second K loop over x·wsc into the same f32 accumulator, with bsc
-//       added beside b3.
-// Products run on the tensor cores: warp-level mma.sync.m16n8k16 bf16 × bf16 → f32 with
-// operands read by ldmatrix (.trans for the row-major (K, N) weights, so no repacked
-// copy of the weights exists). The tensor cores' f32 accumulation truncates; with one
-// accumulator through the whole K loop its bias flipped bf16 roundings of h1/h2 on up to
-// 5% of outputs at RN50 and RN50x16 widths (measured against the plain version); so
-// each 32-k chunk is summed in fresh registers and added to the running f32 sum with an
-// IEEE add, which keeps the truncation to 32-term partial sums. A block computes a
-// 128 × 64 output tile with 8 warps of 32 × 32; A and B chunks of 32 k are staged through
-// a 3-deep cp.async ring (staged rows padded by 16 B so ldmatrix is free of bank
-// conflicts); 80-95 registers a thread leave room for two blocks per SM. K is streamed
-// in those chunks, so stage 4's 4.7 MB w2 never has to fit anywhere; at M = 6272
-// (stage 4) the 64-wide N tiles still give 8 × 49 = 392 blocks for 132 SMs. Measured and
-// not kept: 128 × 128 tiles with 64 × 32 warp tiles need ~190 registers with the chunk
-// sums, fit one block per SM and ran the bf16 encode 6% slower; promoting after every
-// mma instead of every chunk fits two blocks and ran 3% faster, but disagreed with the
-// plain version on more outputs (1.1% on a stage-4 call of the main path); promoting
-// every 4 chunks (128 k) disagreed more at stage 3 (0.38% against 0.07%); a 4- or 6-deep
-// ring was no faster than 3, so load latency is not what holds the kernel back. A chunk's k
-// beyond K stages as zero, so any K that is a multiple of 8 works (Cm = 8 at test width
-// pads 8 → 16 per mma).
-// Epilogues add in f32 and round once with __float2bfloat16_rn, at the TPU kernel's three
-// points. wgmma, TMA and warp specialisation are later work.
+//       shortcut is a second K loop over x·wsc into the same f32 sum, with bsc added
+//       beside b3.
+// h1/h2 (Cm = C/4 wide) go through device memory, mostly L2: a TPU core keeps a stage in
+// VMEM, but one RN50 stage-1 image (1.6 MB in bf16) is far above an SM's 227 KB.
 //
-// Layouts: activations NHWC bf16 flattened to (M, C) rows; weights (K, N) bf16 row-major
-// as the JAX package keeps them; biases f32. C, Cm and every pointer 16-byte aligned.
+// Bound on an H100 at batch 128 (RN50 shapes; 3.35 TB/s, 989 TFLOP/s dense bf16): a
+// stage-3 or stage-4 K6 call does ≈5.6e10 operations (≈0.0565 ms, operations); a stage-2
+// call moves ≈0.2 GB of x, weights and output (≈0.061 ms, bytes); K7 does 1.71e11
+// operations (≈0.173 ms), but its three launches per block also move h1/h2 (51 MB each at
+// 56×56) through device memory, ≈2.1 GB in all, a floor near 0.64 ms. The mma.sync kernel
+// this one replaced (128 × 64 tiles of 8 warps with 32 × 32 warp tiles, a 3-deep cp.async
+// ring) was held by the issue rate of ldmatrix + mma.sync: ≈124 TFLOP/s at stage 4.
+//
+// Design (Hopper: TMA, wgmma, mbarriers, warp specialisation). A persistent grid of one
+// 384-thread block per SM walks 128 × BN output tiles (BN = 128; 64 when N ≤ 64), row
+// panels outer and column panels inner, so the blocks running at once share one A panel
+// and the weights (≤4.7 MB) stay in L2. Warpgroup 2 is the producer: one thread keeps a
+// ring of 64-k chunks in flight with TMA (cp.async.bulk.tensor), 128-byte swizzled,
+// signalled by full/empty mbarrier pairs; it drops to 40 registers (setmaxnreg). For (a)
+// and (c), A is a 2-D tiled load of the (M, K) rows; for (b) it is TMA's im2col mode over
+// the NHWC h1 with the pixel box at -1 on both sides ('SAME'), one load per (tap,
+// 64-channel slice): the hardware walks 128 output pixels across rows and images and
+// zero-fills the halo, so no thread computes a gather address and no proxy fence is
+// needed (a cp.async gather by a producer warpgroup was the alternative). The weights stay
+// (K, N) row-major as the JAX package keeps them: B is loaded as 64-column panels and read
+// by wgmma as an N-major operand (transpose bit set). Out-of-bounds zero fill covers
+// ragged M, N and K (Cm = 8 pads 8 → 64 per chunk). Warpgroups 0 and 1 are consumers (232
+// registers): each owns 64 rows of the tile and issues wgmma.mma_async m64nBNk16 from
+// shared memory. The tensor cores' f32 accumulation truncates: with one accumulator
+// through the whole K loop its bias flipped bf16 roundings of h1/h2 on up to 5% of
+// outputs against the plain version. So each 32-k group (two k16 wgmmas) is summed in
+// fresh registers and added to the running f32 sum with IEEE adds, in k order; a chunk's
+// two groups go to two register sets, and the first group's adds run while the tensor
+// cores work on the second. The epilogue adds f32 bias (+ bias2) (+ the bf16 residual),
+// applies relu and rounds once with __float2bfloat16_rn, in place in a swizzled staging
+// tile that TMA then stores; the store of one tile drains under the next tile's main
+// loop. The bias pairs are loaded when a tile starts (lane l holds columns 2l and
+// 64 + 2l) and shuffled to their threads in the epilogue; the producer loads a tile's
+// residual a tile ahead into a 3-deep staging ring. Outputs are deterministic: no
+// split-K, no atomics.
+//
+// Measured and not kept (tools/bench_bf16_gemm.py --source, this file differing: the 39
+// launches of a batch-128 clip_rn50 encode summed, NVIDIA H100 80GB HBM3 at 700 W,
+// compared within one run):
+// 32-k groups pipelined across chunks (the next chunk's group in flight while the last
+// one's adds run) made ptxas serialise every wgmma (C7514): 3.27 ms against 3.10 ms for
+// two groups per chunk; one register set with wgmma.wait_group 0 before each add: 3.15 ms;
+// adding every 64 k: 5% faster, but 1.22% of an RN50x16 stage-4 output differed (limit
+// 1%); every 128 k: 4% faster again, and 0.99% on an imagenet_rn50 call; two
+// chunks per loop turn, so that only one add in two runs with no wgmma in flight:
+// 2.970 / 2.935 ms against 2.965 / 2.954 (no gain); BN = 64 wherever it fills the SMs'
+// waves better (stage 4): 0.0884 against 0.0826 ms for stage 4's (b); the bias read in
+// the epilogue, behind a bounds check: 2.98 against 2.745 ms; the two consumer
+// warpgroups taking turns at the epilogue (named barriers), to stagger them: 2.805 /
+// 2.815 against 2.709 / 2.709 ms. Builds that break the
+// contract show what holds the kernel back now: without the IEEE adds the launches take
+// 14% less time; with an epilogue that only sums the tile, 3% less. Stage 1's (b), whose
+// im2col loads read every h1 pixel nine times from L2, runs at 29% of the bf16 peak.
+//
+// Layouts: activations NHWC bf16 flattened to (M, C) rows; weights (K, N) bf16 row-major;
+// biases f32. C, Cm and N multiples of 8; every pointer 16-byte aligned.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;       // 8 warps: 4 along M × 2 along N
-constexpr int kBM = 128;            // output rows (pixels) per block
-constexpr int kBN = 64;             // output columns per block
-constexpr int kBK = 32;             // k per staged chunk
-constexpr int kStages = 3;          // cp.async ring depth
-constexpr int kAStride = kBK + 8;   // bf16 per staged A row: 80 B
-constexpr int kBStride = kBN + 8;   // bf16 per staged B row: 144 B
+constexpr int kBM = 128;         // output rows (pixels) per tile: 2 consumer warpgroups × 64
+constexpr int kBK = 64;          // k per staged chunk: one 128-byte swizzle row of bf16
+// k summed on the tensor cores before each IEEE add into the running f32 sum (two
+// groups per chunk; 64 put RN50x16's stage 4 past the 1% contract).
+constexpr int kGroupK = 32;
+static_assert(kBK == 2 * kGroupK, "the main loop issues two groups per chunk");
+constexpr int kThreads = 384;    // warpgroups 0, 1: consumers; 2: producer
+constexpr int kPanel = 64 * 64;  // bf16 per 64 × 64 swizzled panel (8 KB)
 
-struct Gemm {
-  const __nv_bfloat16* a;    // kRows: (M, K) rows; conv3: NHWC (M = n·H·W, C), K = 9·C
-  const __nv_bfloat16* b;    // (K, N) row-major
-  int K;
-  const __nv_bfloat16* a2;   // second product (K7's shortcut): (M, K2) rows, or null
-  const __nv_bfloat16* b2;   // (K2, N)
-  int K2;
-  const float* bias;         // (N)
-  const float* bias2;        // (N), or null
-  const __nv_bfloat16* res;  // (M, N) residual, or null
-  __nv_bfloat16* out;        // (M, N)
-  int M, N;
-  int H, W, C;               // conv3 geometry
+// Shared memory: the ring of A and B chunks, and the output staging tiles (128 × BN
+// each; warpgroup w stores rows 64w … 64w + 63). A launch with a residual keeps three
+// staging tiles, so the producer can load tile i + 1's residual into one while tile i's
+// epilogue reads another and tile i - 1's store drains the third; one ring stage pays
+// for it.
+template <int BN, bool RES>
+struct Config {
+  static constexpr int kStaging = RES ? 3 : 2;
+  static constexpr int kStages = (BN == 64 ? 8 : 5) - (RES ? 1 : 0);
+  static constexpr int kStageBytes = (kBM + BN) * kBK * 2;
+  static constexpr int kStagingBytes = kBM * BN * 2;
+  // ring, staging tiles, barriers, 1 KB of alignment slack
+  static constexpr int kSmem = kStages * kStageBytes + kStaging * kStagingBytes + 256 + 1024;
+  static_assert(kSmem <= 232448, "more shared memory than an H100 block may have");
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(bytes));
+struct Params {
+  CUtensorMap a, b, a2, b2, res, out;  // TMA descriptors (see ect_gemm_bf16)
+  const float* bias;
+  const float* bias2;  // or null
+  int chunks1;         // 64-k chunks of the first product
+  int chunks2;         // of the second (K7's shortcut), or 0
+  int conv_c;          // conv3: channels (K = 9·conv_c); 0 for a 1×1 product
+  int H, W;            // conv3 geometry
+  int N;
+  int n_tiles, tiles;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra.uni LAB_DONE;\nbra.uni LAB_WAIT;\nLAB_DONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// 128 output pixels × 64 channels of the 3×3 tap (kx, ky), starting at the pixel whose
+// top-left input neighbour is (w, h) of image n (im2col mode; the box walks W, then H,
+// then N, and zero-fills what lies outside the image).
+__device__ __forceinline__ void tma_load_im2col(void* dst, const CUtensorMap* map,
+                                                uint64_t* bar, int c, int w, int h, int n,
+                                                uint16_t kx, uint16_t ky) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c), "r"(w), "r"(h),
+      "r"(n), "h"(kx), "h"(ky)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::
+                   "l"(reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// d += a (16×16, row) · b (16×8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Stage chunk t of A: 128 rows × 32 k as 512 groups of 8 bf16 (16 B); this thread
-// stages the groups (row tid/4 + 64j, k group tid%4), j = 0, 1. Chunks t ≥ T1 come from
-// the second product. Rows past M, k past K and taps outside the image stage as zero.
-template <bool CONV3>
-__device__ __forceinline__ void load_a(const Gemm& p, int t, int T1, __nv_bfloat16* As,
-                                       int m0, int tid, const int (&img)[2],
-                                       const int (&py)[2], const int (&px)[2]) {
-  const bool second = t >= T1;
-  const __nv_bfloat16* src = second ? p.a2 : p.a;
-  const int K = second ? p.K2 : p.K;
-  const int kg = tid & 3;
-  const int k = (second ? t - T1 : t) * kBK + kg * 8;
+// Keeps the compiler from moving reads or writes of wgmma registers across the wgmma
+// fences and waits (the asm statements do not name them).
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int row = (tid >> 2) + 64 * j;
-    const int m = m0 + row;
-    const __nv_bfloat16* g = src;  // any mapped address: no byte is read when bytes = 0
-    int bytes = 0;
-    if (m < p.M && k < K) {
-      if (CONV3 && !second) {
-        const int tap = k / p.C, c = k - tap * p.C;
-        const int yy = py[j] + tap / 3 - 1, xx = px[j] + tap % 3 - 1;
-        if (yy >= 0 && yy < p.H && xx >= 0 && xx < p.W) {
-          g = src + (((size_t)img[j] * p.H + yy) * p.W + xx) * p.C + c;
-          bytes = 16;
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle. K-major A: sbo = 1024 B between
+// 8-row groups (lbo unused). N-major B: lbo = the stride between 64-column panels, sbo =
+// 1024 B between 8-k-row groups.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+// d (+)= A (64 × 16, K-major) · B (16 × n, N-major), bf16 in, f32 out. ACC: add to d;
+// otherwise overwrite it (write-only operands: the old d is dead).
+template <bool ACC>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b) {
+  if constexpr (ACC)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "n"(1));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+        :
+          "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+          "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+          "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+        : "l"(a), "l"(b), "n"(0));
+}
+
+template <bool ACC>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a, uint64_t b) {
+  if constexpr (ACC)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "n"(1));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        :
+          "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+          "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+          "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+          "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+          "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+          "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+          "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+        : "l"(a), "l"(b), "n"(0));
+}
+
+template <int BN, bool ACC>
+__device__ __forceinline__ void wgmma_k16(float (&d)[BN / 2], uint64_t a, uint64_t b) {
+  if constexpr (BN == 128)
+    wgmma_n128<ACC>(d, a, b);
+  else
+    wgmma_n64<ACC>(d, a, b);
+}
+
+// One 32-k group (k16 steps 2g, 2g + 1 of a 64-k chunk) into fresh registers d: the
+// first step overwrites d. A advances 32 B per k16 step within its swizzle row, B 16 rows.
+template <int BN>
+__device__ __forceinline__ void wgmma_group(float (&d)[BN / 2], uint64_t a, uint64_t b, int g) {
+  wgmma_fence();
+  wgmma_k16<BN, false>(d, a + 4 * g, b + 256 * g);
+  wgmma_k16<BN, true>(d, a + 4 * g + 2, b + 256 * g + 128);
+  wgmma_commit();
+}
+
+template <int R>
+__device__ __forceinline__ void promote(float (&acc)[R], float (&d)[R]) {
+  fence_regs(d);
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
+}
+
+// out = bf16(relu(A·B [+ A2·B2] + bias [+ bias2] [+ res])) over 128 × BN tiles; RES: with
+// the residual res.
+template <bool CONV3, bool RES, int BN>
+__global__ void __launch_bounds__(kThreads, 1) gemm_bf16_kernel(const __grid_constant__ Params p) {
+  using Cfg = Config<BN, RES>;
+  constexpr int S = Cfg::kStages, T = Cfg::kStaging;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  __nv_bfloat16* a_ring = reinterpret_cast<__nv_bfloat16*>(base);  // S × 128 × 64
+  __nv_bfloat16* b_ring = a_ring + S * kBM * kBK;                   // S × 64 × BN
+  __nv_bfloat16* staging = b_ring + S * kBK * BN;                   // T × 128 × BN
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + T * kBM * BN);
+  uint64_t* empty = full + S;
+  uint64_t* res_full = empty + S;
+  uint64_t* res_empty = res_full + T;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    for (int s = 0; s < T; ++s) {
+      mbar_init(&res_full[s], 1);
+      mbar_init(&res_empty[s], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int chunks = p.chunks1 + p.chunks2;
+  const int per_tap = (p.conv_c + kBK - 1) / kBK;
+  if (tid >= 256) {
+    // ---- producer warpgroup: one thread issues every load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      int stage = 0, phase = 0;
+      for (int tile = blockIdx.x, i = 0; tile < p.tiles; tile += gridDim.x, ++i) {
+        const int m0 = (tile / p.n_tiles) * kBM, n0 = (tile % p.n_tiles) * BN;
+        if (RES) {  // the residual tile, into the staging tile this tile's epilogue uses
+          const int sb = i % T;
+          mbar_wait(&res_empty[sb], ((i / T) & 1) ^ 1);
+          mbar_expect_tx(&res_full[sb], Cfg::kStagingBytes);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int q = 0; q < BN / 64; ++q)
+              tma_load_2d(staging + (sb * 2 + h) * 64 * BN + q * kPanel, &p.res, &res_full[sb],
+                          n0 + 64 * q, m0 + 64 * h);
         }
+        int img = 0, y0 = 0, x0 = 0;
+        if (CONV3) {
+          img = m0 / (p.H * p.W);
+          const int rem = m0 - img * p.H * p.W;
+          y0 = rem / p.W;
+          x0 = rem - y0 * p.W;
+        }
+        for (int t = 0; t < chunks; ++t) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], Cfg::kStageBytes);
+          __nv_bfloat16* as = a_ring + stage * kBM * kBK;
+          __nv_bfloat16* bs = b_ring + stage * kBK * BN;
+          const CUtensorMap* bmap = &p.b;
+          int krow;
+          if (t >= p.chunks1) {  // K7's shortcut: x · wsc
+            krow = (t - p.chunks1) * kBK;
+            tma_load_2d(as, &p.a2, &full[stage], krow, m0);
+            bmap = &p.b2;
+          } else if (CONV3) {
+            const int tap = t / per_tap, c0 = (t - tap * per_tap) * kBK;
+            tma_load_im2col(as, &p.a, &full[stage], c0, x0 - 1, y0 - 1, img,
+                            static_cast<uint16_t>(tap % 3), static_cast<uint16_t>(tap / 3));
+            krow = tap * p.conv_c + c0;  // rows past this tap's C meet zero channels of A
+          } else {
+            krow = t * kBK;
+            tma_load_2d(as, &p.a, &full[stage], krow, m0);
+          }
+#pragma unroll
+          for (int q = 0; q < BN / 64; ++q)
+            tma_load_2d(bs + q * kPanel, bmap, &full[stage], n0 + 64 * q, krow);
+          if (++stage == S) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups 0 and 1: rows 64·wg … 64·wg + 63 of each tile ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = tid >> 7, lt = tid & 127, warp = lt >> 5, lane = lt & 31;
+    int stage = 0, phase = 0;
+    float acc[BN / 2], part0[BN / 2], part1[BN / 2];
+
+    for (int tile = blockIdx.x, i = 0; tile < p.tiles; tile += gridDim.x, ++i) {
+      const int m0 = (tile / p.n_tiles) * kBM, n0 = (tile % p.n_tiles) * BN;
+      const int sb = i % T;
+      __nv_bfloat16* out_tile = staging + (sb * 2 + wg) * 64 * BN;
+      if (RES && lt == 0) {
+        // Tile i - 2's store has read its staging tile: tile i + 1's residual may land there.
+        asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+        if (i + 1 >= T) mbar_arrive(&res_empty[(i + 1) % T]);
+      }
+      // The tile's bias (and bias2), loaded now and landing during the main loop: lane l
+      // holds the pairs at columns 2l and 64 + 2l; the epilogue shuffles them out.
+      float2 bias[BN / 64], bias2[BN / 64];
+#pragma unroll
+      for (int h = 0; h < BN / 64; ++h) {
+        const int col = n0 + 64 * h + 2 * lane;
+        const bool in = col < p.N;
+        bias[h] = in ? __ldg(reinterpret_cast<const float2*>(p.bias + col)) : make_float2(0, 0);
+        bias2[h] = in && p.bias2 ? __ldg(reinterpret_cast<const float2*>(p.bias2 + col))
+                                 : make_float2(0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) acc[j] = 0.0f;
+
+      // Each 32-k group of a chunk is summed on the tensor cores in its own fresh
+      // registers, then added to acc with IEEE adds, in k order; the first group's adds
+      // run while the tensor cores work on the second.
+      for (int t = 0; t < chunks; ++t) {
+        mbar_wait(&full[stage], phase);
+        const uint64_t da = smem_desc(a_ring + stage * kBM * kBK + wg * 64 * kBK, 16, 1024);
+        const uint64_t db = smem_desc(b_ring + stage * kBK * BN, kPanel * 2, 1024);
+        wgmma_group<BN>(part0, da, db, 0);
+        wgmma_group<BN>(part1, da, db, 1);
+        wgmma_wait<1>();
+        promote(acc, part0);
+        wgmma_wait<0>();
+        if (lt == 0) mbar_arrive(&empty[stage]);
+        promote(acc, part1);
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+
+      // Epilogue: thread (warp, lane) holds, for each 8-column group j, columns
+      // 8j + 2·(lane%4) + {0, 1} of rows 16·warp + lane/4 (+ 8).
+      if (RES) {
+        mbar_wait(&res_full[sb], (i / T) & 1);
       } else {
-        g = src + (size_t)m * K + k;
-        bytes = 16;
+        // Tile i - 2's store has read this staging tile.
+        if (lt == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+        named_sync(1 + wg);
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        // Column pair 4j + lane%4 of the tile: lane (4j + lane%4) % 32, register j / 8.
+        const int src = (4 * j + (lane & 3)) & 31;
+        const float2 b = make_float2(__shfl_sync(0xffffffffu, bias[j / 8].x, src),
+                                     __shfl_sync(0xffffffffu, bias[j / 8].y, src));
+        float2 b2 = make_float2(0.0f, 0.0f);
+        if (p.bias2)
+          b2 = make_float2(__shfl_sync(0xffffffffu, bias2[j / 8].x, src),
+                           __shfl_sync(0xffffffffu, bias2[j / 8].y, src));
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = 16 * warp + (lane >> 2) + 8 * half;
+          // 128-byte swizzle: 16-byte chunk c of row r sits at chunk c ^ (r % 8).
+          __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
+              out_tile + (j >> 3) * kPanel + r * 64 + (((j & 7) ^ (r & 7)) << 3) + 2 * (lane & 3));
+          float v0 = acc[4 * j + 2 * half] + b.x;
+          float v1 = acc[4 * j + 2 * half + 1] + b.y;
+          if (p.bias2) {
+            v0 += b2.x;
+            v1 += b2.y;
+          }
+          if (RES) {
+            const float2 rv = __bfloat1622float2(*dst);
+            v0 += rv.x;
+            v1 += rv.y;
+          }
+          *dst = __floats2bfloat162_rn(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
+        }
+      }
+      fence_async_shared();
+      named_sync(1 + wg);
+      if (lt == 0) {
+#pragma unroll
+        for (int q = 0; q < BN / 64; ++q)
+          tma_store_2d(&p.out, out_tile + q * kPanel, n0 + 64 * q, m0 + 64 * wg);
+        bulk_commit();
       }
     }
-    cp_async16(As + row * kAStride + kg * 8, g, bytes);
+    if (lt == 0) bulk_wait();
   }
 }
 
-// Stage chunk t of B: 32 k-rows × 64 columns, one 16-byte group per thread.
-__device__ __forceinline__ void load_b(const Gemm& p, int t, int T1, __nv_bfloat16* Bs,
-                                       int n0, int tid) {
-  const bool second = t >= T1;
-  const __nv_bfloat16* src = second ? p.b2 : p.b;
-  const int K = second ? p.K2 : p.K;
-  const int kr = tid >> 3, ng = tid & 7;
-  const int k = (second ? t - T1 : t) * kBK + kr;
-  const int n = n0 + ng * 8;
-  const bool ok = k < K && n < p.N;
-  cp_async16(Bs + kr * kBStride + ng * 8, ok ? src + (size_t)k * p.N + n : src, ok ? 16 : 0);
+// ---------------------------------------------------------------- host side
+
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled = nullptr;
+PFN_cuTensorMapEncodeIm2col_v12000 encode_im2col = nullptr;
+int driver_version = 0;
+
+constexpr int kEncodeFailed = 10000;  // + CUresult: a tensor map was refused
+
+cudaError_t load_driver_entry_points() {
+  if (encode_tiled && encode_im2col) return cudaSuccess;
+  cudaDriverEntryPointQueryResult q;
+  void* fn = nullptr;
+  cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+  if (err != cudaSuccess) return err;
+  if (q != cudaDriverEntryPointSuccess || !fn) return cudaErrorNotSupported;
+  encode_tiled = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  err = cudaGetDriverEntryPoint("cuTensorMapEncodeIm2col", &fn, cudaEnableDefault, &q);
+  if (err != cudaSuccess) return err;
+  if (q != cudaDriverEntryPointSuccess || !fn) return cudaErrorNotSupported;
+  encode_im2col = reinterpret_cast<PFN_cuTensorMapEncodeIm2col_v12000>(fn);
+  return cudaDriverGetVersion(&driver_version);
 }
 
-// out = bf16(relu(A·B [+ A2·B2] + bias [+ bias2] [+ res])). Grid (ceil(M/128), ceil(N/64)).
-template <bool CONV3>
-__global__ void __launch_bounds__(kThreads) gemm_bf16_kernel(const Gemm p) {
-  __shared__ __align__(128) __nv_bfloat16 As[kStages][kBM * kAStride];
-  __shared__ __align__(128) __nv_bfloat16 Bs[kStages][kBK * kBStride];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+// A row-major (rows, cols) bf16 matrix, loaded or stored as 64 × box_rows boxes, 128-byte
+// swizzled; out-of-bounds elements read as zero and are not written.
+CUresult map_2d(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  const cuuint64_t dim[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t stride[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dim,
+                      stride, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
 
-  int img[2] = {0, 0}, py[2] = {0, 0}, px[2] = {0, 0};
-  if (CONV3) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int m = m0 + (tid >> 2) + 64 * j;
-      if (m < p.M) {
-        img[j] = m / (p.H * p.W);
-        const int rem = m - img[j] * p.H * p.W;
-        py[j] = rem / p.W;
-        px[j] = rem - py[j] * p.W;
-      }
-    }
+// NHWC (n, H, W, C) bf16 in im2col mode for the 3×3 'SAME' convolution: 128 pixels × 64
+// channels per load, the pixel box from -1 to -1 on W and H (so a load starting at output
+// pixel (y, x) names input (x - 1, y - 1), and the filter tap is the load's offset).
+CUresult map_im2col(CUtensorMap* map, const void* ptr, int n, int H, int W, int C) {
+  const cuuint64_t dim[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
+                             static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(n)};
+  const cuuint64_t stride[3] = {static_cast<cuuint64_t>(C) * 2,
+                                static_cast<cuuint64_t>(W) * C * 2,
+                                static_cast<cuuint64_t>(H) * W * C * 2};
+  const int lower[2] = {-1, -1}, upper[2] = {-1, -1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = encode_im2col(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                             dim, stride, lower, upper, 64, kBM, elem,
+                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  // Drivers up to 13.1 mishandle im2col maps of tensors under 128 KB unless this bit of
+  // the descriptor is cleared (the same workaround as CUTLASS's
+  // cute/atom/copy_traits_sm90_im2col.hpp).
+  if (r == CUDA_SUCCESS && driver_version <= 13010 &&
+      static_cast<uint64_t>(n) * H * W * C * 2 < 131072)
+    reinterpret_cast<uint64_t*>(map)[1] &= ~(1ull << 21);
+  return r;
+}
+
+constexpr int kMaxDevices = 64;
+
+template <bool CONV3, bool RES, int BN>
+cudaError_t launch(Params& p, int M, int device, int sms, cudaStream_t s) {
+  static bool configured[kMaxDevices] = {};  // per instantiation and device
+  constexpr int smem = Config<BN, RES>::kSmem;
+  if (!configured[device]) {
+    cudaError_t err = cudaFuncSetAttribute(gemm_bf16_kernel<CONV3, RES, BN>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured[device] = true;
   }
+  p.n_tiles = (p.N + BN - 1) / BN;
+  p.tiles = ((M + kBM - 1) / kBM) * p.n_tiles;
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  gemm_bf16_kernel<CONV3, RES, BN><<<grid, kThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
 
-  const int T1 = (p.K + kBK - 1) / kBK;
-  const int T = T1 + (p.a2 ? (p.K2 + kBK - 1) / kBK : 0);
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < T) {
-      load_a<CONV3>(p, s, T1, As[s], m0, tid, img, py, px);
-      load_b(p, s, T1, Bs[s], n0, tid);
-    }
-    cp_async_commit();
-  }
-
-  for (int t = 0; t < T; ++t) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // chunk t has landed, and every warp is done with chunk t-1
-    const int nt = t + kStages - 1;
-    if (nt < T) {
-      load_a<CONV3>(p, nt, T1, As[nt % kStages], m0, tid, img, py, px);
-      load_b(p, nt, T1, Bs[nt % kStages], n0, tid);
-    }
-    cp_async_commit();
-
-    const __nv_bfloat16* as = As[t % kStages];
-    const __nv_bfloat16* bs = Bs[t % kStages];
-    float part[2][4][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[2][4], bf[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldmatrix_x4(af[mi], as + (wm * 32 + mi * 16 + (lane & 15)) * kAStride + kk +
-                                (lane >> 4) * 8);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj)
-        ldmatrix_x4_trans(bf[nj], bs + (kk + (lane & 15)) * kBStride + wn * 32 + nj * 16 +
-                                      (lane >> 4) * 8);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16(part[mi][ni], af[mi], bf[ni >> 1][(ni & 1) * 2], bf[ni >> 1][(ni & 1) * 2 + 1]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][j][e]);
-  }
-  cp_async_wait<0>();
-
-  // Epilogue. Thread (g, t4) of a warp holds, per 16 × 8 tile, columns 2·t4 and 2·t4+1 of
-  // rows g and g+8: one bf16 pair per row.
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int n = n0 + wn * 32 + ni * 8 + 2 * t4;
-    if (n >= p.N) continue;
-    const float2 b = *reinterpret_cast<const float2*>(p.bias + n);
-    const float2 b2 = p.bias2 ? *reinterpret_cast<const float2*>(p.bias2 + n)
-                              : make_float2(0.0f, 0.0f);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = m0 + wm * 32 + mi * 16 + g + 8 * half;
-        if (m >= p.M) continue;
-        const size_t off = (size_t)m * p.N + n;
-        float v0 = acc[mi][ni][2 * half] + b.x;
-        float v1 = acc[mi][ni][2 * half + 1] + b.y;
-        if (p.bias2) {
-          v0 += b2.x;
-          v1 += b2.y;
-        }
-        if (p.res) {
-          const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.res + off));
-          v0 += r.x;
-          v1 += r.y;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(p.out + off) =
-            __floats2bfloat162_rn(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
-      }
-    }
-  }
+template <int BN>
+cudaError_t launch_kind(Params& p, int M, int device, int sms, cudaStream_t s, bool conv3,
+                        bool res) {
+  if (conv3) return launch<true, false, BN>(p, M, device, sms, s);
+  return res ? launch<false, true, BN>(p, M, device, sms, s)
+             : launch<false, false, BN>(p, M, device, sms, s);
 }
 
 }  // namespace
 
-// Plain C interface for ctypes. Returns a cudaError_t code: 0 on a clean launch.
+// Plain C interface for ctypes. Returns 0 on a clean launch, a cudaError_t code, or
+// kEncodeFailed + a CUresult when a tensor map is refused (ect_error_string names both).
 // One fused GEMM: out (M, N) = bf16(relu(A·B [+ a2·b2] + bias [+ bias2] [+ res])).
 // conv3_c > 0: A is NHWC (M = n·H·W pixels, conv3_c channels) and the product is the
 // 3×3 'SAME' convolution with B the HWIO kernel flattened to (9·conv3_c, N).
@@ -303,20 +615,50 @@ extern "C" int ect_gemm_bf16(const void* a, int M, int K, const void* b, int N,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (M <= 0) return 0;
-  Gemm p{static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b), K,
-         static_cast<const __nv_bfloat16*>(a2), static_cast<const __nv_bfloat16*>(b2), K2,
-         static_cast<const float*>(bias), static_cast<const float*>(bias2),
-         static_cast<const __nv_bfloat16*>(res), static_cast<__nv_bfloat16*>(out), M, N,
-         H, W, conv3_c};
-  dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
+  err = load_driver_entry_points();
+  if (err != cudaSuccess) return (int)err;
+  static int sms[kMaxDevices] = {};
+  if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!sms[device]) {
+    err = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+  }
+
+  Params p{};
+  CUresult r = CUDA_SUCCESS;
+  if (conv3_c > 0) {
+    r = map_im2col(&p.a, a, M / (H * W), H, W, conv3_c);
+    p.chunks1 = 9 * ((conv3_c + kBK - 1) / kBK);
+  } else {
+    r = map_2d(&p.a, a, M, K, kBM);
+    p.chunks1 = (K + kBK - 1) / kBK;
+  }
+  const int Kb = conv3_c > 0 ? 9 * conv3_c : K;
+  if (r == CUDA_SUCCESS) r = map_2d(&p.b, b, Kb, N, kBK);
+  if (r == CUDA_SUCCESS && a2) {
+    r = map_2d(&p.a2, a2, M, K2, kBM);
+    if (r == CUDA_SUCCESS) r = map_2d(&p.b2, b2, K2, N, kBK);
+    p.chunks2 = (K2 + kBK - 1) / kBK;
+  }
+  if (r == CUDA_SUCCESS && res) r = map_2d(&p.res, res, M, N, 64);
+  if (r == CUDA_SUCCESS) r = map_2d(&p.out, out, M, N, 64);
+  if (r != CUDA_SUCCESS) return kEncodeFailed + (int)r;
+  p.bias = static_cast<const float*>(bias);
+  p.bias2 = static_cast<const float*>(bias2);
+  p.conv_c = conv3_c;
+  p.H = H;
+  p.W = W;
+  p.N = N;
+
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (conv3_c > 0)
-    gemm_bf16_kernel<true><<<grid, kThreads, 0, s>>>(p);
-  else
-    gemm_bf16_kernel<false><<<grid, kThreads, 0, s>>>(p);
-  return (int)cudaGetLastError();
+  const bool conv3 = conv3_c > 0, with_res = res != nullptr;
+  if (conv3 && with_res) return (int)cudaErrorInvalidValue;
+  err = N <= 64 ? launch_kind<64>(p, M, device, sms[device], s, conv3, with_res)
+                : launch_kind<128>(p, M, device, sms[device], s, conv3, with_res);
+  return (int)err;
 }
 
 extern "C" const char* ect_error_string(int code) {
+  if (code >= kEncodeFailed) return "cuTensorMapEncode refused a tensor map (CUresult = code - 10000)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -414,7 +414,11 @@ def fused_stage1_reference(x, blocks: Sequence[Mapping[str, torch.Tensor]],
 def _lib_bf16():
     from embodied_clip_tpu_torch.ops.kernels import _build
 
-    lib = _build.load("bottleneck_bf16")
+    return _bind_bf16(_build.load("bottleneck_bf16"))
+
+
+def _bind_bf16(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from `csrc/bottleneck_bf16.cu`."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ect_gemm_bf16.argtypes = [p, i, i, p, i, p, p, i, p, p, p, p, i, i, i, i, p]
     lib.ect_gemm_bf16.restype = ctypes.c_int

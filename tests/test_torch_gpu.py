@@ -227,20 +227,25 @@ def _assert_bf16_contract(got, want):
     assert share <= BF16_KERNEL_SHARE and worst <= 1.0, (share, worst)
 
 
-# (n, h, c, cm): test width (Cm 8), RN50 stages 2-4, RN50x16 stages 3-4.
+# (n, h, c, cm): test width (Cm 8), RN50 stages 2-4, RN50x16 stages 3-4, the main path's
+# stage 4 at batch 128 (more output tiles than SMs), a ragged stage 3 (M = 147).
 @pytest.mark.parametrize("n,h,c,cm", [(2, 6, 32, 8), (2, 10, 64, 16), (4, 28, 512, 128),
                                       (4, 14, 1024, 256), (16, 7, 2048, 512),
-                                      (2, 24, 1536, 384), (2, 12, 3072, 768)])
+                                      (2, 24, 1536, 384), (2, 12, 3072, 768),
+                                      (128, 7, 2048, 512), (3, 7, 1024, 256)])
 def test_fused_bottleneck_kernel_matches_plain_version(cuda, n, h, c, cm):
-    """K6 vs its plain version (bf16, f32 accumulation): the card contract."""
+    """K6 vs its plain version (bf16, f32 accumulation): the card contract; a second
+    launch on the same input is bit-equal (the persistent tile walk is deterministic)."""
     rng = np.random.RandomState(6)
     blk = _bf16_block(rng, c, cm, c, cuda)
     x = _t(np.abs(rng.randn(n, h, h, c)).astype(np.float32), cuda, torch.bfloat16)
     args = (x, blk["w1"], blk["b1"], blk["w2"], blk["b2"], blk["w3"], blk["b3"])
     before = BK.fused_bottleneck.launches
     got = BK.fused_bottleneck(*args)
+    again = BK.fused_bottleneck(*args)
     torch.cuda.synchronize()
-    assert BK.fused_bottleneck.launches == before + 1
+    assert BK.fused_bottleneck.launches == before + 2
+    assert torch.equal(got, again)
     _assert_bf16_contract(got, BK.fused_bottleneck_reference(*args))
 
 
@@ -250,7 +255,8 @@ def test_fused_bottleneck_kernel_matches_plain_version(cuda, n, h, c, cm):
                                                 (2, 8, 8, 8, 32, 1)])
 def test_fused_stage1_kernel_matches_plain_version(cuda, n, h, cin, cm, cout, nb):
     """K7 vs its plain version (bf16, f32 accumulation): the card contract block by
-    block (`parity.stage1_block_disagreements`); the chained output is reported."""
+    block (`parity.stage1_block_disagreements`); the chained output is reported. A
+    second launch on the same input is bit-equal."""
     rng = np.random.RandomState(7)
     blocks = [_bf16_block(rng, cin if i == 0 else cout, cm, cout, cuda) for i in range(nb)]
     shortcut = (_t(rng.randn(cin, cout).astype(np.float32) / np.sqrt(cin), cuda,
@@ -258,9 +264,11 @@ def test_fused_stage1_kernel_matches_plain_version(cuda, n, h, cin, cm, cout, nb
     x = _t(np.abs(rng.randn(n, h, h, cin)).astype(np.float32), cuda, torch.bfloat16)
     before = BK.fused_stage1.launches
     got = BK.fused_stage1(x, blocks, shortcut)
+    again = BK.fused_stage1(x, blocks, shortcut)
     torch.cuda.synchronize()
-    assert BK.fused_stage1.launches == before + 1
+    assert BK.fused_stage1.launches == before + 2
     assert got.shape == (n, h, h, cout)
+    assert torch.equal(got, again)
     want = BK.fused_stage1_reference(x, blocks, shortcut)
     share, worst = bf16_disagreement(got, want)
     print(f"K7 chained on {tuple(got.shape)}: {share:.2e} differ, worst {worst:.3f}")
