@@ -7,7 +7,8 @@
 Phases:
   1. torch version, device, and `nvidia-smi`'s name and power limit;
   2. build every CUDA source of the port with nvcc (in parallel) and time it; check that
-     the SASS of `bottleneck_bf16` (K6/K7) holds wgmma (HGMMA) and no mma.sync (HMMA);
+     the SASS of `bottleneck_bf16` (K6/K7) holds wgmma (HGMMA) and no mma.sync (HMMA),
+     and that of `bottleneck_int8` (K3-K5) s8 wgmma (IGMMA) and no dp4a (IDP.4A);
   3. hold kernel K1 (fused preprocess) to its plain PyTorch version on the card, at the
      main path's shape (golden_frames(128), 300x300 → 224): ≤1.5 uint8 LSB with <1e-3
      of pixels flipped, bf16 output bit-equal to the f32 output cast; time both and
@@ -22,7 +23,9 @@ Phases:
      golden_frames(128) through path A (K2 + K3 + K5) and path B (K2 + K3 + K4),
      recording every kernel call's inputs; hold K2 and K3 to their plain versions at
      ≤1 s8 step on ≤0.5% of elements, K4 and K5 bit-exactly; time each kernel and its
-     plain version on those inputs and compute its bound;
+     plain version on those inputs (the kernel's device time from a CUDA graph's
+     replay, beside the wrapper call timed from the host), compute its bound, and print
+     each call's achieved TOP/s and share of the bound;
   6. drive the int8 main path: the four requests through path A, with launches per
      request K1 1, K2 1, K3 1, K5 3; the same through path B, with K4 12 per request;
      keys, shapes, finite bf16; cosine distance vs the f32 encoder ≤1e-3 for the
@@ -122,6 +125,21 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 10) -> float:
+    """Device ms of one fn() call, replayed from a CUDA graph: the host's share of a
+    wrapper call (checks, tensor maps, launches) is left out."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(graph.replay, iters)
+    del graph
+    return ms
+
+
 def preprocess_work(n: int, in_hw, size: int, out_bytes: int):
     """(bytes, FLOPs) K1 needs for n frames: each input byte read once, each output
     written once; multiply-adds over the resize matrices' nonzeros (the rows the
@@ -144,7 +162,8 @@ def nbytes(*tensors) -> int:
 
 def int8_work(name: str, args, kw, out):
     """(bytes, int8 ops, bf16 ops) one call of kernel `name` needs: each input and
-    weight read once, each output written once; 2 operations per multiply-add."""
+    weight read once (an s8 weight once, not its K-major copy `*_t` beside it), each
+    output written once; 2 operations per multiply-add."""
     if name == "stem3_requant_pool_int8":
         x, kernel, bias, _ = args
         n, h, w, cin = x.shape
@@ -155,18 +174,19 @@ def int8_work(name: str, args, kw, out):
         x8, ops = args
         m = x8.numel() // x8.shape[-1]
         macs = sum(ops[f"k{i}{L}"].numel() for i in (1, 2, 3) for L in "abc")
-        w = nbytes(*(v for v in ops.values()))
+        w = nbytes(*(v for k, v in ops.items() if not k.endswith("_t")))
         return nbytes(x8, out) + w, 2 * m * macs, 2 * m * ops["wsc"].numel()
     if name == "fused_cb3_cb1_int8":
         x8, res8, ops = args
         m = x8.numel() // x8.shape[-1]
         macs = ops["k3"].numel() + ops["k1"].numel()
-        return nbytes(x8, res8, *out, *ops.values()), 2 * m * macs, 0
+        w = nbytes(*(v for k, v in ops.items() if not k.endswith("_t")))
+        return nbytes(x8, res8, *out) + w, 2 * m * macs, 0
     if name == "fused_resblocks_int8":
         x8, blocks, scl = args
         m = x8.numel() // x8.shape[-1]
         macs = sum(b[k].numel() for b in blocks for k in ("k1", "k2", "k3"))
-        w = nbytes(*(v for b in blocks for v in b.values()), scl)
+        w = nbytes(*(v for b in blocks for k, v in b.items() if not k.endswith("_t")), scl)
         return nbytes(x8, out) + w, 2 * m * macs, 0
     raise KeyError(name)
 
@@ -253,7 +273,7 @@ def check_int8_kernels(qenc, frames, card, profile):
         calls = recs.get(name, [])
         check(len(calls) > 0, f"{name} ran on path {path}")
         worst_step, worst_share = 0, 0.0
-        ms = plain_ms = bound_ms = 0.0
+        ms = wrapper_ms = plain_ms = bound_ms = 0.0
         by = {"bytes": 0.0, "operations": 0.0}
         for args, kw, out in calls:
             before = fn.launches
@@ -273,21 +293,29 @@ def check_int8_kernels(qenc, frames, card, profile):
                 else:
                     check(torch.equal(g, w), f"{name} bit-exact vs its plain version on "
                                              f"{tuple(args[0].shape)}")
-            k_ms = cuda_ms(lambda: fn(*args, **kw), 10)
+            w_ms = cuda_ms(lambda: fn(*args, **kw), 10)
+            k_ms = graph_ms(lambda: fn(*args, **kw))
             p_ms = cuda_ms(lambda: ref(*args, **kw), 3, warmup=1)
-            b_ms, b_by = bound(int8_work(name, args, kw, out), card)
-            ms, plain_ms, bound_ms = ms + k_ms, plain_ms + p_ms, bound_ms + b_ms
+            work = int8_work(name, args, kw, out)
+            b_ms, b_by = bound(work, card)
+            ms, wrapper_ms = ms + k_ms, wrapper_ms + w_ms
+            plain_ms, bound_ms = plain_ms + p_ms, bound_ms + b_ms
             by[b_by] += b_ms
-            print(f"[5] {name} {tuple(args[0].shape)}: kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}")
+            tops = (work[1] + work[2]) / k_ms / 1e9
+            print(f"[5] {name} {tuple(args[0].shape)}: kernel {k_ms:.4f} ms on the device "
+                  f"({tops:.1f} TOP/s, {b_ms / k_ms:.1%} of the bound; {w_ms:.4f} ms a "
+                  f"wrapper call timed from the host), plain {p_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms by {b_by}")
         contract = (f"≤{STEP_LIMIT} step on ≤{STEP_SHARE_LIMIT:g}: worst {worst_step} step "
                     f"on {worst_share:.2e}" if name in ("stem3_requant_pool_int8",
                                                         "fused_stage1_int8")
                     else "bit-exact")
         print(f"[5] {name}: {len(calls)} call(s) per batch-128 encode (path {path}): kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms; {contract}")
-        results[name] = {"max_abs_err": float(worst_step), "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": max(by, key=by.get)}
+              f"{ms:.4f} ms on the device ({wrapper_ms:.4f} ms in wrapper calls), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms; {contract}")
+        results[name] = {"max_abs_err": float(worst_step), "ms": ms, "wrapper_ms": wrapper_ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": max(by, key=by.get)}
     if profile:
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as torch_profile
@@ -413,14 +441,17 @@ def main(argv) -> int:
         for line in _build.build_log(src).splitlines():
             if "ptxas info    : Used" in line or "(C75" in line:
                 print(f"[2]   {src}: {line.strip()}")
-    # K6/K7's GEMM runs on wgmma: its SASS holds HGMMA and no mma.sync (HMMA).
-    sass = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump",
-                           "-sass", str(_build.library_path("bottleneck_bf16"))],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
-    hgmma, hmma = sass.count("HGMMA."), sass.count("HMMA.")
-    print(f"[2] bottleneck_bf16 SASS: {hgmma} HGMMA (wgmma) instructions, {hmma} HMMA "
-          f"(mma.sync)")
-    check(hgmma > 0 and hmma == 0, "bottleneck_bf16 runs on wgmma alone")
+    # K6/K7's GEMM runs on bf16 wgmma: its SASS holds HGMMA and no mma.sync (HMMA); K3-K5's
+    # s8 products run on s8 wgmma: IGMMA, and no dp4a on the CUDA cores (IDP.4A).
+    for src, want, banned in (("bottleneck_bf16", "HGMMA.", "HMMA."),
+                              ("bottleneck_int8", "IGMMA", "IDP.4A")):
+        sass = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump",
+                               "-sass", str(_build.library_path(src))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        n_want, n_banned = sass.count(want), sass.count(banned)
+        print(f"[2] {src} SASS: {n_want} {want.rstrip('.')} (wgmma) instructions, "
+              f"{n_banned} {banned.rstrip('.')}")
+        check(n_want > 0 and n_banned == 0, f"{src} runs on wgmma alone")
 
     # Full-f32 references: cuDNN convs and cuBLAS matmuls default to TF32 otherwise.
     torch.backends.cudnn.allow_tf32 = False

@@ -26,7 +26,8 @@
 // this one replaced (128 × 64 tiles of 8 warps with 32 × 32 warp tiles, a 3-deep cp.async
 // ring) was held by the issue rate of ldmatrix + mma.sync: ≈124 TFLOP/s at stage 4.
 //
-// Design (Hopper: TMA, wgmma, mbarriers, warp specialisation). A persistent grid of one
+// Design (Hopper: TMA, wgmma, mbarriers, warp specialisation; the building blocks are
+// csrc/hopper.cuh, shared with K3-K5's bottleneck_int8.cu). A persistent grid of one
 // 384-thread block per SM walks 128 × BN output tiles (BN = 128; 64 when N ≤ 64), row
 // panels outer and column panels inner, so the blocks running at once share one A panel
 // and the weights (≤4.7 MB) stay in L2. Warpgroup 2 is the producer: one thread keeps a
@@ -75,11 +76,10 @@
 // Layouts: activations NHWC bf16 flattened to (M, C) rows; weights (K, N) bf16 row-major;
 // biases f32. C, Cm and N multiples of 8; every pointer 16-byte aligned.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -119,110 +119,6 @@ struct Params {
   int N;
   int n_tiles, tiles;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra.uni LAB_DONE;\nbra.uni LAB_WAIT;\nLAB_DONE:\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// 128 output pixels × 64 channels of the 3×3 tap (kx, ky), starting at the pixel whose
-// top-left input neighbour is (w, h) of image n (im2col mode; the box walks W, then H,
-// then N, and zero-fills what lies outside the image).
-__device__ __forceinline__ void tma_load_im2col(void* dst, const CUtensorMap* map,
-                                                uint64_t* bar, int c, int w, int h, int n,
-                                                uint16_t kx, uint16_t ky) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c), "r"(w), "r"(h),
-      "r"(n), "h"(kx), "h"(ky)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
-                                             int c1) {
-  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::
-                   "l"(reinterpret_cast<uint64_t>(map)),
-               "r"(smem_u32(src)), "r"(c0), "r"(c1)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of wgmma registers across the wgmma
-// fences and waits (the asm statements do not name them).
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&r)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle. K-major A: sbo = 1024 B between
-// 8-row groups (lbo unused). N-major B: lbo = the stride between 64-column panels, sbo =
-// 1024 B between 8-k-row groups.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
-}
 
 // d (+)= A (64 × 16, K-major) · B (16 × n, N-major), bf16 in, f32 out. ACC: add to d;
 // otherwise overwrite it (write-only operands: the old d is dead).
@@ -515,66 +411,17 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_bf16_kernel(const __grid_con
 
 // ---------------------------------------------------------------- host side
 
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled = nullptr;
-PFN_cuTensorMapEncodeIm2col_v12000 encode_im2col = nullptr;
-int driver_version = 0;
-
-constexpr int kEncodeFailed = 10000;  // + CUresult: a tensor map was refused
-
-cudaError_t load_driver_entry_points() {
-  if (encode_tiled && encode_im2col) return cudaSuccess;
-  cudaDriverEntryPointQueryResult q;
-  void* fn = nullptr;
-  cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
-  if (err != cudaSuccess) return err;
-  if (q != cudaDriverEntryPointSuccess || !fn) return cudaErrorNotSupported;
-  encode_tiled = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  err = cudaGetDriverEntryPoint("cuTensorMapEncodeIm2col", &fn, cudaEnableDefault, &q);
-  if (err != cudaSuccess) return err;
-  if (q != cudaDriverEntryPointSuccess || !fn) return cudaErrorNotSupported;
-  encode_im2col = reinterpret_cast<PFN_cuTensorMapEncodeIm2col_v12000>(fn);
-  return cudaDriverGetVersion(&driver_version);
-}
-
 // A row-major (rows, cols) bf16 matrix, loaded or stored as 64 × box_rows boxes, 128-byte
 // swizzled; out-of-bounds elements read as zero and are not written.
 CUresult map_2d(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
-  const cuuint64_t dim[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t stride[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dim,
-                      stride, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rows, cols, 64, box_rows);
 }
 
 // NHWC (n, H, W, C) bf16 in im2col mode for the 3×3 'SAME' convolution: 128 pixels × 64
-// channels per load, the pixel box from -1 to -1 on W and H (so a load starting at output
-// pixel (y, x) names input (x - 1, y - 1), and the filter tap is the load's offset).
+// channels per load (see encode_3x3_im2col).
 CUresult map_im2col(CUtensorMap* map, const void* ptr, int n, int H, int W, int C) {
-  const cuuint64_t dim[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
-                             static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(n)};
-  const cuuint64_t stride[3] = {static_cast<cuuint64_t>(C) * 2,
-                                static_cast<cuuint64_t>(W) * C * 2,
-                                static_cast<cuuint64_t>(H) * W * C * 2};
-  const int lower[2] = {-1, -1}, upper[2] = {-1, -1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  CUresult r = encode_im2col(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                             dim, stride, lower, upper, 64, kBM, elem,
-                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  // Drivers up to 13.1 mishandle im2col maps of tensors under 128 KB unless this bit of
-  // the descriptor is cleared (the same workaround as CUTLASS's
-  // cute/atom/copy_traits_sm90_im2col.hpp).
-  if (r == CUDA_SUCCESS && driver_version <= 13010 &&
-      static_cast<uint64_t>(n) * H * W * C * 2 < 131072)
-    reinterpret_cast<uint64_t*>(map)[1] &= ~(1ull << 21);
-  return r;
+  return encode_3x3_im2col(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, n, H, W, C, 64, kBM);
 }
-
-constexpr int kMaxDevices = 64;
 
 template <bool CONV3, bool RES, int BN>
 cudaError_t launch(Params& p, int M, int device, int sms, cudaStream_t s) {
@@ -612,17 +459,10 @@ extern "C" int ect_gemm_bf16(const void* a, int M, int K, const void* b, int N,
                              const void* bias, const void* a2, int K2, const void* b2,
                              const void* bias2, const void* res, void* out, int conv3_c,
                              int H, int W, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  int sms = 0;
+  cudaError_t err = prepare_launch(device, &sms);
   if (err != cudaSuccess) return (int)err;
   if (M <= 0) return 0;
-  err = load_driver_entry_points();
-  if (err != cudaSuccess) return (int)err;
-  static int sms[kMaxDevices] = {};
-  if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!sms[device]) {
-    err = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return (int)err;
-  }
 
   Params p{};
   CUresult r = CUDA_SUCCESS;
@@ -653,8 +493,8 @@ extern "C" int ect_gemm_bf16(const void* a, int M, int K, const void* b, int N,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool conv3 = conv3_c > 0, with_res = res != nullptr;
   if (conv3 && with_res) return (int)cudaErrorInvalidValue;
-  err = N <= 64 ? launch_kind<64>(p, M, device, sms[device], s, conv3, with_res)
-                : launch_kind<128>(p, M, device, sms[device], s, conv3, with_res);
+  err = N <= 64 ? launch_kind<64>(p, M, device, sms, s, conv3, with_res)
+                : launch_kind<128>(p, M, device, sms, s, conv3, with_res);
   return (int)err;
 }
 

@@ -11,64 +11,135 @@
 // A TPU core keeps a whole stage in VMEM; an RN50 stage-1 image (56·56·256 B s8) does
 // not fit one SM's 227 KB, so here the activations between convs go through device
 // memory (mostly L2) as s8 and every epilogue is fused into the conv that feeds it:
-//   (a) gemm_s8_kernel<kRows>   s8×s8→s32 1×1 conv (a GEMM over pixel rows)
-//   (b) gemm_s8_kernel<kConv3>  s8 3×3 conv, stride 1, zero halo, as an implicit GEMM
-//                               (K = 9·C, the halo gathered while staging A)
-//   (c) cb3_cb1_kernel          K4: a tile of BM pixel rows computes all C columns of
-//                               cb3 + residual + requant into shared memory, then the
-//                               next block's cb1 + requant from there; the block output
-//                               is written once and never read back
-//   (d) shortcut_bf16_kernel    K3's 1×1 conv shortcut in bf16 with f32 accumulation
-//                               and the signed s8 requant
+//   (a) gemm_s8_kernel<false>  s8×s8→s32 1×1 conv (a GEMM over pixel rows)
+//   (b) gemm_s8_kernel<true>   s8 3×3 conv, stride 1, zero halo, as an implicit GEMM
+//                              (K = 9·C)
+//   (c) cb3_cb1_kernel         K4: a tile of pixel rows computes all C columns of
+//                              cb3 + residual + requant into shared memory, then the
+//                              next block's cb1 + requant from there; the block output
+//                              is written once and never read back
+//   (d) shortcut_bf16_kernel   K3's 1×1 conv shortcut in bf16 with f32 accumulation
+//                              and the signed s8 requant
 //
-// Arithmetic. Products are __dp4a on four packed s8 pairs with int32 accumulation:
-// exact at every K (|acc| ≤ 9·512·127² < 2³¹), so the TPU kernels' K ≤ 1024 bf16 route
-// and K > 1024 s32 route are one route here. Epilogues follow the JAX graph's op order
-// (embodied_clip_tpu/ops/quantize.py:443 and :597-609), each op rounded on its own:
+// Arithmetic. Products are s8×s8 summed in s32 on the tensor cores
+// (wgmma.mma_async m64nNk32.s32.s8.s8): exact in any order at every K (|acc| ≤
+// 9·768·127² < 2³¹), so the TPU kernels' K ≤ 1024 bf16 route and K > 1024 s32 route are
+// one route here, and no partial sum needs promoting. Epilogues follow the JAX graph's
+// op order (embodied_clip_tpu/ops/quantize.py:443 and :597-609), each op rounded on its
+// own:
 //   v = float(acc)·S[n] + b[n];  v = v + float(res)·r_res;  q = trunc(clip(v / r + 0.5,
 //   0, 127)); signed: y = v / r, y ± 0.5 by sign, clip ±127, trunc.
-// __fmul_rn/__fadd_rn/__fdiv_rn keep nvcc from contracting them into FMAs, so the
-// result equals PyTorch's elementwise ops on the same values bit for bit.
+// __int2float_rn/__fmul_rn/__fadd_rn/__fdiv_rn keep nvcc from contracting them into
+// FMAs, so the result equals PyTorch's elementwise ops on the same values bit for bit.
 //
-// Bound on an H100: operations. At batch 128 the int8 work is ~158 GOP (stage 1) and
-// 168 / 280 / 112 GOP (identity runs of stages 2/3/4) against 1,979 TOP/s of int8
-// tensor cores; dp4a on the CUDA cores reaches a small fraction of that. This first
-// version is simple and exact: 64-column tiles, 4×4 outputs per thread, A and B staged
-// through shared memory in chunks of 64 k. wgmma/TMA are later work.
+// Bound on an H100: at batch 128 the (a)/(b) launches of stages 2-4 do 17-30 GOP each
+// against 1,979 TOP/s of int8 tensor cores (operations); K4's calls move x8, the
+// residual, out8 and y8 (32-128 MB) for ≈26 GOP (bytes at stage 2, about even at 4).
 //
-// Layouts. Activations are NHWC s8, flattened to (M = N·H·W, C) rows. Weights come as
-// the JAX package keeps them: (K, N) s8, row-major (1×1: (Cin, Cout); 3×3: HWIO
-// flattened to (9·Cin, Cout), k = (ky·3 + kx)·Cin + c). While a B chunk is staged, four
-// k-rows are transposed with __byte_perm into one dp4a word per column, so no packed
-// copy of the weights is needed. All sizes in bytes along C must be multiples of 4.
+// Design (Hopper: TMA, wgmma, mbarriers, warp specialisation; the building blocks are
+// csrc/hopper.cuh, shared with K6/K7's bottleneck_bf16.cu). Both kernels run one
+// 384-thread block per SM over a persistent tile walk. Warpgroup 2 is the producer: one
+// thread keeps a ring of 128-k chunks (one 128-byte swizzle row of s8) in flight with
+// TMA, signalled by full/empty mbarrier pairs; it drops to 40 registers (setmaxnreg).
+// Warpgroups 0 and 1 are consumers (232 registers) and issue wgmma from shared memory.
+// s8 wgmma has no transpose bit: both operands are K-major, so the weights come as an
+// (N, K) copy built once with the operands (ops/quantize.py: `*_t`; the 3×3 kernel as
+// (Cout, 9·Cin), k = (ky·3 + kx)·Cin + c, the order of the im2col walk). TMA's
+// out-of-bounds zero fill covers ragged M, N and K (Cm = 16 pads 16 → 128 per chunk);
+// TMA needs 16-byte row strides, so every C, Cm and N is a multiple of 16.
+//   (a)/(b): 128 × BN output tiles (BN = 128; 64 for an s8 output with N ≤ 64), row
+//   panels outer, each consumer warpgroup owning 64 rows. For (a), A is a 2-D tiled load
+//   of the (M, K) rows; for (b), TMA's im2col mode over the NHWC input with the pixel
+//   box at -1/-1, one load per (tap, 128-channel slice): the hardware walks 128 output
+//   pixels across rows and images and zero-fills the halo. A launch with a residual has
+//   the producer load each tile's 128 × 128 s8 residual ahead into a 4-slot ring. The
+//   per-column S and b are loaded a tile ahead (lane l holds columns 2l, 2l + 1 and
+//   64 + 2l, 65 + 2l) and shuffled to their threads in the epilogue. An s8 output of a
+//   128-column tile is written into shared memory (in place of the residual where there
+//   is one) and leaves with TMA stores in whole 128-byte rows; the bf16/f32 conv map and
+//   64-column tiles are stored from registers.
+//   (c): a tile is BM pixel rows. Phase 1 (cb3, Cm → C) streams x8 and the cb3 weights
+//   through the ring, and its requant-with-residual epilogue writes out8 into a
+//   resident tile T (BM × C s8) in the swizzled K-major layout that both wgmma's A
+//   descriptor and a TMA store read. Then fence.proxy.async and a barrier of the
+//   consumers; one thread stores T to out8 with TMA, and phase 2 (cb1, C → C1) reads
+//   A = T from shared memory while its weights stream through the ring. Every tile reads
+//   all of both weights from L2, so BM = 128 (each warpgroup 64 rows and all 128 columns
+//   of a step) where T fits beside a two-stage ring and the tiles fill the SMs' waves
+//   (RN50 stages 1-2), else 64 (both warpgroups share the m64 A operand and take 64
+//   columns each). The ring depth is what T leaves: at BM = 128, 4 stages of 32 KB at
+//   C ≤ 512; at BM = 64, stages of 24 KB: 6 at C ≤ 256, 5 at 512, 4 at 1024, 3 at 2048,
+//   1 at RN50x16's 3072.
+// Outputs are deterministic: no split-K, no atomics.
+//
+// What holds it back now (tools/bench_int8_gemm.py on NVIDIA H100 80GB HBM3 at 700 W):
+// the epilogues' per-element arithmetic. K4's launches and the residual (a) run at
+// 15-30% of their bound; a build whose requant multiplies by the scale's reciprocal
+// (not exact, a diagnostic only) takes 21-28% less time on them, and the (b) launches
+// (K = 1152-4608 per output) reach 46-49% of the int8 peak. Measured and not kept: the
+// requant as a product with the reciprocal plus one correction, the exact division
+// deciding within 2^-14 of an integer (per thread: K5 1.657 against 1.442 ms an encode;
+// as a warp-uniform branch: 1.909 against 1.458); 128-row (c) tiles at RN50 stage 3,
+// whose 196 tiles leave a third of the SMs idle in the last wave (0.129 against 0.105 ms).
+//
+// Layouts: activations NHWC s8 flattened to (M = N·H·W, C) rows; per-column S and b f32;
+// scales r_* device scalars; every pointer 16-byte aligned.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 column groups × 16 row lanes
-constexpr int kBN = 64;        // output columns per tile
-constexpr int kBK4 = 16;       // k words (4 s8 each) per staged chunk: 64 k
-constexpr int kAStride = kBK4 + 1;  // padded row of a staged A chunk, in words
+constexpr int kThreads = 384;  // warpgroups 0, 1: consumers; 2: producer
+constexpr int kBM = 128;       // (a)/(b) output rows per tile: 2 consumer warpgroups × 64
+constexpr int kBK = 128;       // k per staged chunk: one 128-byte swizzle row of s8
+constexpr int kSmemLimit = 232448;  // bytes of shared memory one H100 block may use
 
-enum Src { kRows = 0, kConv3 = 1 };
 enum Out { kS8 = 0, kS8Res = 1, kBf16ResRelu = 2, kF32ResRelu = 3 };
 
-struct Epilogue {
-  const float* S;       // (N) per-column scale, in_scale · w_scale
-  const float* b;       // (N) bias
-  const int8_t* res;    // (M, N) s8 residual, or null
-  const float* r_res;   // residual scale (device scalar)
-  const float* r_out;   // requant scale (device scalar)
-  void* out;            // (M, N): s8, bf16 or f32
+// Shared memory of (a)/(b): the ring of A (128 × 128) and B (BN × 128) chunks; with a
+// residual, four 128 × 128 residual slots (a launch with a residual has K ≤ 512: one to
+// four chunks a tile), into which an s8 output is written in place; without, two
+// 128 × 128 s8 output tiles (BN = 128); then the barriers and 1 KB of alignment slack.
+template <int BN, bool RES>
+struct GemmConfig {
+  static constexpr int kStages = BN == 64 ? 8 : (RES ? 4 : 6);
+  static constexpr int kResSlots = RES ? 4 : 0;
+  static constexpr int kStaging = !RES && BN == 128 ? 2 : 0;  // s8 output tiles
+  static constexpr int kStageBytes = (kBM + BN) * kBK;
+  static constexpr int kResBytes = kBM * 128;
+  static constexpr int kSmem = kStages * kStageBytes + (kResSlots + kStaging) * kResBytes +
+                               8 * (2 * kStages + 2 * kResSlots) + 1024;
+  static_assert(kSmem <= kSmemLimit, "more shared memory than an H100 block may have");
 };
+
+struct GemmParams {
+  CUtensorMap a, b, res, out8;  // TMA descriptors (see ect_conv1x1_s8, ect_conv3x3_s8)
+  const float* S;         // (N) per-column scale, in_scale · w_scale
+  const float* bias;      // (N)
+  const float* r_res;     // residual scale, or null
+  const float* r_out;     // requant scale, or null for the bf16/f32 outputs
+  void* out;              // (M, N): s8, bf16 or f32
+  int chunks;             // 128-k chunks per tile
+  int conv_c;             // (b): input channels (K = 9·conv_c); 0 for (a)
+  int H, W;               // (b) geometry
+  int M, N;
+  int n_tiles, tiles;
+};
+
+// The epilogues are bound by the issue rate of their per-element arithmetic, where a
+// type conversion or a reciprocal counts 8 times an add (16 a clock per SM, against 128
+// adds). Two conversions are done exactly with adds instead: an s8 to float, and the
+// truncation of a float in [0, 127].
 
 __device__ __forceinline__ int8_t requant_u8(float v, float r) {
   float y = __fadd_rn(__fdiv_rn(v, r), 0.5f);
   y = fminf(fmaxf(y, 0.0f), 127.0f);
-  return (int8_t)(int)y;  // truncating convert, y ≥ 0
+  // Truncating convert, y in [0, 127]: 2^23 + y rounded toward zero is 2^23 + trunc(y),
+  // and its low mantissa bits are trunc(y).
+  return (int8_t)(__float_as_int(__fadd_rz(y, 8388608.0f)) - 0x4B000000);
 }
 
 __device__ __forceinline__ int8_t requant_s8(float v, float r) {
@@ -82,275 +153,560 @@ __device__ __forceinline__ float affine(int acc, float s, float b) {
   return __fadd_rn(__fmul_rn(__int2float_rn(acc), s), b);
 }
 
+__device__ __forceinline__ uint16_t pack2(int8_t a, int8_t b) {
+  return (uint16_t)((uint32_t)(uint8_t)a | ((uint32_t)(uint8_t)b << 8));
+}
+
 __device__ __forceinline__ uint32_t pack4(int8_t a, int8_t b, int8_t c, int8_t d) {
   return (uint32_t)(uint8_t)a | ((uint32_t)(uint8_t)b << 8) |
          ((uint32_t)(uint8_t)c << 16) | ((uint32_t)(uint8_t)d << 24);
 }
 
-// Stage B[k0 .. k0+64) × [n0 .. n0+64) of a row-major (K, N) s8 matrix into
-// Bs[kBK4][kBN] words, Bs[kk][n] = {B[4kk+0][n], .., B[4kk+3][n]} (byte 0 lowest k).
-// Thread (ty, tx) loads the 4×4 bytes at rows 4(k0w+ty)+r, columns n0+4tx+j and
-// transposes them. Out-of-range rows and columns stage as zero.
-__device__ __forceinline__ void stage_b(const int8_t* __restrict__ B, int K, int N,
-                                        int k0w, int n0, int* __restrict__ Bs,
-                                        int ty, int tx) {
-  const int n = n0 + 4 * tx;
-  uint32_t w[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int k = 4 * (k0w + ty) + r;
-    w[r] = (k < K && n < N) ? __ldg(reinterpret_cast<const uint32_t*>(B + (size_t)k * N + n))
-                            : 0u;
-  }
-  const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140);  // w0.b0 w1.b0 w0.b1 w1.b1
-  const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140);
-  const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362);  // w0.b2 w1.b2 w0.b3 w1.b3
-  const uint32_t hi23 = __byte_perm(w[2], w[3], 0x7362);
-  int4 p;
-  p.x = (int)__byte_perm(lo01, lo23, 0x5410);  // column n+0: rows 0..3
-  p.y = (int)__byte_perm(lo01, lo23, 0x7632);  // column n+1
-  p.z = (int)__byte_perm(hi01, hi23, 0x5410);  // column n+2
-  p.w = (int)__byte_perm(hi01, hi23, 0x7632);  // column n+3
-  *reinterpret_cast<int4*>(Bs + ty * kBN + 4 * tx) = p;
+// Byte offset of (row r, column c < 128) in a tile of 128-byte rows with TMA's 128-byte
+// swizzle: 16-byte chunk c / 16 of row r sits at chunk (c / 16) ^ (r % 8).
+__device__ __forceinline__ int sw128(int r, int c) {
+  return r * 128 + ((((c >> 4) ^ r) & 7) << 4) + (c & 15);
 }
 
-// acc[i][j] += Σ_kk A[row_i][kw0 + kk] · Bs[kk][4tx + j] over one staged chunk.
-// A is a row-major word array with row stride a_stride; row_i = ty + 16 i.
-template <int R>
-__device__ __forceinline__ void dot_chunk(const int* __restrict__ A, int a_stride,
-                                          int kw0, const int* __restrict__ Bs, int ty,
-                                          int tx, int (&acc)[R][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBK4; ++kk) {
-    const int4 b = *reinterpret_cast<const int4*>(Bs + kk * kBN + 4 * tx);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int a = A[(ty + 16 * i) * a_stride + kw0 + kk];
-      acc[i][0] = __dp4a(a, b.x, acc[i][0]);
-      acc[i][1] = __dp4a(a, b.y, acc[i][1]);
-      acc[i][2] = __dp4a(a, b.z, acc[i][2]);
-      acc[i][3] = __dp4a(a, b.w, acc[i][3]);
-    }
-  }
+// d += A (64 × 32, K-major) · B (32 × n, K-major), s8 in, s32 out.
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "n"(1));
 }
 
-// Apply the epilogue to a thread's R×4 outputs (rows m0+ty+16i, columns n0+4tx+j).
-// With T, s8 results also go to shared memory: T[row][n/4] as one word of 4 columns.
-template <int R>
-__device__ __forceinline__ void epilogue(const Epilogue& e, int out_kind, int M, int N,
-                                         int m0, int n0, int ty, int tx,
-                                         const int (&acc)[R][4], int* T = nullptr,
-                                         int t_stride = 0) {
-  const int n = n0 + 4 * tx;
-  if (n >= N) return;
-  float S[4], b[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) { S[j] = __ldg(e.S + n + j); b[j] = __ldg(e.b + n + j); }
-  const float r_out = e.r_out ? __ldg(e.r_out) : 1.0f;
-  const float r_res = e.r_res ? __ldg(e.r_res) : 0.0f;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-    const size_t off = (size_t)m * N + n;
-    float v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = affine(acc[i][j], S[j], b[j]);
-    if (out_kind != kS8) {
-      const uint32_t rw = __ldg(reinterpret_cast<const uint32_t*>(e.res + off));
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float id = __fmul_rn((float)(int8_t)(rw >> (8 * j)), r_res);
-        v[j] = __fadd_rn(v[j], id);
-      }
-    }
-    if (out_kind == kS8 || out_kind == kS8Res) {
-      const uint32_t q = pack4(requant_u8(v[0], r_out), requant_u8(v[1], r_out),
-                               requant_u8(v[2], r_out), requant_u8(v[3], r_out));
-      *reinterpret_cast<uint32_t*>(static_cast<int8_t*>(e.out) + off) = q;
-      if (T) T[(ty + 16 * i) * t_stride + n / 4] = (int)q;
-    } else if (out_kind == kBf16ResRelu) {
-      __nv_bfloat162 lo = __floats2bfloat162_rn(fmaxf(v[0], 0.0f), fmaxf(v[1], 0.0f));
-      __nv_bfloat162 hi = __floats2bfloat162_rn(fmaxf(v[2], 0.0f), fmaxf(v[3], 0.0f));
-      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(
-          static_cast<__nv_bfloat16*>(e.out) + off);
-      o[0] = lo;
-      o[1] = hi;
-    } else {
-      *reinterpret_cast<float4*>(static_cast<float*>(e.out) + off) =
-          make_float4(fmaxf(v[0], 0.0f), fmaxf(v[1], 0.0f), fmaxf(v[2], 0.0f),
-                      fmaxf(v[3], 0.0f));
-    }
-  }
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "n"(1));
 }
 
-// (a)/(b): out = epilogue(A · B) for A the pixel rows of x (kRows: (M, K) s8) or the
-// implicit 3×3 im2col of an NHWC (M = n·H·W, C) s8 tensor (kConv3: K = 9·C, zero
-// halo). Grid (ceil(M / 16R), ceil(N / 64)); block kThreads.
-template <int SRC, int R>
-__global__ void __launch_bounds__(kThreads) gemm_s8_kernel(
-    const int8_t* __restrict__ x, const int8_t* __restrict__ B, int M, int K, int N,
-    int H, int W, int C, Epilogue e, int out_kind) {
-  __shared__ __align__(16) int Bs[kBK4 * kBN];
-  __shared__ int As[16 * R * kAStride];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.x * 16 * R, n0 = blockIdx.y * kBN;
-
-  // Rows this thread stages (and later writes): m0 + ty + 16 r.
-  int img[R], py[R], px[R];
+// One 128-k chunk into acc: four k32 steps, each 32 bytes further along the swizzle rows
+// of both operands (+2 in the descriptors' 16-byte address units); one commit group.
+template <int BN>
+__device__ __forceinline__ void mma_chunk(int (&acc)[BN / 2], uint64_t da, uint64_t db) {
+  fence_regs(acc);
+  wgmma_fence();
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int m = m0 + ty + 16 * r;
-    img[r] = -1;
-    if (SRC == kConv3 && m < M) {
-      img[r] = m / (H * W);
-      const int rem = m - img[r] * H * W;
-      py[r] = rem / W;
-      px[r] = rem - py[r] * W;
-    }
+  for (int k = 0; k < kBK / 32; ++k) {
+    if constexpr (BN == 128)
+      wgmma_s8_n128(acc, da + 2 * k, db + 2 * k);
+    else
+      wgmma_s8_n64(acc, da + 2 * k, db + 2 * k);
   }
+  wgmma_commit();
+}
 
-  int acc[R][4];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+// float(q) of the s8 in byte 0 of u, exactly: 2^23 + (q + 128) has q + 128 (its bits
+// q ^ 0x80) as its low mantissa bits, and subtracting 2^23 + 128 is exact.
+__device__ __forceinline__ float s8_to_float(uint32_t u) {
+  return __fsub_rn(__int_as_float(0x4B000000 | ((u ^ 0x80u) & 0xffu)), 8388736.0f);
+}
 
-  const int K4 = K / 4;
-  for (int k0w = 0; k0w < K4; k0w += kBK4) {
-    const int kw = k0w + tx;  // the A word this thread stages, in each of its rows
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int m = m0 + ty + 16 * r;
-      int a = 0;
-      if (kw < K4 && m < M) {
-        if (SRC == kRows) {
-          a = __ldg(reinterpret_cast<const int*>(x + (size_t)m * K) + kw);
-        } else {
-          const int k = 4 * kw;
-          const int tap = k / C, c = k - tap * C;
-          const int yy = py[r] + tap / 3 - 1, xx = px[r] + tap % 3 - 1;
-          if (yy >= 0 && yy < H && xx >= 0 && xx < W)
-            a = __ldg(reinterpret_cast<const int*>(
-                x + (((size_t)img[r] * H + yy) * W + xx) * C + c));
+// The epilogue's values of one column pair: float(acc)·S + b, plus float(res)·r_res with
+// a residual (rp holds the two s8 residuals, low byte first).
+template <bool RES>
+__device__ __forceinline__ float2 epilogue_pair(int a0, int a1, float2 s, float2 b, uint32_t rp,
+                                                float r_res) {
+  float v0 = affine(a0, s.x, b.x), v1 = affine(a1, s.y, b.y);
+  if (RES) {
+    v0 = __fadd_rn(v0, __fmul_rn(s8_to_float(rp), r_res));
+    v1 = __fadd_rn(v1, __fmul_rn(s8_to_float(rp >> 8), r_res));
+  }
+  return make_float2(v0, v1);
+}
+
+__device__ __forceinline__ uint16_t requant_pair(float2 v, float r) {
+  return pack2(requant_u8(v.x, r), requant_u8(v.y, r));
+}
+
+// The S, b pair of the column pair 4j + lane % 4 of a 64-column group: lane l holds
+// pair l (columns 2l, 2l + 1).
+__device__ __forceinline__ float2 shfl_pair(float2 v, int j, int lane) {
+  const int src = (4 * j + (lane & 3)) & 31;
+  return make_float2(__shfl_sync(0xffffffffu, v.x, src), __shfl_sync(0xffffffffu, v.y, src));
+}
+
+__device__ __forceinline__ float2 load_pair(const float* p, int col, int n) {
+  return col < n ? __ldg(reinterpret_cast<const float2*>(p + col)) : make_float2(0.0f, 0.0f);
+}
+
+// (a)/(b): out = epilogue(A · B) over 128 × BN tiles, A the pixel rows of x (CONV3 false:
+// (M, K) s8) or the 3×3 im2col of an NHWC (M = n·H·W, C) s8 tensor (K = 9·C, zero halo),
+// B the (N, K) K-major weights.
+template <bool CONV3, int BN, int OUT>
+__global__ void __launch_bounds__(kThreads, 1) gemm_s8_kernel(const __grid_constant__ GemmParams p) {
+  constexpr bool RES = OUT != kS8;
+  // s8 outputs of 128-column tiles leave through shared memory and TMA stores (whole
+  // 128-byte rows), in place in the residual slot or in an output tile; the rest are
+  // stored from registers.
+  constexpr bool STAGED = OUT == kS8Res || (OUT == kS8 && BN == 128);
+  using Cfg = GemmConfig<BN, RES>;
+  constexpr int S = Cfg::kStages, R = Cfg::kResSlots;
+  static_assert(!RES || BN == 128, "a residual tile is 128 columns wide");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* a_ring = base;                    // S × 128 × 128
+  uint8_t* b_ring = a_ring + S * kBM * kBK;  // S × BN × 128
+  uint8_t* res_ring = b_ring + S * BN * kBK; // R × 128 × 128
+  uint8_t* staging = res_ring + R * Cfg::kResBytes;  // kStaging × 128 × 128
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + Cfg::kStaging * Cfg::kResBytes);
+  uint64_t* empty = full + S;
+  uint64_t* res_full = empty + S;
+  uint64_t* res_empty = res_full + R;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    for (int s = 0; s < R; ++s) {
+      mbar_init(&res_full[s], 1);
+      // in place: each warpgroup once its store has read the slot; else every thread
+      mbar_init(&res_empty[s], OUT == kS8Res ? 2 : 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // ---- producer warpgroup: one thread issues every load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      const int per_tap = (p.conv_c + kBK - 1) / kBK;
+      int stage = 0, phase = 0;
+      for (int tile = blockIdx.x, i = 0; tile < p.tiles; tile += gridDim.x, ++i) {
+        const int m0 = (tile / p.n_tiles) * kBM, n0 = (tile % p.n_tiles) * BN;
+        if constexpr (RES) {  // the tile's residual, a tile ahead of its epilogue
+          const int rs = i % R;
+          mbar_wait(&res_empty[rs], ((i / R) & 1) ^ 1);
+          mbar_expect_tx(&res_full[rs], Cfg::kResBytes);
+          tma_load_2d(res_ring + rs * Cfg::kResBytes, &p.res, &res_full[rs], n0, m0);
+        }
+        int img = 0, y0 = 0, x0 = 0;
+        if (CONV3) {
+          img = m0 / (p.H * p.W);
+          const int rem = m0 - img * p.H * p.W;
+          y0 = rem / p.W;
+          x0 = rem - y0 * p.W;
+        }
+        for (int t = 0; t < p.chunks; ++t) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], Cfg::kStageBytes);
+          uint8_t* as = a_ring + stage * kBM * kBK;
+          int krow;
+          if (CONV3) {
+            const int tap = t / per_tap, c0 = (t - tap * per_tap) * kBK;
+            tma_load_im2col(as, &p.a, &full[stage], c0, x0 - 1, y0 - 1, img,
+                            static_cast<uint16_t>(tap % 3), static_cast<uint16_t>(tap / 3));
+            krow = tap * p.conv_c + c0;  // k past this tap's C meets zero channels of A
+          } else {
+            krow = t * kBK;
+            tma_load_2d(as, &p.a, &full[stage], krow, m0);
+          }
+          tma_load_2d(b_ring + stage * BN * kBK, &p.b, &full[stage], krow, n0);
+          if (++stage == S) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
       }
-      As[(ty + 16 * r) * kAStride + tx] = a;
     }
-    stage_b(B, K, N, k0w, n0, Bs, ty, tx);
-    __syncthreads();
-    dot_chunk<R>(As, kAStride, 0, Bs, ty, tx, acc);
-    __syncthreads();
+  } else {
+    // ---- consumer warpgroups 0 and 1: rows 64·wg … 64·wg + 63 of each tile ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = tid >> 7, lt = tid & 127, warp = lt >> 5, lane = lt & 31;
+    const float r_out = p.r_out ? __ldg(p.r_out) : 1.0f;
+    const float r_res = p.r_res ? __ldg(p.r_res) : 0.0f;
+    // Thread (warp, lane) holds, for each 8-column group j, columns 8j + 2·(lane%4) +
+    // {0, 1} of tile rows rt and rt + 8.
+    const int rt = 64 * wg + 16 * warp + (lane >> 2);
+    int stage = 0, phase = 0;
+    int acc[BN / 2];
+    // The per-column S and b pairs of a tile, loaded a tile ahead.
+    float2 sv[BN / 64], bv[BN / 64], s_next[BN / 64], b_next[BN / 64];
+    auto load_sb = [&](int tile) {
+      const int n0 = (tile % p.n_tiles) * BN;
+#pragma unroll
+      for (int h = 0; h < BN / 64; ++h) {
+        s_next[h] = load_pair(p.S, n0 + 64 * h + 2 * lane, p.N);
+        b_next[h] = load_pair(p.bias, n0 + 64 * h + 2 * lane, p.N);
+      }
+    };
+    load_sb(blockIdx.x);
+
+    for (int tile = blockIdx.x, i = 0; tile < p.tiles; tile += gridDim.x, ++i) {
+      const int m0 = (tile / p.n_tiles) * kBM, n0 = (tile % p.n_tiles) * BN;
+#pragma unroll
+      for (int h = 0; h < BN / 64; ++h) {
+        sv[h] = s_next[h];
+        bv[h] = b_next[h];
+      }
+      if (tile + gridDim.x < p.tiles) load_sb(tile + gridDim.x);
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) acc[j] = 0;
+
+      int last = 0;
+      for (int t = 0; t < p.chunks; ++t) {
+        mbar_wait(&full[stage], phase);
+        mma_chunk<BN>(acc, smem_desc(a_ring + stage * kBM * kBK + wg * 64 * kBK, 16, 1024),
+                      smem_desc(b_ring + stage * BN * kBK, 16, 1024));
+        wgmma_wait<1>();  // the chunk before this one is done: release its stage
+        fence_regs(acc);
+        if (t > 0 && lt == 0) mbar_arrive(&empty[last]);
+        last = stage;
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lt == 0) mbar_arrive(&empty[last]);
+
+      uint8_t* res_tile = res_ring + (RES ? (i % R) * Cfg::kResBytes : 0);
+      uint8_t* out_tile = res_tile;  // where a staged s8 output goes
+      if constexpr (RES) mbar_wait(&res_full[i % R], (i / R) & 1);
+      if constexpr (OUT == kS8 && BN == 128) {
+        out_tile = staging + (i & 1) * Cfg::kResBytes;
+        // Tile i - 2's store has read this output tile.
+        if (lt == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+        named_sync(1 + wg);
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float2 s = shfl_pair(sv[j / 8], j, lane), b = shfl_pair(bv[j / 8], j, lane);
+        const int c = 8 * j + 2 * (lane & 3);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = rt + 8 * half;
+          const uint32_t rp =
+              RES ? *reinterpret_cast<const uint16_t*>(res_tile + sw128(r, c)) : 0u;
+          const float2 v = epilogue_pair<RES>(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1],
+                                              s, b, rp, r_res);
+          const int m = m0 + r, n = n0 + c;
+          if constexpr (STAGED) {
+            *reinterpret_cast<uint16_t*>(out_tile + sw128(r, c)) = requant_pair(v, r_out);
+          } else if (m < p.M && n < p.N) {
+            const size_t off = (size_t)m * p.N + n;
+            if constexpr (OUT == kS8)
+              *reinterpret_cast<uint16_t*>(static_cast<int8_t*>(p.out) + off) =
+                  requant_pair(v, r_out);
+            else if constexpr (OUT == kBf16ResRelu)
+              *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + off) =
+                  __floats2bfloat162_rn(fmaxf(v.x, 0.0f), fmaxf(v.y, 0.0f));
+            else
+              *reinterpret_cast<float2*>(static_cast<float*>(p.out) + off) =
+                  make_float2(fmaxf(v.x, 0.0f), fmaxf(v.y, 0.0f));
+          }
+        }
+      }
+      if constexpr (STAGED) {
+        // Each warpgroup stores its 64 rows once all its threads have written them.
+        fence_async_shared();
+        named_sync(1 + wg);
+        if (lt == 0) {
+          tma_store_2d(&p.out8, out_tile + wg * 64 * 128, n0, m0 + 64 * wg);
+          bulk_commit();
+          if constexpr (OUT == kS8Res) {  // the slot is free once the store has read it
+            asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+            mbar_arrive(&res_empty[i % R]);
+          }
+        }
+      } else if constexpr (RES) {
+        mbar_arrive(&res_empty[i % R]);
+      }
+    }
+    if (STAGED && lt == 0) bulk_wait();
   }
-  epilogue<R>(e, out_kind, M, N, m0, n0, ty, tx, acc);
 }
 
-// (c) K4. One block owns 16R pixel rows. A1 = x8 rows (M, Cm) stays in shared memory;
-// for each 64-column tile of C: out = requant(x8·k3·S3 + b3 + res·r_res, r_out), kept
-// in shared memory T (M, C) and written to out8; then y8 = requant(T·k1·S1 + b1,
-// r_next) for each 64-column tile of C1. Dynamic shared memory: Bs | A1 | T.
-template <int R>
-__global__ void __launch_bounds__(kThreads) cb3_cb1_kernel(
-    const int8_t* __restrict__ x8, const int8_t* __restrict__ res8, int M, int Cm,
-    int C, int C1, const int8_t* __restrict__ k3, const float* __restrict__ S3,
-    const float* __restrict__ b3, const int8_t* __restrict__ k1,
-    const float* __restrict__ S1, const float* __restrict__ b1,
-    const float* __restrict__ r_res, const float* __restrict__ r_out,
-    const float* __restrict__ r_next, int8_t* __restrict__ out8,
-    int8_t* __restrict__ y8, int a_stride, int t_stride) {
-  extern __shared__ __align__(16) int smem[];
-  int* Bs = smem;
-  int* A1 = Bs + kBK4 * kBN;
-  int* T = A1 + 16 * R * a_stride;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.x * 16 * R;
-  const int Cm4 = Cm / 4, C4 = C / 4;
+// (c) K4's shared memory: T (BM × C s8, in chunks of 128 columns), the ring (each stage
+// an x8 chunk, BM × 128, and a weight chunk, 128 columns × 128 k), the residual slots
+// (BM × 128 each), the barriers; the ring depth is what T leaves. BM is 128 or 64 (the
+// header, and ect_cb3_cb1_s8 for the choice).
+constexpr int kCChunkB = 128 * kBK;  // 16 KB
+// (ring stages, residual slots) in order of preference, by tile height: the first that
+// fits beside T.
+constexpr int kCRing128[][2] = {{4, 3}, {4, 2}, {3, 2}, {2, 2}};
+constexpr int kCRing64[][2] = {{6, 8}, {5, 6}, {4, 4}, {3, 3}, {3, 2}, {2, 2}, {2, 1}, {1, 1}};
 
-  // A1: the block's x8 rows, zero beyond M and beyond Cm (up to the padded stride).
-  for (int e = threadIdx.x; e < 16 * R * (a_stride - 1); e += kThreads) {
-    const int row = e / (a_stride - 1), kw = e - row * (a_stride - 1);
-    const int m = m0 + row;
-    A1[row * a_stride + kw] = (m < M && kw < Cm4)
-        ? __ldg(reinterpret_cast<const int*>(x8 + (size_t)m * Cm) + kw) : 0;
+struct Cb3Cb1Params {
+  CUtensorMap x8, k3, res, k1, out8;  // TMA descriptors (see ect_cb3_cb1_s8)
+  const float* S3;
+  const float* b3;
+  const float* S1;
+  const float* b1;
+  const float* r_res;
+  const float* r_out;
+  const float* r_next;
+  int8_t* y8;
+  int M, C, C1;
+  int chunks_cm, chunks_c;  // 128-k chunks of Cm and of C (= phase 1's column steps)
+  int steps_c1;             // phase 2's 128-column steps
+  int stages, res_slots;
+  int tiles;
+};
+
+// (c) K4: out8 = requant(x8·k3·S3 + b3 + res8·r_res, r_out) and y8 = requant(out8·k1·S1 +
+// b1, r_next) for BM-row tiles, out8 kept in shared memory between the two products.
+// ONE_STAGE: the ring has one stage (C = 3072), so a chunk is released as soon as its
+// products are done, not after the next chunk's are issued.
+template <int BM, bool ONE_STAGE>
+__global__ void __launch_bounds__(kThreads, 1) cb3_cb1_kernel(const __grid_constant__ Cb3Cb1Params p) {
+  constexpr bool SPLIT_N = BM == 64;      // the warpgroups split a step's columns
+  constexpr int NB = SPLIT_N ? 64 : 128;  // columns of a step per warpgroup
+  constexpr int kChunkA = BM * kBK, kStage = kChunkA + kCChunkB, kRes = BM * 128;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int S = p.stages, R = p.res_slots;
+  uint8_t* T = base;
+  uint8_t* ring = T + p.chunks_c * kChunkA;
+  uint8_t* res_ring = ring + S * kStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(res_ring + R * kRes);
+  uint64_t* empty = full + S;
+  uint64_t* res_full = empty + S;
+  uint64_t* res_empty = res_full + R;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    for (int s = 0; s < R; ++s) {
+      mbar_init(&res_full[s], 1);
+      mbar_init(&res_empty[s], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // Rows past M are never written to T; the y8 rows they feed are not stored.
-  Epilogue e3{S3, b3, res8, r_res, r_out, out8};
-  for (int n0 = 0; n0 < C; n0 += kBN) {
-    int acc[R][4];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-    for (int k0w = 0; k0w < Cm4; k0w += kBK4) {
-      stage_b(k3, Cm, C, k0w, n0, Bs, ty, tx);
-      __syncthreads();
-      dot_chunk<R>(A1, a_stride, k0w, Bs, ty, tx, acc);
-      __syncthreads();
+  if (tid >= 256) {
+    // ---- producer: phase 1's residual, x8 and cb3 chunks, then phase 2's cb1 chunks ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      int stage = 0, phase = 0, nres = 0;
+      auto next = [&]() {
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1;
+        }
+      };
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        const int m0 = tile * BM;
+        for (int nt = 0; nt < p.chunks_c; ++nt, ++nres) {
+          const int rs = nres % R;
+          mbar_wait(&res_empty[rs], ((nres / R) & 1) ^ 1);
+          mbar_expect_tx(&res_full[rs], kRes);
+          tma_load_2d(res_ring + rs * kRes, &p.res, &res_full[rs], nt * 128, m0);
+          for (int kc = 0; kc < p.chunks_cm; ++kc, next()) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_expect_tx(&full[stage], kStage);
+            uint8_t* st = ring + stage * kStage;
+            tma_load_2d(st, &p.x8, &full[stage], kc * kBK, m0);
+            tma_load_2d(st + kChunkA, &p.k3, &full[stage], kc * kBK, nt * 128);
+          }
+        }
+        for (int nt = 0; nt < p.steps_c1; ++nt)
+          for (int kc = 0; kc < p.chunks_c; ++kc, next()) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_expect_tx(&full[stage], kCChunkB);
+            tma_load_2d(ring + stage * kStage + kChunkA, &p.k1, &full[stage], kc * kBK,
+                        nt * 128);
+          }
+      }
     }
-    epilogue<R>(e3, kS8Res, M, C, m0, n0, ty, tx, acc, T, t_stride);
-  }
-  // Zero T's padding words (C/4 .. t_stride-1) so the cb1 chunks read zeros there.
-  for (int e = threadIdx.x; e < 16 * R * (t_stride - 1 - C4); e += kThreads) {
-    const int row = e / (t_stride - 1 - C4), kw = C4 + e - row * (t_stride - 1 - C4);
-    T[row * t_stride + kw] = 0;
-  }
-  __syncthreads();
+  } else {
+    // ---- consumers: rows (a_row …) and columns (b_row …) of each step ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = tid >> 7, lt = tid & 127, warp = lt >> 5, lane = lt & 31;
+    const float r_res = __ldg(p.r_res), r_out = __ldg(p.r_out), r_next = __ldg(p.r_next);
+    const int a_row = SPLIT_N ? 0 : 64 * wg;  // this warpgroup's first row of the tile
+    const int b_row = SPLIT_N ? 64 * wg : 0;  // its first column of a step
+    const int rt = a_row + 16 * warp + (lane >> 2);  // rows rt and rt + 8 of the tile
+    int stage = 0, phase = 0, nres = 0;
+    int acc[NB / 2];
 
-  Epilogue e1{S1, b1, nullptr, nullptr, r_next, y8};
-  for (int n0 = 0; n0 < C1; n0 += kBN) {
-    int acc[R][4];
+    // One 128-column step: acc = A · B over `chunks` chunks, A from the ring (a_t null)
+    // or from T.
+    auto mainloop = [&](int chunks, const uint8_t* a_t) {
 #pragma unroll
-    for (int i = 0; i < R; ++i)
+      for (int j = 0; j < NB / 2; ++j) acc[j] = 0;
+      int last = 0;
+      for (int kc = 0; kc < chunks; ++kc) {
+        mbar_wait(&full[stage], phase);
+        const uint8_t* st = ring + stage * kStage;
+        mma_chunk<NB>(acc, smem_desc((a_t ? a_t + kc * kChunkA : st) + a_row * kBK, 16, 1024),
+                      smem_desc(st + kChunkA + b_row * kBK, 16, 1024));
+        if constexpr (ONE_STAGE) {
+          wgmma_wait<0>();
+          fence_regs(acc);
+          if (lt == 0) mbar_arrive(&empty[0]);
+          phase ^= 1;
+        } else {
+          wgmma_wait<1>();
+          fence_regs(acc);
+          if (kc > 0 && lt == 0) mbar_arrive(&empty[last]);
+          last = stage;
+          if (++stage == S) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      if constexpr (!ONE_STAGE) {
+        wgmma_wait<0>();
+        fence_regs(acc);
+        if (lt == 0) mbar_arrive(&empty[last]);
+      }
+    };
+    // The S, b pairs of step s of a tile (phase 1's steps, then phase 2's), each loaded
+    // a step ahead: lane l holds columns b_row + 64h + 2l, + 1.
+    const int n_steps = p.chunks_c + p.steps_c1;
+    float2 sv[NB / 64], bv[NB / 64], s_next[NB / 64], b_next[NB / 64];
+    auto load_sb = [&](int step) {
+      const bool one = step < p.chunks_c;
+      const int col = (one ? step : step - p.chunks_c) * 128 + b_row + 2 * lane;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-    for (int k0w = 0; k0w < C4; k0w += kBK4) {
-      stage_b(k1, C, C1, k0w, n0, Bs, ty, tx);
-      __syncthreads();
-      dot_chunk<R>(T, t_stride, k0w, Bs, ty, tx, acc);
-      __syncthreads();
+      for (int h = 0; h < NB / 64; ++h) {
+        s_next[h] = load_pair(one ? p.S3 : p.S1, col + 64 * h, one ? p.C : p.C1);
+        b_next[h] = load_pair(one ? p.b3 : p.b1, col + 64 * h, one ? p.C : p.C1);
+      }
+    };
+    auto take_sb = [&](int next_step) {
+#pragma unroll
+      for (int h = 0; h < NB / 64; ++h) {
+        sv[h] = s_next[h];
+        bv[h] = b_next[h];
+      }
+      load_sb(next_step);
+    };
+    load_sb(0);
+
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const int m0 = tile * BM;
+      // Phase 1: cb3 + residual + requant → T, 128 columns of C per step.
+      for (int nt = 0; nt < p.chunks_c; ++nt, ++nres) {
+        take_sb(nt + 1);
+        mainloop(p.chunks_cm, nullptr);
+        const int rs = nres % R;
+        mbar_wait(&res_full[rs], (nres / R) & 1);
+        const uint8_t* res_tile = res_ring + rs * kRes;
+        uint8_t* t_chunk = T + nt * kChunkA;
+#pragma unroll
+        for (int j = 0; j < NB / 8; ++j) {
+          const float2 s = shfl_pair(sv[j / 8], j, lane), b = shfl_pair(bv[j / 8], j, lane);
+          const int c = b_row + 8 * j + 2 * (lane & 3);  // column within the step
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = rt + 8 * half;
+            const uint32_t rp = *reinterpret_cast<const uint16_t*>(res_tile + sw128(r, c));
+            *reinterpret_cast<uint16_t*>(t_chunk + sw128(r, c)) = requant_pair(
+                epilogue_pair<true>(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1], s, b, rp,
+                                    r_res),
+                r_out);
+          }
+        }
+        mbar_arrive(&res_empty[rs]);
+      }
+      // T's generic stores are read next by the async proxy (the TMA store, wgmma).
+      fence_async_shared();
+      named_sync<256>(1);
+      if (tid == 0) {
+        for (int kc = 0; kc < p.chunks_c; ++kc)
+          tma_store_2d(&p.out8, T + kc * kChunkA, kc * kBK, m0);
+        bulk_commit();
+      }
+      // Phase 2: cb1 + requant from T → y8, 128 columns of C1 per step.
+      for (int nt = 0; nt < p.steps_c1; ++nt) {
+        take_sb((p.chunks_c + nt + 1) % n_steps);
+        mainloop(p.chunks_c, T);
+#pragma unroll
+        for (int j = 0; j < NB / 8; ++j) {
+          const float2 s = shfl_pair(sv[j / 8], j, lane), b = shfl_pair(bv[j / 8], j, lane);
+          const int n = nt * 128 + b_row + 8 * j + 2 * (lane & 3);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int m = m0 + rt + 8 * half;
+            if (m < p.M && n < p.C1)
+              *reinterpret_cast<uint16_t*>(p.y8 + (size_t)m * p.C1 + n) = requant_pair(
+                  epilogue_pair<false>(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1], s, b,
+                                       0u, 0.0f),
+                  r_next);
+          }
+        }
+      }
+      // T is free once the out8 store has read it and both warpgroups' wgmmas are done.
+      if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      named_sync<256>(1);
     }
-    epilogue<R>(e1, kS8, M, C1, m0, n0, ty, tx, acc);
+    if (tid == 0) bulk_wait();
   }
 }
 
 // (d) K3's conv shortcut: sc8 = requant_signed(bf16(float(x8)·s_in) · wsc + bsc, dsc),
 // bf16 operands, f32 accumulation (each bf16 product is exact in f32). x8 (M, K) s8,
-// wsc (K, N) bf16. Grid (ceil(M/64), ceil(N/64)).
-__global__ void __launch_bounds__(kThreads) shortcut_bf16_kernel(
+// wsc (K, N) bf16. Grid (ceil(M/64), ceil(N/64)), 256 threads: 16 column groups × 16
+// row lanes, 4 × 4 outputs each.
+__global__ void __launch_bounds__(256) shortcut_bf16_kernel(
     const int8_t* __restrict__ x8, const __nv_bfloat16* __restrict__ wsc, int M, int K,
     int N, const float* __restrict__ s_in, const float* __restrict__ bsc,
     const float* __restrict__ dsc, int8_t* __restrict__ out8) {
-  constexpr int kBK = 16;
-  __shared__ float As[64 * (kBK + 1)];
-  __shared__ __align__(16) float Bs[kBK * kBN];
+  constexpr int kBK16 = 16, kBN64 = 64;
+  __shared__ float As[64 * (kBK16 + 1)];
+  __shared__ __align__(16) float Bs[kBK16 * kBN64];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.x * 64, n0 = blockIdx.y * kBN;
+  const int m0 = blockIdx.x * 64, n0 = blockIdx.y * kBN64;
   const float s = __ldg(s_in);
   float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kBK) {
+  for (int k0 = 0; k0 < K; k0 += kBK16) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {  // A: 64 rows × 16 k, one element per (row, tx)
       const int m = m0 + ty + 16 * r, k = k0 + tx;
       float a = 0.0f;
       if (m < M && k < K)
         a = __bfloat162float(__float2bfloat16_rn(__fmul_rn((float)x8[(size_t)m * K + k], s)));
-      As[(ty + 16 * r) * (kBK + 1) + tx] = a;
+      As[(ty + 16 * r) * (kBK16 + 1) + tx] = a;
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {  // B: 16 k × 64 n
       const int k = k0 + ty, n = n0 + 4 * tx + j;
-      Bs[ty * kBN + 4 * tx + j] = (k < K && n < N) ? __bfloat162float(wsc[(size_t)k * N + n])
-                                                   : 0.0f;
+      Bs[ty * kBN64 + 4 * tx + j] = (k < K && n < N) ? __bfloat162float(wsc[(size_t)k * N + n])
+                                                     : 0.0f;
     }
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 b = *reinterpret_cast<const float4*>(Bs + kk * kBN + 4 * tx);
+    for (int kk = 0; kk < kBK16; ++kk) {
+      const float4 b = *reinterpret_cast<const float4*>(Bs + kk * kBN64 + 4 * tx);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float a = As[(ty + 16 * i) * (kBK + 1) + kk];
+        const float a = As[(ty + 16 * i) * (kBK16 + 1) + kk];
         acc[i][0] = __fmaf_rn(a, b.x, acc[i][0]);
         acc[i][1] = __fmaf_rn(a, b.y, acc[i][1]);
         acc[i][2] = __fmaf_rn(a, b.z, acc[i][2]);
@@ -373,96 +729,198 @@ __global__ void __launch_bounds__(kThreads) shortcut_bf16_kernel(
   }
 }
 
-// Rows per thread: 4 (64-row tiles) when the grid still has ~2 tiles per SM, else 2.
-inline bool wide_rows(int M, int N) {
-  return (long long)((M + 63) / 64) * ((N + kBN - 1) / kBN) >= 264;
+// ---------------------------------------------------------------- host side
+
+// An (rows, cols) s8 matrix as box_cols × box_rows boxes (see encode_2d).
+CUresult map_s8(CUtensorMap* map, const void* ptr, int rows, int cols, int box_cols,
+                int box_rows) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, ptr, rows, cols, box_cols, box_rows);
 }
 
-template <int SRC>
-cudaError_t launch_gemm(const void* x, const void* B, int M, int K, int N, int H, int W,
-                        int C, const Epilogue& e, int out_kind, cudaStream_t s) {
-  if (wide_rows(M, N)) {
-    dim3 grid((M + 63) / 64, (N + kBN - 1) / kBN);
-    gemm_s8_kernel<SRC, 4><<<grid, kThreads, 0, s>>>(
-        static_cast<const int8_t*>(x), static_cast<const int8_t*>(B), M, K, N, H, W, C,
-        e, out_kind);
-  } else {
-    dim3 grid((M + 31) / 32, (N + kBN - 1) / kBN);
-    gemm_s8_kernel<SRC, 2><<<grid, kThreads, 0, s>>>(
-        static_cast<const int8_t*>(x), static_cast<const int8_t*>(B), M, K, N, H, W, C,
-        e, out_kind);
+template <bool CONV3, int BN, int OUT>
+cudaError_t launch_gemm(GemmParams& p, int device, int sms, cudaStream_t s) {
+  static bool configured[kMaxDevices] = {};  // per instantiation and device
+  constexpr int smem = GemmConfig<BN, OUT != kS8>::kSmem;
+  if (!configured[device]) {
+    cudaError_t err = cudaFuncSetAttribute(gemm_s8_kernel<CONV3, BN, OUT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured[device] = true;
   }
+  p.n_tiles = (p.N + BN - 1) / BN;
+  p.tiles = ((p.M + kBM - 1) / kBM) * p.n_tiles;
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  gemm_s8_kernel<CONV3, BN, OUT><<<grid, kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
-inline int padded_words(int bytes) {  // words of a resident row: chunk-padded, odd
-  const int w = (bytes / 4 + kBK4 - 1) / kBK4 * kBK4;
-  return w + 1;
+// Shared memory of K4's kernel at tile height bm with `stages` ring stages and `slots`
+// residual slots.
+size_t cb3_cb1_smem(int C, int bm, int stages, int slots) {
+  return 1024 + (size_t)((C + kBK - 1) / kBK) * bm * kBK +
+         (size_t)stages * (bm * kBK + kCChunkB) + (size_t)slots * bm * 128 +
+         8 * (2 * stages + 2 * slots);
+}
+
+// The first (stages, slots) of `table` that fits at tile height bm; false if none does.
+template <size_t N>
+bool cb3_cb1_ring(const int (&table)[N][2], int C, int bm, int* stages, int* slots) {
+  for (const auto& ring : table)
+    if (cb3_cb1_smem(C, bm, ring[0], ring[1]) <= (size_t)kSmemLimit) {
+      *stages = ring[0];
+      *slots = ring[1];
+      return true;
+    }
+  return false;
 }
 
 }  // namespace
 
-// Plain C interface for ctypes. Each returns a cudaError_t code: 0 on a clean launch.
-// Scales named r_* are device pointers to one float.
+// Plain C interface for ctypes. Each returns 0 on a clean launch, a cudaError_t code, or
+// kEncodeFailed + a CUresult when a tensor map is refused (ect_error_string names both).
+// Scales named r_* are device pointers to one float. Weights w8t, k3t, k1t are the
+// K-major (N, K) s8 copies.
 
-extern "C" size_t ect_cb3_cb1_smem_bytes(int rows, int Cm, int C) {
-  return sizeof(int) * ((size_t)kBK4 * kBN + (size_t)rows * padded_words(Cm) +
-                        (size_t)rows * padded_words(C));
-}
+// The least shared memory K4's kernel needs at block-output width C (one ring stage,
+// one residual slot); above the block limit no launch fits.
+extern "C" size_t ect_cb3_cb1_smem_bytes(int C) { return cb3_cb1_smem(C, 64, 1, 1); }
 
 // (a) 1×1 conv: out_kind 0 = s8 requant, 1 = s8 requant with residual,
 // 2 = bf16 relu(v + residual), 3 = f32 relu(v + residual).
-extern "C" int ect_conv1x1_s8(const void* x8, int M, int K, const void* w8, int N,
+extern "C" int ect_conv1x1_s8(const void* x8, int M, int K, const void* w8t, int N,
                               const void* S, const void* b, const void* res,
                               const void* r_res, const void* r_out, void* out,
                               int out_kind, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  int sms = 0;
+  cudaError_t err = prepare_launch(device, &sms);
   if (err != cudaSuccess) return (int)err;
-  Epilogue e{static_cast<const float*>(S), static_cast<const float*>(b),
-             static_cast<const int8_t*>(res), static_cast<const float*>(r_res),
-             static_cast<const float*>(r_out), out};
-  return (int)launch_gemm<kRows>(x8, w8, M, K, N, 1, 1, K, e, out_kind,
-                                 static_cast<cudaStream_t>(stream));
+  if (M <= 0) return 0;
+  if (out_kind < kS8 || out_kind > kF32ResRelu || (out_kind != kS8) != (res != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int bn = out_kind == kS8 && N <= 64 ? 64 : 128;
+  GemmParams p{};
+  CUresult r = map_s8(&p.a, x8, M, K, kBK, kBM);
+  if (r == CUDA_SUCCESS) r = map_s8(&p.b, w8t, N, K, kBK, bn);
+  if (r == CUDA_SUCCESS && res) r = map_s8(&p.res, res, M, N, 128, kBM);
+  if (r == CUDA_SUCCESS && out_kind <= kS8Res && bn == 128)  // a staged s8 output
+    r = map_s8(&p.out8, out, M, N, 128, 64);
+  if (r != CUDA_SUCCESS) return kEncodeFailed + (int)r;
+  p.S = static_cast<const float*>(S);
+  p.bias = static_cast<const float*>(b);
+  p.r_res = static_cast<const float*>(r_res);
+  p.r_out = static_cast<const float*>(r_out);
+  p.out = out;
+  p.chunks = (K + kBK - 1) / kBK;
+  p.M = M;
+  p.N = N;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (out_kind) {
+    case kS8:
+      err = bn == 64 ? launch_gemm<false, 64, kS8>(p, device, sms, s)
+                     : launch_gemm<false, 128, kS8>(p, device, sms, s);
+      break;
+    case kS8Res: err = launch_gemm<false, 128, kS8Res>(p, device, sms, s); break;
+    case kBf16ResRelu: err = launch_gemm<false, 128, kBf16ResRelu>(p, device, sms, s); break;
+    default: err = launch_gemm<false, 128, kF32ResRelu>(p, device, sms, s); break;
+  }
+  return (int)err;
 }
 
-// (b) 3×3 conv, stride 1, zero halo, s8 requant epilogue. x8 (n, H, W, C).
-extern "C" int ect_conv3x3_s8(const void* x8, int n, int H, int W, int C, const void* w8,
+// (b) 3×3 conv, stride 1, zero halo, s8 requant epilogue. x8 (n, H, W, C); w8t
+// (N, 9·C).
+extern "C" int ect_conv3x3_s8(const void* x8, int n, int H, int W, int C, const void* w8t,
                               int N, const void* S, const void* b, const void* r_out,
                               void* out8, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  int sms = 0;
+  cudaError_t err = prepare_launch(device, &sms);
   if (err != cudaSuccess) return (int)err;
-  Epilogue e{static_cast<const float*>(S), static_cast<const float*>(b), nullptr, nullptr,
-             static_cast<const float*>(r_out), out8};
-  return (int)launch_gemm<kConv3>(x8, w8, n * H * W, 9 * C, N, H, W, C, e, kS8,
-                                  static_cast<cudaStream_t>(stream));
+  const int M = n * H * W;
+  if (M <= 0) return 0;
+  const int bn = N <= 64 ? 64 : 128;
+  GemmParams p{};
+  CUresult r = encode_3x3_im2col(&p.a, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, x8, n, H, W, C, kBK,
+                                 kBM);
+  if (r == CUDA_SUCCESS) r = map_s8(&p.b, w8t, N, 9 * C, kBK, bn);
+  if (r == CUDA_SUCCESS && bn == 128) r = map_s8(&p.out8, out8, M, N, 128, 64);
+  if (r != CUDA_SUCCESS) return kEncodeFailed + (int)r;
+  p.S = static_cast<const float*>(S);
+  p.bias = static_cast<const float*>(b);
+  p.r_out = static_cast<const float*>(r_out);
+  p.out = out8;
+  p.chunks = 9 * ((C + kBK - 1) / kBK);
+  p.conv_c = C;
+  p.H = H;
+  p.W = W;
+  p.M = M;
+  p.N = N;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = bn == 64 ? launch_gemm<true, 64, kS8>(p, device, sms, s)
+                 : launch_gemm<true, 128, kS8>(p, device, sms, s);
+  return (int)err;
 }
 
-// (c) K4: returns (out8 (M, C), y8 (M, C1)). rows = 32 or 64 pixel rows per block.
+// (c) K4: out8 (M, C) and y8 (M, C1) from x8 (M, Cm) and res8 (M, C).
 extern "C" int ect_cb3_cb1_s8(const void* x8, const void* res8, int M, int Cm, int C,
-                              int C1, const void* k3, const void* S3, const void* b3,
-                              const void* k1, const void* S1, const void* b1,
+                              int C1, const void* k3t, const void* S3, const void* b3,
+                              const void* k1t, const void* S1, const void* b1,
                               const void* r_res, const void* r_out, const void* r_next,
-                              void* out8, void* y8, int rows, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+                              void* out8, void* y8, int device, void* stream) {
+  int sms = 0;
+  cudaError_t err = prepare_launch(device, &sms);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = ect_cb3_cb1_smem_bytes(rows, Cm, C);
-  const int a_stride = padded_words(Cm), t_stride = padded_words(C);
+  if (M <= 0) return 0;
+  // 128-row tiles halve the weights' L2 traffic, where T fits beside a two-stage ring and
+  // the tiles fill at least 90% of the SMs' last wave (RN50: stages 1 and 2; stage 3's
+  // 196 tiles would leave a third of the SMs idle).
+  const int tiles128 = (M + 127) / 128, waves = (tiles128 + sms - 1) / sms;
+  int bm = 128, stages = 0, slots = 0;
+  if (10 * tiles128 < 9 * waves * sms || !cb3_cb1_ring(kCRing128, C, bm, &stages, &slots)) {
+    bm = 64;
+    if (!cb3_cb1_ring(kCRing64, C, bm, &stages, &slots)) return (int)cudaErrorInvalidValue;
+  }
+  static bool configured[kMaxDevices] = {};
+  if (!configured[device]) {
+    for (auto kern : {cb3_cb1_kernel<128, false>, cb3_cb1_kernel<64, false>,
+                      cb3_cb1_kernel<64, true>}) {
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+      if (err != cudaSuccess) return (int)err;
+    }
+    configured[device] = true;
+  }
+  Cb3Cb1Params p{};
+  CUresult r = map_s8(&p.x8, x8, M, Cm, kBK, bm);
+  if (r == CUDA_SUCCESS) r = map_s8(&p.k3, k3t, C, Cm, kBK, 128);
+  if (r == CUDA_SUCCESS) r = map_s8(&p.res, res8, M, C, 128, bm);
+  if (r == CUDA_SUCCESS) r = map_s8(&p.k1, k1t, C1, C, kBK, 128);
+  if (r == CUDA_SUCCESS) r = map_s8(&p.out8, out8, M, C, 128, bm);
+  if (r != CUDA_SUCCESS) return kEncodeFailed + (int)r;
+  p.S3 = static_cast<const float*>(S3);
+  p.b3 = static_cast<const float*>(b3);
+  p.S1 = static_cast<const float*>(S1);
+  p.b1 = static_cast<const float*>(b1);
+  p.r_res = static_cast<const float*>(r_res);
+  p.r_out = static_cast<const float*>(r_out);
+  p.r_next = static_cast<const float*>(r_next);
+  p.y8 = static_cast<int8_t*>(y8);
+  p.M = M;
+  p.C = C;
+  p.C1 = C1;
+  p.chunks_cm = (Cm + kBK - 1) / kBK;
+  p.chunks_c = (C + kBK - 1) / kBK;
+  p.steps_c1 = (C1 + 127) / 128;
+  p.stages = stages;
+  p.res_slots = slots;
+  p.tiles = (M + bm - 1) / bm;
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  const size_t smem = cb3_cb1_smem(C, bm, stages, slots);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto run = [&](auto kern) -> cudaError_t {
-    cudaError_t e2 = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                          (int)smem);
-    if (e2 != cudaSuccess) return e2;
-    kern<<<(M + rows - 1) / rows, kThreads, smem, s>>>(
-        static_cast<const int8_t*>(x8), static_cast<const int8_t*>(res8), M, Cm, C, C1,
-        static_cast<const int8_t*>(k3), static_cast<const float*>(S3),
-        static_cast<const float*>(b3), static_cast<const int8_t*>(k1),
-        static_cast<const float*>(S1), static_cast<const float*>(b1),
-        static_cast<const float*>(r_res), static_cast<const float*>(r_out),
-        static_cast<const float*>(r_next), static_cast<int8_t*>(out8),
-        static_cast<int8_t*>(y8), a_stride, t_stride);
-    return cudaGetLastError();
-  };
-  return (int)(rows == 64 ? run(cb3_cb1_kernel<4>) : run(cb3_cb1_kernel<2>));
+  if (bm == 128)
+    cb3_cb1_kernel<128, false><<<grid, kThreads, smem, s>>>(p);
+  else if (stages > 1)
+    cb3_cb1_kernel<64, false><<<grid, kThreads, smem, s>>>(p);
+  else
+    cb3_cb1_kernel<64, true><<<grid, kThreads, smem, s>>>(p);
+  return (int)cudaGetLastError();
 }
 
 // (d) K3's bf16 conv shortcut with the signed s8 requant.
@@ -471,8 +929,8 @@ extern "C" int ect_shortcut_bf16(const void* x8, const void* wsc, int M, int K, 
                                  void* out8, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((M + 63) / 64, (N + kBN - 1) / kBN);
-  shortcut_bf16_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  dim3 grid((M + 63) / 64, (N + 63) / 64);
+  shortcut_bf16_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x8), static_cast<const __nv_bfloat16*>(wsc), M, K, N,
       static_cast<const float*>(s_in), static_cast<const float*>(bsc),
       static_cast<const float*>(dsc), static_cast<int8_t*>(out8));
@@ -480,5 +938,6 @@ extern "C" int ect_shortcut_bf16(const void* x8, const void* wsc, int M, int K, 
 }
 
 extern "C" const char* ect_error_string(int code) {
+  if (code >= kEncodeFailed) return "cuTensorMapEncode refused a tensor map (CUresult = code - 10000)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

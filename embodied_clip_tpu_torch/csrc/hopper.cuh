@@ -1,0 +1,211 @@
+// Hopper building blocks shared by the port's TMA + wgmma kernels
+// (bottleneck_bf16.cu: K6/K7; bottleneck_int8.cu: K3-K5): mbarriers, TMA loads and
+// stores, wgmma fences and shared-memory descriptors on the device; the driver's
+// tensor-map encoders on the host. Each source that includes it is its own library, so
+// the anonymous namespace gives each its own copy.
+
+#pragma once
+
+#include <cuda.h>
+#include <cudaTypedefs.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// ------------------------------------------------------------------------ device side
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra.uni LAB_DONE;\nbra.uni LAB_WAIT;\nLAB_DONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The box of output pixels × channels of the 3×3 tap (kx, ky), starting at the pixel
+// whose top-left input neighbour is (w, h) of image n (im2col mode; the box walks W,
+// then H, then N, and zero-fills what lies outside the image and past C).
+__device__ __forceinline__ void tma_load_im2col(void* dst, const CUtensorMap* map,
+                                                uint64_t* bar, int c, int w, int h, int n,
+                                                uint16_t kx, uint16_t ky) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c), "r"(w), "r"(h),
+      "r"(n), "h"(kx), "h"(ky)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::
+                   "l"(reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Makes this thread's generic-proxy shared-memory writes visible to the async proxy
+// (TMA stores, wgmma operand reads).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15) over THREADS threads (whole warps).
+template <int THREADS = 128>
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(THREADS) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma registers across the wgmma
+// fences and waits (the asm statements do not name them).
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle. A K-major operand: sbo = 1024 B
+// between 8-row groups (lbo unused). An N-major one: lbo = the stride between
+// 64-column panels, sbo = 1024 B between 8-k-row groups. The start address advances in
+// 16-byte units: +2 per 32 bytes of k within a swizzle row.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+// ------------------------------------------------------------------------- host side
+
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled = nullptr;
+PFN_cuTensorMapEncodeIm2col_v12000 encode_im2col = nullptr;
+int driver_version = 0;
+
+constexpr int kEncodeFailed = 10000;  // + CUresult: a tensor map was refused
+constexpr int kMaxDevices = 64;
+
+inline cudaError_t load_driver_entry_points() {
+  if (encode_tiled && encode_im2col) return cudaSuccess;
+  cudaDriverEntryPointQueryResult q;
+  void* fn = nullptr;
+  cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+  if (err != cudaSuccess) return err;
+  if (q != cudaDriverEntryPointSuccess || !fn) return cudaErrorNotSupported;
+  encode_tiled = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  err = cudaGetDriverEntryPoint("cuTensorMapEncodeIm2col", &fn, cudaEnableDefault, &q);
+  if (err != cudaSuccess) return err;
+  if (q != cudaDriverEntryPointSuccess || !fn) return cudaErrorNotSupported;
+  encode_im2col = reinterpret_cast<PFN_cuTensorMapEncodeIm2col_v12000>(fn);
+  return cudaDriverGetVersion(&driver_version);
+}
+
+// Set the device, load the tensor-map encoders and read the device's SM count (cached).
+inline cudaError_t prepare_launch(int device, int* sms) {
+  static int cached[kMaxDevices] = {};
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = load_driver_entry_points();
+  if (err == cudaSuccess && !cached[device])
+    err = cudaDeviceGetAttribute(&cached[device], cudaDevAttrMultiProcessorCount, device);
+  *sms = cached[device];
+  return err;
+}
+
+// A row-major (rows, cols) matrix of `elem`-byte elements, loaded or stored as
+// box_cols × box_rows boxes (box_cols · elem ≤ 128), 128-byte swizzled; out-of-bounds
+// elements read as zero and are not written.
+inline CUresult encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                          const void* ptr, int rows, int cols, int box_cols, int box_rows) {
+  const cuuint64_t dim[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t stride[1] = {static_cast<cuuint64_t>(cols) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  return encode_tiled(map, type, 2, const_cast<void*>(ptr), dim, stride, box, estr,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// NHWC (n, H, W, C) in im2col mode for the 3×3 'SAME' convolution: `pixels` output
+// pixels × `channels` channels per load, the pixel box from -1 to -1 on W and H (so a
+// load starting at output pixel (y, x) names input (x - 1, y - 1), and the filter tap
+// is the load's offset).
+inline CUresult encode_3x3_im2col(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                                  const void* ptr, int n, int H, int W, int C, int channels,
+                                  int pixels) {
+  const cuuint64_t dim[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
+                             static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(n)};
+  const cuuint64_t stride[3] = {static_cast<cuuint64_t>(C) * elem,
+                                static_cast<cuuint64_t>(W) * C * elem,
+                                static_cast<cuuint64_t>(H) * W * C * elem};
+  const int lower[2] = {-1, -1}, upper[2] = {-1, -1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  CUresult r = encode_im2col(map, type, 4, const_cast<void*>(ptr), dim, stride, lower, upper,
+                             channels, pixels, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  // Drivers up to 13.1 mishandle im2col maps of tensors under 128 KB unless this bit of
+  // the descriptor is cleared (the same workaround as CUTLASS's
+  // cute/atom/copy_traits_sm90_im2col.hpp).
+  if (r == CUDA_SUCCESS && driver_version <= 13010 &&
+      static_cast<uint64_t>(n) * H * W * C * elem < 131072)
+    reinterpret_cast<uint64_t*>(map)[1] &= ~(1ull << 21);
+  return r;
+}
+
+}  // namespace

@@ -2,9 +2,9 @@
 
 Each source has a plain C interface and becomes one shared library, loaded with
 ctypes. Libraries go to `build/kernels/` at the root of the checkout (listed in
-`.gitignore`), named by a hash of the source and the flags, so an edit rebuilds and
-an unchanged source is compiled once. `build()` starts one nvcc per source, all at
-once, and waits for them together.
+`.gitignore`), named by a hash of the source, the headers of `csrc/` and the flags,
+so an edit rebuilds and an unchanged source is compiled once. `build()` starts one
+nvcc per source, all at once, and waits for them together.
 """
 
 from __future__ import annotations
@@ -35,10 +35,29 @@ def _nvcc() -> str:
     return path
 
 
+def _digest(src: bytes) -> str:
+    """Hash of a source, every header of `csrc/` (a source may include any of them) and
+    the flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    return hashlib.sha256(src + headers + " ".join(FLAGS).encode()).hexdigest()[:16]
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{name}-{_digest((CSRC / f'{name}.cu').read_bytes())}.so"
+
+
+def build_variant(path: str, tag: str):
+    """Build another version of a source (`path`, anywhere; its `#include`s of `csrc/`
+    headers resolve) with the same flags, to compare designs in one run. Returns the
+    library's path and nvcc's output; raises if nvcc fails."""
+    src = Path(path).read_bytes()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = BUILD_DIR / f"lib{tag}-variant-{_digest(src)}.so"
+    proc = subprocess.run([_nvcc(), *FLAGS, "-I", str(CSRC), "-o", str(lib), str(path)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {path}:\n{proc.stdout}{proc.stderr}")
+    return str(lib), proc.stdout + proc.stderr
 
 
 def build_log(name: str) -> str:

@@ -21,11 +21,14 @@ through a few device functions:
   K6  3          cb1 (a), 3×3 cb2 (b), cb3 + residual (c), each + bias + relu → bf16
   K7  3 a block  as K6; block 0's cb3 adds the conv shortcut as a second K loop
 
-Every wrapper takes its plain version for a CPU tensor, and only for a CPU tensor;
-on a CUDA tensor it launches or raises. Each counts its calls that launch (`.launches`),
-once per call, whatever the number of launches inside. The int8 plain versions use the
-int8 graph's primitives (`ops/int8.py`) in the TPU kernels' op order; the bf16 ones
-round to bf16 exactly where the TPU kernels do.
+The int8 launches run s8 products on the tensor cores (wgmma), which read both operands
+K-major: they take each s8 weight's K-major copy `k…_t`, built once by the operand
+builders of `ops/quantize.py`, and C, Cm and N in multiples of 16 (TMA's 16-byte row
+strides). Every wrapper takes its plain version for a CPU tensor, and only for a CPU
+tensor; on a CUDA tensor it launches or raises. Each counts its calls that launch
+(`.launches`), once per call, whatever the number of launches inside. The int8 plain
+versions use the int8 graph's primitives (`ops/int8.py`) in the TPU kernels' op order;
+the bf16 ones round to bf16 exactly where the TPU kernels do.
 """
 
 from __future__ import annotations
@@ -127,13 +130,13 @@ def _lib():
     sig = {
         "ect_conv1x1_s8": [p, i, i, p, i, p, p, p, p, p, p, i, i, p],
         "ect_conv3x3_s8": [p, i, i, i, i, p, i, p, p, p, p, i, p],
-        "ect_cb3_cb1_s8": [p, p, i, i, i, i] + [p] * 11 + [i, i, p],
+        "ect_cb3_cb1_s8": [p, p, i, i, i, i] + [p] * 11 + [i, p],
         "ect_shortcut_bf16": [p, p, i, i, i, p, p, p, p, i, p],
     }
     for name, args in sig.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, ctypes.c_int
-    lib.ect_cb3_cb1_smem_bytes.argtypes = [i, i, i]
+    lib.ect_cb3_cb1_smem_bytes.argtypes = [i]
     lib.ect_cb3_cb1_smem_bytes.restype = ctypes.c_size_t
     lib.ect_error_string.argtypes = [ctypes.c_int]
     lib.ect_error_string.restype = ctypes.c_char_p
@@ -160,16 +163,28 @@ def _check_s8(name: str, t: torch.Tensor, device) -> None:
     if t.dtype != torch.int8 or t.device != device or not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous int8 tensor on {device}, got "
                          f"{t.dtype} on {t.device}")
-    if t.shape[-1] % 4 or t.data_ptr() % 16:
-        raise ValueError(f"{name}: the last dim must be a multiple of 4 and the data "
+    if t.shape[-1] % 16 or t.data_ptr() % 16:
+        raise ValueError(f"{name}: the last dim must be a multiple of 16 and the data "
                          f"16-byte aligned, got {tuple(t.shape)}")
 
 
 def _check_f32(name: str, t: torch.Tensor, device, n: int) -> None:
     if (t.dtype != torch.float32 or t.device != device or not t.is_contiguous()
-            or t.numel() != n):
-        raise ValueError(f"{name}: expected {n} contiguous float32 values on {device}, "
-                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+            or t.numel() != n or t.data_ptr() % 8):
+        raise ValueError(f"{name}: expected {n} contiguous, 8-byte aligned float32 values "
+                         f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _kmajor_copy(ops: Mapping[str, torch.Tensor], key: str) -> torch.Tensor:
+    """The K-major (N, K) copy of s8 kernel `key` that the tensor cores read (s8 wgmma
+    takes both operands K-major), built once by the operand builders of
+    `ops/quantize.py`; never made here, per call."""
+    t = ops.get(key + "_t")
+    k = ops[key]
+    if t is None or tuple(t.shape) != (k.shape[-1], k.numel() // k.shape[-1]):
+        raise ValueError(f"ops have no K-major copy {key}_t of {key} {tuple(k.shape)}: build "
+                         "them with the operand builders of ops/quantize.py")
+    return t
 
 
 def _cuda_input(kernel: str, x8: torch.Tensor) -> bool:
@@ -184,15 +199,22 @@ def _cuda_input(kernel: str, x8: torch.Tensor) -> bool:
     return False
 
 
-def _conv1x1(x8, k, s, b, r_out_ptr, out, res=None, r_res_ptr=None):
-    """(a): out = epilogue(x8 · k); s8 requant, or the residual epilogues."""
+def _check_width(name: str, n: int) -> None:
+    if n % 16:
+        raise ValueError(f"{name}: output channels must be a multiple of 16, got {n}")
+
+
+def _conv1x1(x8, kt, s, b, r_out_ptr, out, res=None, r_res_ptr=None):
+    """(a): out = epilogue(x8 · k) for the K-major kt = k.T (Cout, Cin); s8 requant, or
+    the residual epilogues."""
     dev = x8.device
-    cin, cout = k.shape
+    cout, cin = kt.shape
     if (x8.shape[-1] != cin or out.shape != (*x8.shape[:-1], cout)
             or (res is not None and res.shape != out.shape)):
-        raise ValueError(f"1x1: shapes x8 {tuple(x8.shape)}, k {tuple(k.shape)}, out "
+        raise ValueError(f"1x1: shapes x8 {tuple(x8.shape)}, kt {tuple(kt.shape)}, out "
                          f"{tuple(out.shape)} do not chain")
-    _check_s8("1x1 kernel", k, dev)
+    _check_s8("1x1 kernel", kt, dev)
+    _check_width("1x1", cout)
     _check_f32("1x1 scale", s, dev, cout)
     _check_f32("1x1 bias", b, dev, cout)
     if res is None:
@@ -200,52 +222,54 @@ def _conv1x1(x8, k, s, b, r_out_ptr, out, res=None, r_res_ptr=None):
     else:
         _check_s8("residual", res, dev)
         kind = _OUT_KIND[out.dtype]
-    _call(_lib().ect_conv1x1_s8, x8.data_ptr(), x8.numel() // cin, cin, k.data_ptr(), cout,
+    _call(_lib().ect_conv1x1_s8, x8.data_ptr(), x8.numel() // cin, cin, kt.data_ptr(), cout,
           s.data_ptr(), b.data_ptr(), 0 if res is None else res.data_ptr(),
           r_res_ptr or 0, r_out_ptr, out.data_ptr(), kind, *_stream(x8))
 
 
-def _conv3x3(x8, k2, s, b, r_out_ptr, out):
-    """(b): out = requant(conv3x3(x8, k2)·s + b) for an HWIO (3, 3, C, Cout) kernel."""
+def _conv3x3(x8, k2t, s, b, r_out_ptr, out):
+    """(b): out = requant(conv3x3(x8, k2)·s + b) for the K-major copy k2t (Cout, 9·C) of
+    an HWIO (3, 3, C, Cout) kernel."""
     dev = x8.device
     n, h, w, c = x8.shape
-    cout = k2.shape[-1]
-    if tuple(k2.shape[:3]) != (3, 3, c):
-        raise ValueError(f"3x3 kernel: expected (3, 3, {c}, Cout), got {tuple(k2.shape)}")
-    _check_s8("3x3 kernel", k2, dev)
+    cout = k2t.shape[0]
+    if k2t.shape[-1] != 9 * c or out.shape != (n, h, w, cout):
+        raise ValueError(f"3x3 kernel: expected (Cout, {9 * c}), got {tuple(k2t.shape)}")
+    _check_s8("3x3 kernel", k2t, dev)
+    _check_width("3x3", cout)
     _check_f32("3x3 scale", s, dev, cout)
     _check_f32("3x3 bias", b, dev, cout)
-    _call(_lib().ect_conv3x3_s8, x8.data_ptr(), n, h, w, c, k2.data_ptr(), cout,
+    _call(_lib().ect_conv3x3_s8, x8.data_ptr(), n, h, w, c, k2t.data_ptr(), cout,
           s.data_ptr(), b.data_ptr(), r_out_ptr, out.data_ptr(), *_stream(x8))
 
 
-def _cb3_cb1(x8, res8, k3, s3, b3, k1, s1, b1, r_res_ptr, r_out_ptr, r_next_ptr):
-    """(c): one launch; returns (out8 (…, C), y8 (…, C1))."""
+def _cb3_cb1(x8, res8, k3t, s3, b3, k1t, s1, b1, r_res_ptr, r_out_ptr, r_next_ptr):
+    """(c): one launch for the K-major k3t (C, Cm) and k1t (C1, C); returns (out8 (…, C),
+    y8 (…, C1))."""
     dev = x8.device
-    cm, c = k3.shape
-    c1 = k1.shape[-1]
-    if res8.shape[:-1] != x8.shape[:-1] or res8.shape[-1] != c or k1.shape[0] != c:
+    c, cm = k3t.shape
+    c1 = k1t.shape[0]
+    if (x8.shape[-1] != cm or res8.shape[:-1] != x8.shape[:-1] or res8.shape[-1] != c
+            or k1t.shape[-1] != c):
         raise ValueError(f"cb3·cb1: shapes x8 {tuple(x8.shape)}, res8 {tuple(res8.shape)}, "
-                         f"k3 {tuple(k3.shape)}, k1 {tuple(k1.shape)} do not chain")
-    for nm, t in (("residual", res8), ("cb3 kernel", k3), ("cb1 kernel", k1)):
+                         f"k3t {tuple(k3t.shape)}, k1t {tuple(k1t.shape)} do not chain")
+    for nm, t in (("residual", res8), ("cb3 kernel", k3t), ("cb1 kernel", k1t)):
         _check_s8(nm, t, dev)
+    _check_width("cb1", c1)
     for nm, t, n in (("cb3 scale", s3, c), ("cb3 bias", b3, c), ("cb1 scale", s1, c1),
                      ("cb1 bias", b1, c1)):
         _check_f32(nm, t, dev, n)
     lib = _lib()
     m = x8.numel() // cm
-    rows = 64 if (m + 63) // 64 >= 264 else 32
-    if lib.ect_cb3_cb1_smem_bytes(rows, cm, c) > _SMEM_LIMIT:
-        rows = 32
-    if lib.ect_cb3_cb1_smem_bytes(rows, cm, c) > _SMEM_LIMIT:
-        raise ValueError(f"cb3·cb1: Cm={cm}, C={c} needs more shared memory than "
-                         f"{_SMEM_LIMIT} B")
+    if lib.ect_cb3_cb1_smem_bytes(c) > _SMEM_LIMIT:
+        raise ValueError(f"cb3·cb1: C={c} needs more shared memory than {_SMEM_LIMIT} B "
+                         "(a 64-row tile of the block output stays resident)")
     out8 = torch.empty((*x8.shape[:-1], c), dtype=torch.int8, device=dev)
     y8 = torch.empty((*x8.shape[:-1], c1), dtype=torch.int8, device=dev)
     _call(lib.ect_cb3_cb1_s8, x8.data_ptr(), res8.data_ptr(), m, cm, c, c1,
-          k3.data_ptr(), s3.data_ptr(), b3.data_ptr(), k1.data_ptr(), s1.data_ptr(),
+          k3t.data_ptr(), s3.data_ptr(), b3.data_ptr(), k1t.data_ptr(), s1.data_ptr(),
           b1.data_ptr(), r_res_ptr, r_out_ptr, r_next_ptr, out8.data_ptr(), y8.data_ptr(),
-          rows, *_stream(x8))
+          *_stream(x8))
     return out8, y8
 
 
@@ -257,14 +281,15 @@ def fused_cb3_cb1_int8(x8: torch.Tensor, res8: torch.Tensor, ops: Dict[str, torc
 
     x8 (N, H, W, Cm) s8: block n's cb2 output; res8 (N, H, W, C) s8 on scl[0]; ops
     from `ops/quantize.cb3_cb1_operands`: k3 (Cm, C), s3/b3 (C,), k1 (C, C1), s1/b1
-    (C1,), scl = [r_res, r_out, r_next]. Returns (out8 (N, H, W, C) on r_out, y8 (N, H,
-    W, C1) on r_next). Bit-exact against the plain version."""
+    (C1,), the K-major copies k3_t, k1_t, scl = [r_res, r_out, r_next]. Returns (out8
+    (N, H, W, C) on r_out, y8 (N, H, W, C1) on r_next). Bit-exact against the plain
+    version."""
     if _cuda_input("fused_cb3_cb1_int8", x8):
         return fused_cb3_cb1_int8_reference(x8, res8, ops)
     scl = ops["scl"]
     _check_f32("scl", scl, x8.device, 3)
-    out = _cb3_cb1(x8, res8, ops["k3"], ops["s3"], ops["b3"], ops["k1"], ops["s1"],
-                   ops["b1"], _ptr(scl, 0), _ptr(scl, 1), _ptr(scl, 2))
+    out = _cb3_cb1(x8, res8, _kmajor_copy(ops, "k3"), ops["s3"], ops["b3"], _kmajor_copy(ops, "k1"),
+                   ops["s1"], ops["b1"], _ptr(scl, 0), _ptr(scl, 1), _ptr(scl, 2))
     fused_cb3_cb1_int8.launches += 1
     return out
 
@@ -274,7 +299,8 @@ def fused_resblocks_int8(x8: torch.Tensor, block_ops: Sequence[Dict[str, torch.T
     """k consecutive stride-1 identity int8 bottlenecks.
 
     x8 (N, H, W, C) s8 on scl[0]; block_ops from `ops/quantize.resblocks_int8_operands`:
-    per block k1 (C, Cm), s1, b1, k2 (3, 3, Cm, Cm), s2, b2, k3 (Cm, C), s3, b3; scl
+    per block k1 (C, Cm), s1, b1, k2 (3, 3, Cm, Cm), s2, b2, k3 (Cm, C), s3, b3 and the
+    K-major copies k1_t, k2_t, k3_t; scl
     (3k+1,) = [r_in, (r2, r3, r_out) × k]. Returns (N, H, W, C): s8 requantized on the
     last r_out, or, for `out_dtype` bf16/f32, the trunk's final conv map (relu'd, no
     requant). Bit-exact against the plain version."""
@@ -289,20 +315,20 @@ def fused_resblocks_int8(x8: torch.Tensor, block_ops: Sequence[Dict[str, torch.T
     shape, cm = x8.shape[:-1], block_ops[0]["k1"].shape[-1]
     q1 = torch.empty((*shape, cm), dtype=torch.int8, device=dev)
     first = block_ops[0]
-    _conv1x1(x8, first["k1"], first["s1"], first["b1"], _ptr(scl, 1), q1)
+    _conv1x1(x8, _kmajor_copy(first, "k1"), first["s1"], first["b1"], _ptr(scl, 1), q1)
     xq = x8
     for i, blk in enumerate(block_ops):
         q2 = torch.empty((*shape, blk["k2"].shape[-1]), dtype=torch.int8, device=dev)
-        _conv3x3(q1, blk["k2"], blk["s2"], blk["b2"], _ptr(scl, 3 * i + 2), q2)
+        _conv3x3(q1, _kmajor_copy(blk, "k2"), blk["s2"], blk["b2"], _ptr(scl, 3 * i + 2), q2)
         r_res = _ptr(scl, 0 if i == 0 else 3 * i)
         if i < nb - 1:
             nxt = block_ops[i + 1]
-            xq, q1 = _cb3_cb1(q2, xq, blk["k3"], blk["s3"], blk["b3"], nxt["k1"],
-                              nxt["s1"], nxt["b1"], r_res, _ptr(scl, 3 * i + 3),
-                              _ptr(scl, 3 * i + 4))
+            xq, q1 = _cb3_cb1(q2, xq, _kmajor_copy(blk, "k3"), blk["s3"], blk["b3"],
+                              _kmajor_copy(nxt, "k1"), nxt["s1"], nxt["b1"], r_res,
+                              _ptr(scl, 3 * i + 3), _ptr(scl, 3 * i + 4))
         else:
             out = torch.empty(x8.shape, dtype=out_dtype, device=dev)
-            _conv1x1(q2, blk["k3"], blk["s3"], blk["b3"], _ptr(scl, 3 * nb), out,
+            _conv1x1(q2, _kmajor_copy(blk, "k3"), blk["s3"], blk["b3"], _ptr(scl, 3 * nb), out,
                      res=xq, r_res_ptr=r_res)
     fused_resblocks_int8.launches += 1
     return out
@@ -334,23 +360,25 @@ def fused_stage1_int8(x8: torch.Tensor, ops: Dict[str, torch.Tensor]) -> torch.T
         return torch.empty((*shape, c), dtype=torch.int8, device=dev)
 
     q1 = s8(cm)
-    _conv1x1(x8, ops["k1a"], ops["s1a"], ops["b1a"], _ptr(scl, 1), q1)
+    _conv1x1(x8, _kmajor_copy(ops, "k1a"), ops["s1a"], ops["b1a"], _ptr(scl, 1), q1)
     sc8 = s8(cout)
     _call(_lib().ect_shortcut_bf16, x8.data_ptr(), wsc.data_ptr(), m, cin, cout,
           _ptr(scl, 0), bsc.data_ptr(), _ptr(scl, 10), sc8.data_ptr(), *_stream(x8))
     res8, r_res = sc8, _ptr(scl, 10)
     for b, L in enumerate("abc"):
         q2 = s8(cm)
-        _conv3x3(q1, ops[f"k2{L}"], ops[f"s2{L}"], ops[f"b2{L}"], _ptr(scl, 3 * b + 2), q2)
+        _conv3x3(q1, _kmajor_copy(ops, f"k2{L}"), ops[f"s2{L}"], ops[f"b2{L}"],
+                 _ptr(scl, 3 * b + 2), q2)
         if L != "c":
             nx = "abc"[b + 1]
-            res8, q1 = _cb3_cb1(q2, res8, ops[f"k3{L}"], ops[f"s3{L}"], ops[f"b3{L}"],
-                                ops[f"k1{nx}"], ops[f"s1{nx}"], ops[f"b1{nx}"], r_res,
-                                _ptr(scl, 3 * b + 3), _ptr(scl, 3 * b + 4))
+            res8, q1 = _cb3_cb1(q2, res8, _kmajor_copy(ops, f"k3{L}"), ops[f"s3{L}"],
+                                ops[f"b3{L}"], _kmajor_copy(ops, f"k1{nx}"), ops[f"s1{nx}"],
+                                ops[f"b1{nx}"], r_res, _ptr(scl, 3 * b + 3),
+                                _ptr(scl, 3 * b + 4))
             r_res = _ptr(scl, 3 * b + 3)
         else:
             out = s8(cout)
-            _conv1x1(q2, ops["k3c"], ops["s3c"], ops["b3c"], _ptr(scl, 9), out,
+            _conv1x1(q2, _kmajor_copy(ops, "k3c"), ops["s3c"], ops["b3c"], _ptr(scl, 9), out,
                      res=res8, r_res_ptr=r_res)
     fused_stage1_int8.launches += 1
     return out

@@ -218,13 +218,29 @@ def _quantize_blocks(q, folded_sd, stage_sizes, convs) -> None:
 #
 # Each scale product is in_scale * w_scale in f32, exactly as qconv computes it, so
 # the kernels match the plain graph bit for bit. The JAX builders cast the s8 kernels
-# to bf16 for the MXU; the port's kernels take them as s8 (dp4a).
+# to bf16 for the MXU; the port's kernels take them as s8 on the tensor cores, whose s8
+# products read both operands K-major: beside each s8 kernel `k…` (the (K, N) layout the
+# plain versions and the JAX package use) the builders keep its K-major copy `k…_t`,
+# made once here and cached with the operands.
+
+
+def _kmajor(k: torch.Tensor) -> torch.Tensor:
+    """The (N, K) K-major copy of an s8 kernel: a (K, N) 1×1 kernel transposed; a
+    (3, 3, Cin, Cout) one as (Cout, 9·Cin) with k = (ky·3 + kx)·Cin + c."""
+    return k.reshape(-1, k.shape[-1]).t().contiguous()
+
+
+def _with_kmajor(ops: Dict[str, torch.Tensor], *keys: str) -> Dict[str, torch.Tensor]:
+    for key in keys:
+        ops[f"{key}_t"] = _kmajor(ops[key])
+    return ops
 
 
 def stage1_int8_operands(q: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Operands of K3 (`fused_stage1_int8`): per block a/b/c the 1×1 kernels (Cin,
     Cout), the 3×3 kernel (3,3,Cm,Cm), the epilogue scales S and biases; the bf16
-    shortcut pair (wsc, bsc); scl = [s_in, (r2, r3, r_out) × 3, down.out]."""
+    shortcut pair (wsc, bsc); scl = [s_in, (r2, r3, r_out) × 3, down.out]; each s8
+    kernel's K-major copy under its name + "_t"."""
     a = q["act_scales"]
     ops: Dict[str, torch.Tensor] = {}
     s_prev = a["stem.out"]
@@ -249,17 +265,17 @@ def stage1_int8_operands(q: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         s_prev = s_out
     scl.append(a["layer1_0/down.out"])
     ops["scl"] = torch.stack(scl).float()
-    return ops
+    return _with_kmajor(ops, *(f"k{i}{L}" for L in "abc" for i in (1, 2, 3)))
 
 
 def cb3_cb1_operands(q: Dict[str, Any], name: str, next_name: str,
                      r_res: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Operands of K4 (`fused_cb3_cb1_int8`): block `name`'s cb3, block `next_name`'s
-    cb1, and scl = [r_res, r_out, r_next]."""
+    cb1 (with their K-major copies k3_t, k1_t), and scl = [r_res, r_out, r_next]."""
     a = q["act_scales"]
     cb3, cb1n = q[f"{name}/cb3"], q[f"{next_name}/cb1"]
     s_out = a[f"{name}.out"]
-    return {
+    return _with_kmajor({
         "k3": cb3["kernel_q"][0, 0].contiguous(),
         "s3": a[f"{name}/cb3.in"] * cb3["w_scale"],
         "b3": cb3["bias"],
@@ -267,13 +283,14 @@ def cb3_cb1_operands(q: Dict[str, Any], name: str, next_name: str,
         "s1": s_out * cb1n["w_scale"],
         "b1": cb1n["bias"],
         "scl": torch.stack([r_res, s_out, a[f"{next_name}/cb2.in"]]).float(),
-    }
+    }, "k3", "k1")
 
 
 def resblocks_int8_operands(q: Dict[str, Any], names: Sequence[str],
                             s_in: torch.Tensor, s_next: torch.Tensor):
     """Operands of K5 (`fused_resblocks_int8`): per-block dicts {k1, s1, b1, k2, s2, b2,
-    k3, s3, b3} and scl = [r_in, (r2, r3, r_out) × k], whose last entry is `s_next`."""
+    k3, s3, b3, and the K-major copies k1_t, k2_t, k3_t} and scl = [r_in, (r2, r3,
+    r_out) × k], whose last entry is `s_next`."""
     a = q["act_scales"]
     blocks, scl = [], [s_in]
     s_prev = s_in
@@ -281,13 +298,13 @@ def resblocks_int8_operands(q: Dict[str, Any], names: Sequence[str],
         s2, s3 = a[f"{name}/cb2.in"], a[f"{name}/cb3.in"]
         s_out = s_next if i == len(names) - 1 else a[f"{name}.out"]
         cb1, cb2, cb3 = (q[f"{name}/{c}"] for c in ("cb1", "cb2", "cb3"))
-        blocks.append({
+        blocks.append(_with_kmajor({
             "k1": cb1["kernel_q"][0, 0].contiguous(), "s1": s_prev * cb1["w_scale"],
             "b1": cb1["bias"],
             "k2": cb2["kernel_q"], "s2": s2 * cb2["w_scale"], "b2": cb2["bias"],
             "k3": cb3["kernel_q"][0, 0].contiguous(), "s3": s3 * cb3["w_scale"],
             "b3": cb3["bias"],
-        })
+        }, "k1", "k2", "k3"))
         scl += [s2, s3, s_out]
         s_prev = s_out
     return blocks, torch.stack(scl).float()

@@ -100,10 +100,14 @@ def test_stage1_kernel_matches_plain_version(cuda, n, h):
     assert dmax <= 1 and frac <= 0.005, (dmax, frac)
 
 
+# (cin, cm, n, h): RN50 stage 1, a ragged width (Cm 320), RN50 stages 2 and 4, and
+# RN50x16's stage 4 (C 3072: one ring stage beside the resident 64 × C tile).
 @pytest.mark.parametrize("cin,cm,n,h", [(256, 64, 2, 7), (1280, 320, 2, 14),
-                                        (512, 128, 64, 28), (2048, 512, 8, 7)])
+                                        (512, 128, 64, 28), (2048, 512, 8, 7),
+                                        (3072, 768, 2, 12)])
 def test_cb3_cb1_kernel_matches_plain_version(cuda, cin, cm, n, h):
-    """K4 vs its plain version, bit-exact (K = C > 1024 included)."""
+    """K4 vs its plain version, bit-exact (K = C > 1024 included); a second launch on
+    the same input is bit-equal."""
     rng = np.random.RandomState(1)
     q, names = C.identity_q(rng, cin, cm, 2)
     q = C.to_torch(q, cuda)
@@ -112,18 +116,26 @@ def test_cb3_cb1_kernel_matches_plain_version(cuda, cin, cm, n, h):
     res8 = _t(C.s8(rng, (n, h, h, cin)), cuda)
     before = BK.fused_cb3_cb1_int8.launches
     out8, y8 = BK.fused_cb3_cb1_int8(x8, res8, ops)
+    again8, againy = BK.fused_cb3_cb1_int8(x8, res8, ops)
     torch.cuda.synchronize()
-    assert BK.fused_cb3_cb1_int8.launches == before + 1
+    assert BK.fused_cb3_cb1_int8.launches == before + 2
     ref8, refy = BK.fused_cb3_cb1_int8_reference(x8, res8, ops)
     assert torch.equal(out8, ref8) and torch.equal(y8, refy)
+    assert torch.equal(out8, again8) and torch.equal(y8, againy)
 
 
+# (cin, cm, nb, n, h, out): test widths, RN50 stage 2 (s8, and f32 out), stage 4, the
+# main path's stage 4 at batch 128 (bf16 conv map), a ragged M (3·7·7 = 147 rows),
+# RN50x16's stage 2 (Cm 192) and stage 4 (C 3072: K4's one-stage ring inside K5).
 @pytest.mark.parametrize("cin,cm,nb,n,h,out_dtype", [
     (32, 16, 3, 2, 6, torch.int8), (32, 16, 3, 2, 6, torch.bfloat16),
     (32, 16, 2, 2, 6, torch.float32), (512, 128, 3, 4, 28, torch.int8),
-    (2048, 512, 2, 2, 7, torch.bfloat16)])
+    (2048, 512, 2, 2, 7, torch.bfloat16), (512, 128, 2, 4, 28, torch.float32),
+    (2048, 512, 2, 128, 7, torch.bfloat16), (1024, 256, 2, 3, 7, torch.int8),
+    (768, 192, 2, 2, 24, torch.int8), (3072, 768, 2, 2, 12, torch.bfloat16)])
 def test_resblocks_kernel_matches_plain_version(cuda, cin, cm, nb, n, h, out_dtype):
-    """K5 vs its plain version, bit-exact, s8 and conv-map (bf16/f32) outputs."""
+    """K5 vs its plain version, bit-exact, s8 and conv-map (bf16/f32) outputs; a second
+    launch on the same input is bit-equal."""
     rng = np.random.RandomState(2)
     q, names = C.identity_q(rng, cin, cm, nb)
     q = C.to_torch(q, cuda)
@@ -134,10 +146,12 @@ def test_resblocks_kernel_matches_plain_version(cuda, cin, cm, nb, n, h, out_dty
     x8 = _t(C.s8(rng, (n, h, h, cin)), cuda)
     before = BK.fused_resblocks_int8.launches
     got = BK.fused_resblocks_int8(x8, ops, scl, out_dtype=out_dtype)
+    again = BK.fused_resblocks_int8(x8, ops, scl, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert BK.fused_resblocks_int8.launches == before + 1
+    assert BK.fused_resblocks_int8.launches == before + 2
     want = BK.fused_resblocks_int8_reference(x8, ops, scl, out_dtype=out_dtype)
     assert got.dtype == out_dtype and torch.equal(got, want)
+    assert torch.equal(got, again)
 
 
 def test_int8_trunk_paths_on_the_card(cuda, monkeypatch):
@@ -164,6 +178,28 @@ def test_int8_trunk_paths_on_the_card(cuda, monkeypatch):
     assert torch.equal(outs["A"], outs["B"])
     assert bool(torch.isfinite(outs["A"]).all()) and outs["A"].shape == (2, 2, 2, 512)
     assert cosine_distance(outs["A"], outs["off"]) <= 1e-3
+
+
+def test_int8_rn50x16_paths_on_the_card(cuda):
+    """`clip_rn50x16` int8 on the card at its full widths (384 px, random weights):
+    path A (K2 + K5 on stages 2-4) and path B (K2 + K4 at every block boundary, stage 1's
+    C = 384 and stage 4's C = 3072 included) are bit-identical and within 1e-3 cosine of
+    the plain int8 graph (K2 skips the graph's bf16 rounding of the stem3 conv)."""
+    enc = build_encoder("clip_rn50x16", dtype=torch.bfloat16, device="cuda").fold_bn()
+    qenc = enc.quantize(golden_frames(4))
+    frames = golden_frames(2, size=384)
+    counted = (SK.stem3_requant_pool_int8, BK.fused_resblocks_int8, BK.fused_cb3_cb1_int8)
+    outs, launches = {}, {}
+    for path, switches in (("A", Q.PATH_A), ("B", Q.PATH_B), ("off", Q.KERNELS_OFF)):
+        before = [f.launches for f in counted]
+        outs[path] = qenc.with_kernels(**switches).encode(frames)
+        torch.cuda.synchronize()
+        launches[path] = [f.launches - b for f, b in zip(counted, before)]
+    assert launches == {"A": [1, 3, 0], "B": [1, 0, 6 + 8 + 18 + 8 - 1], "off": [0, 0, 0]}
+    conv = outs["A"]["clip_conv"]
+    assert conv.shape == (2, 12, 12, 3072) and bool(torch.isfinite(conv.float()).all())
+    assert all(torch.equal(outs["A"][k], outs["B"][k]) for k in outs["A"])
+    assert cosine_distance(conv, outs["off"]["clip_conv"]) <= 1e-3
 
 
 def test_int8_epilogue_divides_on_the_card(cuda):
@@ -193,6 +229,34 @@ def test_int8_kernels_reject_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="even"):
         SK.stem3_requant_pool_int8(x, torch.zeros((3, 3, 32, 64), device=cuda),
                                    torch.zeros(64, device=cuda), 0.01)
+
+
+def test_int8_kernels_need_widths_of_16_and_kmajor_copies(cuda):
+    """The s8 tensor-core kernels take C, Cm and N in multiples of 16 (TMA's 16-byte row
+    strides) and the K-major weight copies of the operand builders; they never build
+    those per call."""
+    rng = np.random.RandomState(9)
+    q, names = C.identity_q(rng, 40, 24, 2)  # C = 40, Cm = 24: not multiples of 16
+    q = C.to_torch(q, cuda)
+    r = torch.tensor(0.01, device=cuda)
+    ops = Q.cb3_cb1_operands(q, names[0], names[1], r)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        BK.fused_cb3_cb1_int8(_t(C.s8(rng, (2, 6, 6, 24)), cuda),
+                              _t(C.s8(rng, (2, 6, 6, 40)), cuda), ops)
+    q, names = C.identity_q(rng, 32, 16, 2)
+    q = C.to_torch(q, cuda)
+    x8 = _t(C.s8(rng, (2, 6, 6, 16)), cuda)
+    res8 = _t(C.s8(rng, (2, 6, 6, 32)), cuda)
+    ops = Q.cb3_cb1_operands(q, names[0], names[1], r)
+    bare = {k: v for k, v in ops.items() if not k.endswith("_t")}
+    with pytest.raises(ValueError, match="K-major"):
+        BK.fused_cb3_cb1_int8(x8, res8, bare)
+    blocks, scl = Q.resblocks_int8_operands(q, names, r, r)
+    with pytest.raises(ValueError, match="K-major"):
+        BK.fused_resblocks_int8(res8, [{k: v for k, v in b.items() if k != "k2_t"}
+                                       for b in blocks], scl)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        BK.fused_resblocks_int8(res8[..., :24].contiguous(), blocks, scl)
 
 
 def test_fused_preprocess_kernel_rejects_what_it_cannot_take(cuda):

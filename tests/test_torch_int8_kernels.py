@@ -111,3 +111,45 @@ def test_operand_scale_products_match_jax():
     np.testing.assert_array_equal(got["wsc"].float().numpy(), np.asarray(want["wsc"], np.float32))
     for k in ("k1a", "k2b", "k3c"):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k], np.float32))
+
+
+def _kmajor_pairs(builder):
+    """(name, (K, N) or HWIO s8 kernel, its K-major copy) from one operand builder."""
+    rng = np.random.RandomState(4)
+    if builder == "stage1":
+        ops = Q.stage1_int8_operands(C.to_torch(C.stage1_q(rng)))
+        return [(k, ops[k], ops[k + "_t"]) for k in ops if k[0] == "k" and not k.endswith("_t")]
+    q, names = C.identity_q(rng, 64, 16, 2)
+    q = C.to_torch(q)
+    if builder == "cb3_cb1":
+        ops = Q.cb3_cb1_operands(q, names[0], names[1], torch.tensor(0.01))
+        return [(k, ops[k], ops[k + "_t"]) for k in ("k3", "k1")]
+    blocks, _ = Q.resblocks_int8_operands(q, names, torch.tensor(0.01), torch.tensor(0.02))
+    return [(f"{i}/{k}", b[k], b[k + "_t"]) for i, b in enumerate(blocks)
+            for k in ("k1", "k2", "k3")]
+
+
+@pytest.mark.parametrize("builder", ["stage1", "cb3_cb1", "resblocks"])
+def test_operand_builders_keep_kmajor_copies(builder):
+    """Each s8 kernel has its K-major (N, K) copy beside it: the transpose of a 1×1
+    kernel; for a 3×3 (3, 3, Cin, Cout) kernel (Cout, 9·Cin) with k = (ky·3 + kx)·Cin + c,
+    the order of the 3×3 im2col, so that im2col rows times the copy is the s8 conv."""
+    from embodied_clip_tpu_torch.ops.int8 import im2col3x3, qconv_acc
+
+    pairs = _kmajor_pairs(builder)
+    assert len(pairs) == {"stage1": 9, "cb3_cb1": 2, "resblocks": 6}[builder]
+    for name, k, kt in pairs:
+        assert kt.dtype == torch.int8 and kt.is_contiguous(), name
+        if k.ndim == 2:
+            assert torch.equal(kt, k.t()), name
+            continue
+        kh, kw, cin, cout = k.shape
+        want = np.zeros((cout, 9 * cin), np.int8)
+        for ky in range(3):
+            for kx in range(3):
+                want[:, (ky * 3 + kx) * cin:(ky * 3 + kx + 1) * cin] = k[ky, kx].numpy().T
+        np.testing.assert_array_equal(kt.numpy(), want, name)
+        x8 = torch.from_numpy(C.s8(np.random.RandomState(5), (1, 5, 6, cin)))
+        cols = im2col3x3(x8, 1).reshape(-1, 9 * cin)
+        assert torch.equal(torch._int_mm(cols, kt.t().contiguous()).reshape(1, 5, 6, cout),
+                           qconv_acc(x8, k)), name

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
 import subprocess
@@ -64,21 +63,6 @@ def work(args, kw):
         ops += 2 * m * n * kw["w2"].shape[0]
         nbytes += (kw["a2"].numel() + kw["w2"].numel()) * 2
     return ops, nbytes
-
-
-def build_source(path: str):
-    """The library built from `path` with the port's nvcc flags, and nvcc's output."""
-    from embodied_clip_tpu_torch.ops.kernels import _build
-
-    src = open(path, "rb").read()
-    digest = hashlib.sha256(src + " ".join(_build.FLAGS).encode()).hexdigest()[:16]
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = _build.BUILD_DIR / f"libbf16-variant-{digest}.so"
-    proc = subprocess.run([_build._nvcc(), *_build.FLAGS, "-o", str(lib), path],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {path}:\n{proc.stdout}{proc.stderr}")
-    return str(lib), proc.stdout + proc.stderr
 
 
 def check_contract(BK, enc, frames):
@@ -197,7 +181,7 @@ def main(argv) -> int:
     repo_lib = BK._lib_bf16
     results, ok_all = [], True
     for path in sources:
-        lib_path, log = build_source(path)
+        lib_path, log = _build.build_variant(path, "bf16")
         lib = BK._bind_bf16(ctypes.CDLL(lib_path))
         BK._lib_bf16 = lambda lib=lib: lib
         warn = sorted({line.split(")")[0] + ")" for line in log.splitlines() if "(C7" in line})
