@@ -23,9 +23,10 @@ Phases:
      golden_frames(128) through path A (K2 + K3 + K5) and path B (K2 + K3 + K4),
      recording every kernel call's inputs; hold K2 and K3 to their plain versions at
      ≤1 s8 step on ≤0.5% of elements, K4 and K5 bit-exactly; time each kernel and its
-     plain version on those inputs (the kernel's device time from a CUDA graph's
-     replay, beside the wrapper call timed from the host), compute its bound, and print
-     each call's achieved TOP/s and share of the bound;
+     plain version on those inputs (back-to-back wrapper calls between CUDA events, as
+     every kernel's `ms`; beside it `device_ms`, the calls replayed from a CUDA graph,
+     which leaves out the host's share), compute its bound, and print each call's
+     achieved TOP/s and share of the bound;
   6. drive the int8 main path: the four requests through path A, with launches per
      request K1 1, K2 1, K3 1, K5 3; the same through path B, with K4 12 per request;
      keys, shapes, finite bf16; cosine distance vs the f32 encoder ≤1e-3 for the
@@ -273,7 +274,7 @@ def check_int8_kernels(qenc, frames, card, profile):
         calls = recs.get(name, [])
         check(len(calls) > 0, f"{name} ran on path {path}")
         worst_step, worst_share = 0, 0.0
-        ms = wrapper_ms = plain_ms = bound_ms = 0.0
+        ms = device_ms = plain_ms = bound_ms = 0.0
         by = {"bytes": 0.0, "operations": 0.0}
         for args, kw, out in calls:
             before = fn.launches
@@ -293,27 +294,27 @@ def check_int8_kernels(qenc, frames, card, profile):
                 else:
                     check(torch.equal(g, w), f"{name} bit-exact vs its plain version on "
                                              f"{tuple(args[0].shape)}")
-            w_ms = cuda_ms(lambda: fn(*args, **kw), 10)
-            k_ms = graph_ms(lambda: fn(*args, **kw))
+            k_ms = cuda_ms(lambda: fn(*args, **kw), 10)
+            d_ms = graph_ms(lambda: fn(*args, **kw))
             p_ms = cuda_ms(lambda: ref(*args, **kw), 3, warmup=1)
             work = int8_work(name, args, kw, out)
             b_ms, b_by = bound(work, card)
-            ms, wrapper_ms = ms + k_ms, wrapper_ms + w_ms
+            ms, device_ms = ms + k_ms, device_ms + d_ms
             plain_ms, bound_ms = plain_ms + p_ms, bound_ms + b_ms
             by[b_by] += b_ms
             tops = (work[1] + work[2]) / k_ms / 1e9
-            print(f"[5] {name} {tuple(args[0].shape)}: kernel {k_ms:.4f} ms on the device "
-                  f"({tops:.1f} TOP/s, {b_ms / k_ms:.1%} of the bound; {w_ms:.4f} ms a "
-                  f"wrapper call timed from the host), plain {p_ms:.4f} ms, bound "
-                  f"{b_ms:.4f} ms by {b_by}")
+            print(f"[5] {name} {tuple(args[0].shape)}: kernel {k_ms:.4f} ms ({tops:.1f} "
+                  f"TOP/s, {b_ms / k_ms:.1%} of the bound; {d_ms:.4f} ms on the device, "
+                  f"replayed from a CUDA graph), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"by {b_by}")
         contract = (f"≤{STEP_LIMIT} step on ≤{STEP_SHARE_LIMIT:g}: worst {worst_step} step "
                     f"on {worst_share:.2e}" if name in ("stem3_requant_pool_int8",
                                                         "fused_stage1_int8")
                     else "bit-exact")
         print(f"[5] {name}: {len(calls)} call(s) per batch-128 encode (path {path}): kernel "
-              f"{ms:.4f} ms on the device ({wrapper_ms:.4f} ms in wrapper calls), plain "
+              f"{ms:.4f} ms ({device_ms:.4f} ms on the device, from CUDA graphs), plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms; {contract}")
-        results[name] = {"max_abs_err": float(worst_step), "ms": ms, "wrapper_ms": wrapper_ms,
+        results[name] = {"max_abs_err": float(worst_step), "ms": ms, "device_ms": device_ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": max(by, key=by.get)}
     if profile:

@@ -96,6 +96,7 @@ constexpr int kThreads = 384;  // warpgroups 0, 1: consumers; 2: producer
 constexpr int kBM = 128;       // (a)/(b) output rows per tile: 2 consumer warpgroups × 64
 constexpr int kBK = 128;       // k per staged chunk: one 128-byte swizzle row of s8
 constexpr int kSmemLimit = 232448;  // bytes of shared memory one H100 block may use
+constexpr int kTooWide = kEncodeFailed - 1;  // K4: no tile of the block output fits
 
 enum Out { kS8 = 0, kS8Res = 1, kBf16ResRelu = 2, kF32ResRelu = 3 };
 
@@ -776,14 +777,11 @@ bool cb3_cb1_ring(const int (&table)[N][2], int C, int bm, int* stages, int* slo
 
 }  // namespace
 
-// Plain C interface for ctypes. Each returns 0 on a clean launch, a cudaError_t code, or
-// kEncodeFailed + a CUresult when a tensor map is refused (ect_error_string names both).
-// Scales named r_* are device pointers to one float. Weights w8t, k3t, k1t are the
-// K-major (N, K) s8 copies.
-
-// The least shared memory K4's kernel needs at block-output width C (one ring stage,
-// one residual slot); above the block limit no launch fits.
-extern "C" size_t ect_cb3_cb1_smem_bytes(int C) { return cb3_cb1_smem(C, 64, 1, 1); }
+// Plain C interface for ctypes. Each returns 0 on a clean launch, a cudaError_t code,
+// kEncodeFailed + a CUresult when a tensor map is refused, or (ect_cb3_cb1_s8) kTooWide
+// when C leaves no room in shared memory; ect_error_string names each. Scales named r_*
+// are device pointers to one float. Weights w8t, k3t, k1t are the K-major (N, K) s8
+// copies.
 
 // (a) 1×1 conv: out_kind 0 = s8 requant, 1 = s8 requant with residual,
 // 2 = bf16 relu(v + residual), 3 = f32 relu(v + residual).
@@ -876,7 +874,7 @@ extern "C" int ect_cb3_cb1_s8(const void* x8, const void* res8, int M, int Cm, i
   int bm = 128, stages = 0, slots = 0;
   if (10 * tiles128 < 9 * waves * sms || !cb3_cb1_ring(kCRing128, C, bm, &stages, &slots)) {
     bm = 64;
-    if (!cb3_cb1_ring(kCRing64, C, bm, &stages, &slots)) return (int)cudaErrorInvalidValue;
+    if (!cb3_cb1_ring(kCRing64, C, bm, &stages, &slots)) return kTooWide;
   }
   static bool configured[kMaxDevices] = {};
   if (!configured[device]) {
@@ -939,5 +937,8 @@ extern "C" int ect_shortcut_bf16(const void* x8, const void* wsc, int M, int K, 
 
 extern "C" const char* ect_error_string(int code) {
   if (code >= kEncodeFailed) return "cuTensorMapEncode refused a tensor map (CUresult = code - 10000)";
+  if (code == kTooWide)
+    return "cb3-cb1: a 64-row tile of the block output (64 x C s8) leaves no room for a "
+           "one-stage ring in shared memory; C is too wide";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

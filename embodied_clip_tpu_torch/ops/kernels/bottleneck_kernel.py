@@ -47,7 +47,6 @@ __all__ = ["fused_stage1_int8", "fused_cb3_cb1_int8", "fused_resblocks_int8",
            "fused_resblocks_int8_reference", "fused_bottleneck", "fused_stage1",
            "fused_bottleneck_reference", "fused_stage1_reference"]
 
-_SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block can opt in to
 _OUT_KIND = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 3}  # residual epilogues
 
 
@@ -136,8 +135,6 @@ def _lib():
     for name, args in sig.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, ctypes.c_int
-    lib.ect_cb3_cb1_smem_bytes.argtypes = [i]
-    lib.ect_cb3_cb1_smem_bytes.restype = ctypes.c_size_t
     lib.ect_error_string.argtypes = [ctypes.c_int]
     lib.ect_error_string.restype = ctypes.c_char_p
     return lib
@@ -259,14 +256,10 @@ def _cb3_cb1(x8, res8, k3t, s3, b3, k1t, s1, b1, r_res_ptr, r_out_ptr, r_next_pt
     for nm, t, n in (("cb3 scale", s3, c), ("cb3 bias", b3, c), ("cb1 scale", s1, c1),
                      ("cb1 bias", b1, c1)):
         _check_f32(nm, t, dev, n)
-    lib = _lib()
-    m = x8.numel() // cm
-    if lib.ect_cb3_cb1_smem_bytes(c) > _SMEM_LIMIT:
-        raise ValueError(f"cb3·cb1: C={c} needs more shared memory than {_SMEM_LIMIT} B "
-                         "(a 64-row tile of the block output stays resident)")
     out8 = torch.empty((*x8.shape[:-1], c), dtype=torch.int8, device=dev)
     y8 = torch.empty((*x8.shape[:-1], c1), dtype=torch.int8, device=dev)
-    _call(lib.ect_cb3_cb1_s8, x8.data_ptr(), res8.data_ptr(), m, cm, c, c1,
+    # The kernel refuses a C whose resident block-output tile leaves no room for a ring.
+    _call(_lib().ect_cb3_cb1_s8, x8.data_ptr(), res8.data_ptr(), x8.numel() // cm, cm, c, c1,
           k3t.data_ptr(), s3.data_ptr(), b3.data_ptr(), k1t.data_ptr(), s1.data_ptr(),
           b1.data_ptr(), r_res_ptr, r_out_ptr, r_next_ptr, out8.data_ptr(), y8.data_ptr(),
           *_stream(x8))

@@ -259,6 +259,18 @@ def test_int8_kernels_need_widths_of_16_and_kmajor_copies(cuda):
         BK.fused_resblocks_int8(res8[..., :24].contiguous(), blocks, scl)
 
 
+def test_cb3_cb1_refuses_a_block_output_too_wide_for_shared_memory(cuda):
+    """K4 keeps a 64-row tile of the block output resident: C = 4096 (256 KB) cannot fit,
+    and the kernel's entry point refuses it before any launch."""
+    rng = np.random.RandomState(10)
+    q, names = C.identity_q(rng, 4096, 16, 2)
+    q = C.to_torch(q, cuda)
+    ops = Q.cb3_cb1_operands(q, names[0], names[1], torch.tensor(0.01, device=cuda))
+    with pytest.raises(RuntimeError, match="too wide"):
+        BK.fused_cb3_cb1_int8(_t(C.s8(rng, (1, 2, 2, 16)), cuda),
+                              _t(C.s8(rng, (1, 2, 2, 4096)), cuda), ops)
+
+
 def test_fused_preprocess_kernel_rejects_what_it_cannot_take(cuda):
     x = torch.from_numpy(golden_frames(2)).to(cuda)
     with pytest.raises(ValueError, match="contiguous"):

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import subprocess
@@ -65,8 +66,9 @@ def bind(lib: ctypes.CDLL, legacy: bool) -> ctypes.CDLL:
     lib.ect_conv1x1_s8.argtypes = [p, i, i, p, i, p, p, p, p, p, p, i, i, p]
     lib.ect_conv3x3_s8.argtypes = [p, i, i, i, i, p, i, p, p, p, p, i, p]
     lib.ect_cb3_cb1_s8.argtypes = [p, p, i, i, i, i] + [p] * 11 + ([i] if legacy else []) + [i, p]
-    lib.ect_cb3_cb1_smem_bytes.argtypes = [i, i, i] if legacy else [i]
-    lib.ect_cb3_cb1_smem_bytes.restype = ctypes.c_size_t
+    if legacy:  # the dp4a file's (c) takes its tile height from its wrapper
+        lib.ect_cb3_cb1_smem_bytes.argtypes = [i, i, i]
+        lib.ect_cb3_cb1_smem_bytes.restype = ctypes.c_size_t
     for fn in (lib.ect_conv1x1_s8, lib.ect_conv3x3_s8, lib.ect_cb3_cb1_s8):
         fn.restype = ctypes.c_int
     lib.ect_error_string.argtypes = [ctypes.c_int]
@@ -83,14 +85,19 @@ class Launch:
 
         self.step, self.args, self.kw, self.wrapper = step, args, kw, wrapper
         if step == "c":
-            x8, res8, k3t, _, _, k1t = args[:6]
+            x8, res8, _, _, _, k1t = args[:6]
             self.outs = (torch.empty_like(res8),
                          torch.empty((*x8.shape[:-1], k1t.shape[0]), dtype=torch.int8,
                                      device=x8.device))
-            self.kn = (k3t.t().contiguous(), k1t.t().contiguous())
         else:
             self.outs = (torch.empty_like(args[5]),)
-            self.kn = (args[1].t().contiguous(),)
+
+    @functools.cached_property
+    def kn(self):
+        """The (K, N) weights a dp4a source reads, transposed once from the K-major
+        copies."""
+        ws = (self.args[2], self.args[5]) if self.step == "c" else (self.args[1],)
+        return tuple(w.t().contiguous() for w in ws)
 
     def weight(self):
         """The K-major weight (cb3's for (c))."""
