@@ -8,7 +8,8 @@ Phases:
   1. torch version, device, and `nvidia-smi`'s name and power limit;
   2. build every CUDA source of the port with nvcc (in parallel) and time it; check that
      the SASS of `bottleneck_bf16` (K6/K7) holds wgmma (HGMMA) and no mma.sync (HMMA),
-     and that of `bottleneck_int8` (K3-K5) s8 wgmma (IGMMA) and no dp4a (IDP.4A);
+     that of `stem_int8` (K2) bf16 wgmma (HGMMA), and that of `bottleneck_int8` (K3-K5)
+     s8 wgmma (IGMMA) beside bf16 wgmma (HGMMA: K3's shortcut) and no dp4a (IDP.4A);
   3. hold kernel K1 (fused preprocess) to its plain PyTorch version on the card, at the
      main path's shape (golden_frames(128), 300x300 → 224): ≤1.5 uint8 LSB with <1e-3
      of pixels flipped, bf16 output bit-equal to the f32 output cast; time both and
@@ -26,7 +27,10 @@ Phases:
      plain version on those inputs (back-to-back wrapper calls between CUDA events, as
      every kernel's `ms`; beside it `device_ms`, the calls replayed from a CUDA graph,
      which leaves out the host's share), compute its bound, and print each call's
-     achieved TOP/s and share of the bound;
+     achieved TOP/s and share of the bound; time K3's entry launch (cb1a and the conv
+     shortcut) alone against its bound; beside K2 and that launch, a yardstick timed the
+     same way that the port never calls: cuDNN's bf16 conv of the same stem3 shape
+     (channels-last, the conv alone) and `torch.matmul` of the shortcut's bf16 product;
   6. drive the int8 main path: the four requests through path A, with launches per
      request K1 1, K2 1, K3 1, K5 3; the same through path B, with K4 12 per request;
      keys, shapes, finite bf16; cosine distance vs the f32 encoder ≤1e-3 for the
@@ -317,6 +321,8 @@ def check_int8_kernels(qenc, frames, card, profile):
         results[name] = {"max_abs_err": float(worst_step), "ms": ms, "device_ms": device_ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": max(by, key=by.get)}
+    results["stem3_requant_pool_int8"].update(stem_yardstick(recs))
+    results["fused_stage1_int8"].update(stage1_entry(recs, card))
     if profile:
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as torch_profile
@@ -328,6 +334,54 @@ def check_int8_kernels(qenc, frames, card, profile):
         print("[5] int8 path A, 3 encodes of golden_frames(128), device time by op:")
         print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
     return results
+
+
+def stem_yardstick(recs):
+    """Phase 5: cuDNN's bf16 conv of K2's stem3 shape (channels-last, the conv alone, no
+    requant or pool) on the recorded input, timed as K2 is. It does not compute K2's
+    function (`library_ms` stays null) and the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    (x, kernel, _, _), _, _ = recs["stem3_requant_pool_int8"][0]
+    xc = x.permute(0, 3, 1, 2)  # the NCHW view of NHWC: channels-last
+    wc = kernel.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    ms = cuda_ms(lambda: F.conv2d(xc, wc, padding=1), 10)
+    print(f"[5] yardstick beside K2: cuDNN bf16 conv {tuple(x.shape)} → {kernel.shape[-1]} "
+          f"channels (channels-last, the conv alone) {ms:.4f} ms")
+    return {"yardstick_ms": ms, "yardstick": "cuDNN bf16 3x3 conv, channels-last, alone"}
+
+
+def stage1_entry(recs, card):
+    """Phase 5: K3's entry launch (cb1a and the conv shortcut from one read of x8) on the
+    recorded batch-128 input, timed alone against its bound; beside it `torch.matmul` of
+    the shortcut's bf16 product alone (not the launch's function; the port never calls
+    it)."""
+    import torch
+
+    from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
+
+    (x8, ops), _, _ = recs["fused_stage1_int8"][0]
+    scl = ops["scl"]
+
+    def entry():
+        return BK._stage1_entry(x8, ops, BK._ptr(scl, 1), BK._ptr(scl, 0), BK._ptr(scl, 10))
+
+    ms = cuda_ms(entry, 10)
+    q1, sc8 = entry()
+    cin, cout = ops["wsc"].shape
+    m = x8.numel() // cin
+    work = (nbytes(x8, q1, sc8, ops["k1a"], ops["s1a"], ops["b1a"], ops["wsc"], ops["bsc"]),
+            2 * m * cin * ops["k1a"].shape[-1], 2 * m * cin * cout)
+    b_ms, b_by = bound(work, card)
+    a16 = (x8.reshape(m, cin).float() * scl[0]).to(torch.bfloat16)
+    mm_ms = cuda_ms(lambda: torch.matmul(a16, ops["wsc"]), 10)
+    print(f"[5] K3 entry launch {tuple(x8.shape)} → q1 {tuple(q1.shape)}, sc8 "
+          f"{tuple(sc8.shape)}: {ms:.4f} ms, {b_ms / ms:.1%} of its bound {b_ms:.4f} ms by "
+          f"{b_by}; yardstick: torch.matmul of the bf16 shortcut product alone {mm_ms:.4f} ms")
+    return {"entry_ms": ms, "entry_bound_ms": b_ms, "yardstick_ms": mm_ms,
+            "yardstick": "torch.matmul of the bf16 shortcut product, alone"}
 
 
 def check_bf16_kernels(encoders, frames, card):
@@ -442,17 +496,19 @@ def main(argv) -> int:
         for line in _build.build_log(src).splitlines():
             if "ptxas info    : Used" in line or "(C75" in line:
                 print(f"[2]   {src}: {line.strip()}")
-    # K6/K7's GEMM runs on bf16 wgmma: its SASS holds HGMMA and no mma.sync (HMMA); K3-K5's
-    # s8 products run on s8 wgmma: IGMMA, and no dp4a on the CUDA cores (IDP.4A).
-    for src, want, banned in (("bottleneck_bf16", "HGMMA.", "HMMA."),
-                              ("bottleneck_int8", "IGMMA", "IDP.4A")):
+    # K6/K7's GEMM runs on bf16 wgmma: its SASS holds HGMMA and no mma.sync (HMMA); K2's
+    # conv on bf16 wgmma (HGMMA); K3-K5's s8 products on s8 wgmma (IGMMA) and K3's
+    # shortcut on bf16 wgmma (HGMMA), with no dp4a on the CUDA cores (IDP.4A).
+    for src, wants, banned in (("bottleneck_bf16", ("HGMMA.",), "HMMA."),
+                               ("stem_int8", ("HGMMA.",), "HMMA."),
+                               ("bottleneck_int8", ("IGMMA", "HGMMA."), "IDP.4A")):
         sass = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump",
                                "-sass", str(_build.library_path(src))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
-        n_want, n_banned = sass.count(want), sass.count(banned)
-        print(f"[2] {src} SASS: {n_want} {want.rstrip('.')} (wgmma) instructions, "
-              f"{n_banned} {banned.rstrip('.')}")
-        check(n_want > 0 and n_banned == 0, f"{src} runs on wgmma alone")
+        counts, n_banned = {w: sass.count(w) for w in wants}, sass.count(banned)
+        print(f"[2] {src} SASS: " + ", ".join(f"{n} {w.rstrip('.')}" for w, n in counts.items())
+              + f" (wgmma) instructions, {n_banned} {banned.rstrip('.')}")
+        check(all(counts.values()) and n_banned == 0, f"{src} runs on wgmma alone")
 
     # Full-f32 references: cuDNN convs and cuBLAS matmuls default to TF32 otherwise.
     torch.backends.cudnn.allow_tf32 = False

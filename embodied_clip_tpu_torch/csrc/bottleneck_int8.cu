@@ -18,8 +18,9 @@
 //                              cb3 + residual + requant into shared memory, then the
 //                              next block's cb1 + requant from there; the block output
 //                              is written once and never read back
-//   (d) shortcut_bf16_kernel   K3's 1×1 conv shortcut in bf16 with f32 accumulation
-//                              and the signed s8 requant
+//   (d) entry_kernel           K3's first launch: block 0's cb1 (s8, as (a)) and its 1×1
+//                              conv shortcut (bf16 operands, f32 sum, signed s8
+//                              requant) from one read of each x8 tile
 //
 // Arithmetic. Products are s8×s8 summed in s32 on the tensor cores
 // (wgmma.mma_async m64nNk32.s32.s8.s8): exact in any order at every K (|acc| ≤
@@ -34,7 +35,8 @@
 //
 // Bound on an H100: at batch 128 the (a)/(b) launches of stages 2-4 do 17-30 GOP each
 // against 1,979 TOP/s of int8 tensor cores (operations); K4's calls move x8, the
-// residual, out8 and y8 (32-128 MB) for ≈26 GOP (bytes at stage 2, about even at 4).
+// residual, out8 and y8 (32-128 MB) for ≈26 GOP (bytes at stage 2, about even at 4);
+// (d) moves x8, q1 and sc8 (154 MB at RN50: 0.046 ms) for 3.3 GOP s8 and 13.2 GFLOP bf16.
 //
 // Design (Hopper: TMA, wgmma, mbarriers, warp specialisation; the building blocks are
 // csrc/hopper.cuh, shared with K6/K7's bottleneck_bf16.cu). Both kernels run one
@@ -70,6 +72,14 @@
 //   columns each). The ring depth is what T leaves: at BM = 128, 4 stages of 32 KB at
 //   C ≤ 512; at BM = 64, stages of 24 KB: 6 at C ≤ 256, 5 at 512, 4 at 1024, 3 at 2048,
 //   1 at RN50x16's 3072.
+//   (d): as (a), one block per SM walks 128-row tiles of x8 (Cin ≤ 128: one chunk, zero
+//   past Cin) through a 4-stage ring; cb1a's kernel (s8, K-major) and wsc (bf16, (Cin,
+//   Cout), 64-column panels read N-major) stay resident. Each consumer warpgroup issues
+//   cb1a's s8 wgmma from the tile, then converts its 64 rows to the shortcut's bf16 A
+//   fragments in registers (bf16(float(x8)·s_in), the reference's op order) and issues
+//   the shortcut's bf16 wgmma (A from registers) in passes of 128 columns; cb1a's
+//   epilogue runs while the first pass's products do. Both outputs leave through
+//   swizzled 64 × 128 staging slots (two per warpgroup) with TMA stores.
 // Outputs are deterministic: no split-K, no atomics.
 //
 // What holds it back now (tools/bench_int8_gemm.py on NVIDIA H100 80GB HBM3 at 700 W):
@@ -97,6 +107,7 @@ constexpr int kBM = 128;       // (a)/(b) output rows per tile: 2 consumer warpg
 constexpr int kBK = 128;       // k per staged chunk: one 128-byte swizzle row of s8
 constexpr int kSmemLimit = 232448;  // bytes of shared memory one H100 block may use
 constexpr int kTooWide = kEncodeFailed - 1;  // K4: no tile of the block output fits
+constexpr int kBadWidth = kEncodeFailed - 2;  // K3's entry: widths it does not take
 
 enum Out { kS8 = 0, kS8Res = 1, kBf16ResRelu = 2, kF32ResRelu = 3 };
 
@@ -143,11 +154,11 @@ __device__ __forceinline__ int8_t requant_u8(float v, float r) {
   return (int8_t)(__float_as_int(__fadd_rz(y, 8388608.0f)) - 0x4B000000);
 }
 
-__device__ __forceinline__ int8_t requant_s8(float v, float r) {
-  float y = __fdiv_rn(v, r);
-  y = y >= 0.0f ? __fadd_rn(y, 0.5f) : __fsub_rn(y, 0.5f);
-  y = fminf(fmaxf(y, -127.0f), 127.0f);
-  return (int8_t)(int)y;  // truncating convert, toward zero
+// The signed requant of a quotient v = x / r: v ± 0.5 by its sign, clip ±127, truncate.
+__device__ __forceinline__ int8_t requant_quotient(float v) {
+  v = v >= 0.0f ? __fadd_rn(v, 0.5f) : __fsub_rn(v, 0.5f);
+  v = fminf(fmaxf(v, -127.0f), 127.0f);
+  return (int8_t)(int)v;  // truncating convert, toward zero
 }
 
 __device__ __forceinline__ float affine(int acc, float s, float b) {
@@ -201,6 +212,35 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t a, uint64_t
         "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
         "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "n"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8_n16(int (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "l"(a), "l"(b), "n"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8_n96(int (&d)[48], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
       : "l"(a), "l"(b), "n"(1));
 }
 
@@ -671,62 +711,349 @@ __global__ void __launch_bounds__(kThreads, 1) cb3_cb1_kernel(const __grid_const
   }
 }
 
-// (d) K3's conv shortcut: sc8 = requant_signed(bf16(float(x8)·s_in) · wsc + bsc, dsc),
-// bf16 operands, f32 accumulation (each bf16 product is exact in f32). x8 (M, K) s8,
-// wsc (K, N) bf16. Grid (ceil(M/64), ceil(N/64)), 256 threads: 16 column groups × 16
-// row lanes, 4 × 4 outputs each.
-__global__ void __launch_bounds__(256) shortcut_bf16_kernel(
-    const int8_t* __restrict__ x8, const __nv_bfloat16* __restrict__ wsc, int M, int K,
-    int N, const float* __restrict__ s_in, const float* __restrict__ bsc,
-    const float* __restrict__ dsc, int8_t* __restrict__ out8) {
-  constexpr int kBK16 = 16, kBN64 = 64;
-  __shared__ float As[64 * (kBK16 + 1)];
-  __shared__ __align__(16) float Bs[kBK16 * kBN64];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.x * 64, n0 = blockIdx.y * kBN64;
-  const float s = __ldg(s_in);
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kBK16) {
+// (d) K3's entry: the first 1×1 conv and the conv shortcut of stage 1's block 0 from one
+// read of x8. Per 128-row tile (each consumer warpgroup 64 rows):
+//   q1  = requant_u8(float(x8·k1a)·S1 + b1, r1)                  s8 wgmma, k1a_t resident
+//   sc8 = requant_signed(bf16(float(x8)·s_in)·wsc + bsc, dsc)    bf16 wgmma, A from
+//         registers (the s8 tile converted in the reference's op order), wsc (Cin, Cout)
+//         resident and read N-major, in column passes of NP
+// Both outputs go through per-warpgroup staging slots (64 × 128 s8, swizzled) and leave
+// with TMA stores. CIN = CM ≤ 128: one x8 chunk a tile, zero-filled past CIN.
+constexpr int kEntryStages = 4;
+constexpr int kSlot = 64 * 128;  // a staging slot
+
+struct EntryParams {
+  CUtensorMap x8, k1, wsc, q1, sc;  // TMA descriptors (see ect_stage1_entry)
+  const float* S1;
+  const float* b1;
+  const float* r1;
+  const float* s_in;
+  const float* bsc;
+  const float* dsc;
+  const int8_t* x8p;  // x8 (M, CIN) and sc8 (M, COUT) in device memory, for the exact sums
+  int8_t* sc8p;
+  int M, tiles;
+};
+
+// m64nNk32 s8 wgmma for N = 16, 64, 96 (q1's widths), chosen by the accumulator's size.
+__device__ __forceinline__ void wgmma_s8_n(int (&d)[8], uint64_t a, uint64_t b) {
+  wgmma_s8_n16(d, a, b);
+}
+__device__ __forceinline__ void wgmma_s8_n(int (&d)[32], uint64_t a, uint64_t b) {
+  wgmma_s8_n64(d, a, b);
+}
+__device__ __forceinline__ void wgmma_s8_n(int (&d)[48], uint64_t a, uint64_t b) {
+  wgmma_s8_n96(d, a, b);
+}
+
+template <int R>
+__device__ __forceinline__ void promote(float (&acc)[R], float (&d)[R]) {
+  fence_regs(d);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {  // A: 64 rows × 16 k, one element per (row, tx)
-      const int m = m0 + ty + 16 * r, k = k0 + tx;
-      float a = 0.0f;
-      if (m < M && k < K)
-        a = __bfloat162float(__float2bfloat16_rn(__fmul_rn((float)x8[(size_t)m * K + k], s)));
-      As[(ty + 16 * r) * (kBK16 + 1) + tx] = a;
+  for (int i = 0; i < R; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
+}
+
+// Two s8 (bytes 0, 1 of u) → bf16(float(x)·s) each, packed low k first: the A operand of
+// the shortcut.
+__device__ __forceinline__ uint32_t shortcut_pair(uint32_t u, float s) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(__fmul_rn(s8_to_float(u), s),
+                                                 __fmul_rn(s8_to_float(u >> 8), s));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// sc8 must equal the plain version's on every element: a flipped shortcut step moves
+// the block output, and through the later blocks' convs and residuals reaches 2 steps of
+// K3's output. The plain version's sum is the exact sum of the bf16 products rounded once
+// to f32; the tensor cores' sum (products exact, 32-k groups promoted with IEEE adds)
+// differs from it by far less than kTieMargin · Σ_k |x0·w| ≤ kTieMargin · Σ_k |x0| ·
+// max_k |w|. Where the quotient sc / dsc lies within that margin of a requant boundary
+// (|q| + 0.5 an integer), the element's bit is set in its lane's flag word (no branch in
+// the epilogue, whose divisions then overlap), and after the pass the lane appends the
+// flagged (row, column) to the block's list. Once the block's last TMA store is done, its
+// consumer threads recompute each listed sum exactly from x8 in device memory and the
+// resident weights (f64 products and sum: exact at these widths) and rewrite the byte.
+// (Done inside the tile loop, the fix-ups kept every warp of a warpgroup waiting: at
+// RN50's widths, batch 128, on an H100, that cost more than the rest of the launch.)
+constexpr float kTieMargin = 1.0f / 1048576.0f;  // 16 f32 ulps
+constexpr int kTieCap = 8192;  // list entries a block keeps; past them, fixed at once
+
+// wsc[k, c] in the resident N-major panels (64 columns × CIN k-rows, 128-byte swizzled).
+__device__ __forceinline__ float wsc_at(const uint8_t* wscs, int panel, int k, int c) {
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+      wscs + (c >> 6) * panel + k * 128 + (((((c & 63) >> 3) ^ k) & 7) << 4) + (c & 7) * 2));
+}
+
+// |a| + |b| of the two bf16 of a fragment register.
+__device__ __forceinline__ float abs_sum(uint32_t u) {
+  return __uint_as_float((u << 16) & 0x7FFFFFFFu) + __uint_as_float(u & 0x7FFF0000u);
+}
+
+// The quotient sc / dsc of the signed requant, and whether it lies within `margin` (plus
+// the rounding of the add and the division) of a requant boundary.
+__device__ __forceinline__ float quotient(float sc, float b, float dsc) {
+  return __fdiv_rn(__fadd_rn(sc, b), dsc);
+}
+
+__device__ __forceinline__ bool near_tie(float v, float margin) {
+  // |v| - 0.5 against its nearest integer (2^23 + y rounds y to an integer): exact adds,
+  // at the rate of adds.
+  const float av = fabsf(v), y = __fsub_rn(av, 0.5f);
+  const float n = __fsub_rn(__fadd_rn(y, 8388608.0f), 8388608.0f);
+  return fabsf(__fsub_rn(y, n)) <= margin + 4.8e-7f * av;
+}
+
+// The exact shortcut sum of x8 row xrow (CIN s8 in device memory), column c, rounded
+// once to f32; its requant.
+template <int CIN>
+__device__ __forceinline__ int8_t exact_shortcut_q(const int8_t* xrow, const uint8_t* wscs,
+                                                   int c, float s_in, float b, float dsc) {
+  double sum = 0.0;
+#pragma unroll 8
+  for (int k = 0; k < CIN; ++k) {
+    const float x0 =
+        __bfloat162float(__float2bfloat16_rn(__fmul_rn(static_cast<float>(xrow[k]), s_in)));
+    sum = fma(static_cast<double>(x0), static_cast<double>(wsc_at(wscs, CIN * 128, k, c)), sum);
+  }
+  return requant_quotient(quotient(__double2float_rn(sum), b, dsc));
+}
+
+template <int CIN, int COUT>
+__global__ void __launch_bounds__(kThreads, 1) entry_kernel(const __grid_constant__ EntryParams p) {
+  constexpr int CM = CIN;
+  constexpr int NP = COUT > 64 ? 128 : 64;  // shortcut columns per pass
+  constexpr int KS = (CIN + 31) / 32;       // s8 k32 steps of q1
+  constexpr int CK = CIN / 16;              // bf16 k16 steps of the shortcut
+  constexpr int G = (CK + 1) / 2;           // its 32-k groups
+  constexpr int kTile = 128 * kBK;     // an x8 tile
+  constexpr int kPanel = CIN * 128;    // a 64-column panel of wsc (CIN k-rows × 128 B)
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* ring = base;                            // kEntryStages × 128 × 128
+  uint8_t* k1s = ring + kEntryStages * kTile;      // CM × 128 (K-major, zero past CIN)
+  uint8_t* wscs = k1s + CM * 128;                  // Cout / 64 panels
+  uint8_t* staging = wscs + (COUT / 64) * kPanel;  // 2 warpgroups × 2 slots
+  float* colm = reinterpret_cast<float*>(staging + 4 * kSlot);  // COUT margin factors
+  uint32_t* tie_list = reinterpret_cast<uint32_t*>(colm + COUT);  // row << 9 | column
+  int* tie_count = reinterpret_cast<int*>(tie_list + kTieCap);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tie_count + 2);
+  uint64_t* empty = full + kEntryStages;
+  uint64_t* wfull = empty + kEntryStages;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kEntryStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);  // every consumer thread
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {  // B: 16 k × 64 n
-      const int k = k0 + ty, n = n0 + 4 * tx + j;
-      Bs[ty * kBN64 + 4 * tx + j] = (k < K && n < N) ? __bfloat162float(wsc[(size_t)k * N + n])
-                                                     : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK16; ++kk) {
-      const float4 b = *reinterpret_cast<const float4*>(Bs + kk * kBN64 + 4 * tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float a = As[(ty + 16 * i) * (kBK16 + 1) + kk];
-        acc[i][0] = __fmaf_rn(a, b.x, acc[i][0]);
-        acc[i][1] = __fmaf_rn(a, b.y, acc[i][1]);
-        acc[i][2] = __fmaf_rn(a, b.z, acc[i][2]);
-        acc[i][3] = __fmaf_rn(a, b.w, acc[i][3]);
+    mbar_init(wfull, 1);
+    *tie_count = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // ---- producer warpgroup: one thread loads the weights once, then the x8 tiles ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      mbar_expect_tx(wfull, CM * 128 + (COUT / 64) * kPanel);
+      tma_load_2d(k1s, &p.k1, wfull, 0, 0);
+      for (int q = 0; q < COUT / 64; ++q) tma_load_2d(wscs + q * kPanel, &p.wsc, wfull, 64 * q, 0);
+      int stage = 0, phase = 0;
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], kTile);
+        tma_load_2d(ring + stage * kTile, &p.x8, &full[stage], 0, tile * 128);
+        if (++stage == kEntryStages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
-    __syncthreads();
+    return;
   }
-  const int n = n0 + 4 * tx;
-  if (n >= N) return;
-  const float d = __ldg(dsc);
+
+  // ---- consumer warpgroups 0 and 1: rows 64·wg … 64·wg + 63 of each tile ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = tid >> 7, lt = tid & 127, warp = lt >> 5, lane = lt & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rt = 16 * warp + g;  // rows rt and rt + 8 of this warpgroup's 64
+  const float r1 = __ldg(p.r1), s_in = __ldg(p.s_in), dsc = __ldg(p.dsc);
+  // q1's per-column S1, b1 pairs (lane l: columns 2l, 2l + 1 and 64 + 2l, 65 + 2l).
+  float2 s1v[2], b1v[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-    int8_t q[4];
+  for (int h = 0; h < 2; ++h) {
+    s1v[h] = load_pair(p.S1, 64 * h + 2 * lane, CM);
+    b1v[h] = load_pair(p.b1, 64 * h + 2 * lane, CM);
+  }
+  int acc1[CM / 2];
+  float acc2[NP / 2], part[NP / 2];
+  uint32_t a[CK][4];
+  const uint64_t k1desc = smem_desc(k1s, 16, 1024);
+  int stage = 0, phase = 0, nslot = 0;
+  mbar_wait(wfull, 0);
+  // Column c's factor of the tie margin: kTieMargin · max_k |wsc[k, c]| / dsc (in units of
+  // the quotient sc / dsc, per unit of a row's Σ_k |x0|).
+  for (int c = tid; c < COUT; c += 256) {
+    float m = 0.0f;
+    for (int k = 0; k < CIN; ++k) m = fmaxf(m, fabsf(wsc_at(wscs, kPanel, k, c)));
+    colm[c] = kTieMargin * m / dsc;
+  }
+  named_sync<256>(3);
+
+  // Writes one 64 × 128 output block through this warpgroup's next staging slot and stores
+  // it with TMA at (col0, row0); `write(slot)` fills the slot.
+  auto stage_out = [&](const CUtensorMap* map, int col0, int row0, auto write) {
+    uint8_t* slot = staging + (2 * wg + (nslot & 1)) * kSlot;
+    // The store two blocks back has read this slot.
+    if (lt == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+    named_sync(1 + wg);
+    write(slot);
+    fence_async_shared();
+    named_sync(1 + wg);
+    if (lt == 0) {
+      tma_store_2d(map, slot, col0, row0);
+      bulk_commit();
+    }
+    ++nslot;
+  };
+
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    const int row0 = tile * 128 + 64 * wg;
+    mbar_wait(&full[stage], phase);
+    const uint8_t* xt = ring + stage * kTile;
+    // q1: s8 products from shared memory.
 #pragma unroll
-    for (int j = 0; j < 4; ++j) q[j] = requant_s8(__fadd_rn(acc[i][j], __ldg(bsc + n + j)), d);
-    *reinterpret_cast<uint32_t*>(out8 + (size_t)m * N + n) = pack4(q[0], q[1], q[2], q[3]);
+    for (int i = 0; i < CM / 2; ++i) acc1[i] = 0;
+    fence_regs(acc1);
+    wgmma_fence();
+    const uint64_t xdesc = smem_desc(xt + wg * 64 * kBK, 16, 1024);
+#pragma unroll
+    for (int k = 0; k < KS; ++k) wgmma_s8_n(acc1, xdesc + 2 * k, k1desc + 2 * k);
+    wgmma_commit();
+    // The shortcut's A fragments from the same tile: row rt + 8h, k 16s + 2t (+ 8) + {0, 1}
+    // (16-byte chunk s of a 128-byte swizzled row sits at chunk s ^ (row % 8)).
+#pragma unroll
+    for (int s = 0; s < CK; ++s)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 64 * wg + rt + 8 * h;
+        const uint8_t* chunk = xt + r * 128 + (((s ^ r) & 7) << 4);
+        a[s][h] = shortcut_pair(*reinterpret_cast<const uint16_t*>(chunk + 2 * t), s_in);
+        a[s][2 + h] = shortcut_pair(*reinterpret_cast<const uint16_t*>(chunk + 8 + 2 * t), s_in);
+      }
+    // Σ_k |x0| of rows rt and rt + 8: this lane's k, then the quad's (lanes t).
+    float srow[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int s = 0; s < CK; ++s)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        srow[h] += abs_sum(a[s][h]) + abs_sum(a[s][2 + h]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      srow[h] += __shfl_xor_sync(0xffffffffu, srow[h], 1);
+      srow[h] += __shfl_xor_sync(0xffffffffu, srow[h], 2);
+    }
+#pragma unroll 1  // one copy of the pass's long unrolled epilogue: the loop stays small
+    for (int pass = 0; pass < COUT / NP; ++pass) {
+      const int n0 = pass * NP;
+      float2 bv[NP / 64];
+#pragma unroll
+      for (int h = 0; h < NP / 64; ++h) bv[h] = load_pair(p.bsc, n0 + 64 * h + 2 * lane, COUT);
+      // The shortcut's products in 32-k groups (16 k at CIN 16), each summed on the tensor
+      // cores in fresh registers and added to acc2 with IEEE adds in k order: the tensor
+      // cores' truncating f32 sum over all of K biased sc8 past K3's contract.
+      const uint64_t wdesc = smem_desc(wscs + (n0 / 64) * kPanel, kPanel, 1024);
+      auto group = [&](float (&d)[NP / 2], int g) {
+#pragma unroll
+        for (int i = 0; i < NP / 2; ++i) d[i] = 0.0f;
+        fence_regs(d);
+        fence_regs(a[2 * g]);
+        if (2 * g + 1 < CK) fence_regs(a[2 * g + 1]);
+        wgmma_fence();
+        wgmma_rs<NP, 1>(d, a[2 * g], wdesc + 256 * g);
+        if (2 * g + 1 < CK) wgmma_rs<NP, 1>(d, a[2 * g + 1], wdesc + 256 * g + 128);
+        wgmma_commit();
+      };
+      group(acc2, 0);
+      if constexpr (G > 1) group(part, 1);
+      if (pass == 0) {
+        // q1's products are done (the shortcut's run on): write q1.
+        wgmma_wait<(G > 1 ? 2 : 1)>();
+        fence_regs(acc1);
+        mbar_arrive(&empty[stage]);  // the tile's last reader is done with it
+        stage_out(&p.q1, 0, row0, [&](uint8_t* slot) {
+#pragma unroll
+          for (int j = 0; j < CM / 8; ++j) {
+            const float2 sc = shfl_pair(s1v[j / 8], j, lane), b = shfl_pair(b1v[j / 8], j, lane);
+            const int c = 8 * j + 2 * t;
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              *reinterpret_cast<uint16_t*>(slot + sw128(rt + 8 * h, c)) = requant_pair(
+                  epilogue_pair<false>(acc1[4 * j + 2 * h], acc1[4 * j + 2 * h + 1], sc, b, 0u,
+                                       0.0f),
+                  r1);
+          }
+        });
+      }
+      wgmma_wait<0>();
+      fence_regs(acc2);
+#pragma unroll
+      for (int g = 1; g < G; ++g) {
+        if (g > 1) {
+          group(part, g);
+          wgmma_wait<0>();
+        }
+        promote(acc2, part);
+      }
+      stage_out(&p.sc, n0, row0, [&](uint8_t* slot) {
+        uint64_t ties = 0;  // bit i: acc2[i] lies near a requant boundary
+#pragma unroll
+        for (int j = 0; j < NP / 8; ++j) {
+          const float2 b = shfl_pair(bv[j / 8], j, lane);
+          const int c = 8 * j + 2 * t;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h;
+            const float v0 = quotient(acc2[i], b.x, dsc);
+            const float v1 = quotient(acc2[i + 1], b.y, dsc);
+            ties |= static_cast<uint64_t>(near_tie(v0, srow[h] * colm[n0 + c])) << i;
+            ties |= static_cast<uint64_t>(near_tie(v1, srow[h] * colm[n0 + c + 1])) << (i + 1);
+            *reinterpret_cast<uint16_t*>(slot + sw128(rt + 8 * h, c)) =
+                pack2(requant_quotient(v0), requant_quotient(v1));
+          }
+        }
+        while (ties) {  // rare: list the flagged elements
+          const int i = __ffsll(static_cast<long long>(ties)) - 1;
+          ties &= ties - 1;
+          const int row = tile * 128 + 64 * wg + rt + 8 * ((i >> 1) & 1);
+          const int c = n0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          const int at = atomicAdd(tie_count, 1);
+          if (at < kTieCap)
+            tie_list[at] = static_cast<uint32_t>(row) << 9 | c;
+          else if (row < p.M)  // the list is full: fix it now
+            slot[sw128(row - row0, c - n0)] = static_cast<uint8_t>(exact_shortcut_q<CIN>(
+                p.x8p + static_cast<size_t>(row) * CIN, wscs, c, s_in, __ldg(p.bsc + c), dsc));
+        }
+      });
+    }
+    if (++stage == kEntryStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  // The listed near-ties, once every TMA store of the block has landed.
+  if (lt == 0) {
+    bulk_wait();
+    asm volatile("fence.proxy.async;\n" ::: "memory");
+  }
+  named_sync<256>(3);
+  const int listed = min(*tie_count, kTieCap);
+  for (int i = tid; i < listed; i += 256) {
+    const int row = static_cast<int>(tie_list[i] >> 9), c = static_cast<int>(tie_list[i] & 511);
+    if (row < p.M)
+      p.sc8p[static_cast<size_t>(row) * COUT + c] = exact_shortcut_q<CIN>(
+          p.x8p + static_cast<size_t>(row) * CIN, wscs, c, s_in, __ldg(p.bsc + c), dsc);
   }
 }
 
@@ -921,17 +1248,58 @@ extern "C" int ect_cb3_cb1_s8(const void* x8, const void* res8, int M, int Cm, i
   return (int)cudaGetLastError();
 }
 
-// (d) K3's bf16 conv shortcut with the signed s8 requant.
-extern "C" int ect_shortcut_bf16(const void* x8, const void* wsc, int M, int K, int N,
-                                 const void* s_in, const void* bsc, const void* dsc,
-                                 void* out8, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// (d) K3's entry: q1 (M, Cm) on r1 and sc8 (M, Cout) on dsc from x8 (M, Cin), with k1t
+// the K-major (Cm, Cin) s8 cb1a kernel and wsc the (Cin, Cout) bf16 shortcut weights;
+// (Cin = Cm, Cout) one of (16, 64), (64, 256), (96, 384); s_in the scale of x8.
+extern "C" int ect_stage1_entry(const void* x8, int M, int Cin, const void* k1t, int Cm,
+                                const void* S1, const void* b1, const void* r1,
+                                const void* wsc, int Cout, const void* s_in, const void* bsc,
+                                const void* dsc, void* q1, void* sc8, int device,
+                                void* stream) {
+  if (Cm != Cin || !((Cin == 16 && Cout == 64) || (Cin == 64 && Cout == 256) ||
+                     (Cin == 96 && Cout == 384)))
+    return kBadWidth;
+  int sms = 0;
+  cudaError_t err = prepare_launch(device, &sms);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((M + 63) / 64, (N + 63) / 64);
-  shortcut_bf16_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x8), static_cast<const __nv_bfloat16*>(wsc), M, K, N,
-      static_cast<const float*>(s_in), static_cast<const float*>(bsc),
-      static_cast<const float*>(dsc), static_cast<int8_t*>(out8));
+  if (M <= 0) return 0;
+  EntryParams p{};
+  CUresult r = map_s8(&p.x8, x8, M, Cin, kBK, 128);
+  if (r == CUDA_SUCCESS) r = map_s8(&p.k1, k1t, Cm, Cin, kBK, Cm);
+  if (r == CUDA_SUCCESS)
+    r = encode_2d(&p.wsc, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, wsc, Cin, Cout, 64, Cin);
+  if (r == CUDA_SUCCESS) r = map_s8(&p.q1, q1, M, Cm, 128, 64);
+  if (r == CUDA_SUCCESS) r = map_s8(&p.sc, sc8, M, Cout, 128, 64);
+  if (r != CUDA_SUCCESS) return kEncodeFailed + (int)r;
+  p.S1 = static_cast<const float*>(S1);
+  p.b1 = static_cast<const float*>(b1);
+  p.r1 = static_cast<const float*>(r1);
+  p.s_in = static_cast<const float*>(s_in);
+  p.bsc = static_cast<const float*>(bsc);
+  p.dsc = static_cast<const float*>(dsc);
+  p.x8p = static_cast<const int8_t*>(x8);
+  p.sc8p = static_cast<int8_t*>(sc8);
+  p.M = M;
+  p.tiles = (M + 127) / 128;
+  static bool configured[kMaxDevices] = {};
+  if (!configured[device]) {
+    for (auto kern : {entry_kernel<16, 64>, entry_kernel<64, 256>, entry_kernel<96, 384>}) {
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+      if (err != cudaSuccess) return (int)err;
+    }
+    configured[device] = true;
+  }
+  const size_t smem = 1024 + (size_t)kEntryStages * 128 * kBK + (size_t)Cm * 128 +
+                      (size_t)(Cout / 64) * Cin * 128 + 4 * kSlot + 4 * (size_t)Cout +
+                      4 * (kTieCap + 2) + 8 * (2 * kEntryStages + 1);
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Cin == 16)
+    entry_kernel<16, 64><<<grid, kThreads, smem, s>>>(p);
+  else if (Cin == 64)
+    entry_kernel<64, 256><<<grid, kThreads, smem, s>>>(p);
+  else
+    entry_kernel<96, 384><<<grid, kThreads, smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -940,5 +1308,7 @@ extern "C" const char* ect_error_string(int code) {
   if (code == kTooWide)
     return "cb3-cb1: a 64-row tile of the block output (64 x C s8) leaves no room for a "
            "one-stage ring in shared memory; C is too wide";
+  if (code == kBadWidth)
+    return "stage-1 entry: (Cin = Cm, Cout) must be (16, 64), (64, 256) or (96, 384)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -16,16 +16,19 @@ through a few device functions:
   K5  2k+1       cb1 (a), then per block: 3×3 cb2 (b), and cb3 + residual + requant
                  fused with the next block's cb1 (c); the last block's cb3 is (a) with
                  the residual epilogue (s8 requant, or the relu'd bf16/f32 conv map)
-  K3  8          cb1a (a), shortcut (d), cb2a (b), cb3a·cb1b (c), cb2b (b), cb3b·cb1c
-                 (c), cb2c (b), cb3c + residual + requant (a)
+  K3  7          entry (d): cb1a and the bf16 conv shortcut from one read of x8; then
+                 cb2a (b), cb3a·cb1b (c), cb2b (b), cb3b·cb1c (c), cb2c (b), cb3c +
+                 residual + requant (a)
   K6  3          cb1 (a), 3×3 cb2 (b), cb3 + residual (c), each + bias + relu → bf16
   K7  3 a block  as K6; block 0's cb3 adds the conv shortcut as a second K loop
 
 The int8 launches run s8 products on the tensor cores (wgmma), which read both operands
 K-major: they take each s8 weight's K-major copy `k…_t`, built once by the operand
 builders of `ops/quantize.py`, and C, Cm and N in multiples of 16 (TMA's 16-byte row
-strides). Every wrapper takes its plain version for a CPU tensor, and only for a CPU
-tensor; on a CUDA tensor it launches or raises. Each counts its calls that launch
+strides). K3's conv shortcut runs on bf16 wgmma and reads `wsc` as it is; its entry
+launch takes the stage-1 widths of the width-16 trunk, RN50 and RN50x16
+(`ENTRY_WIDTHS`). Every wrapper takes its plain version for a CPU tensor, and only for
+a CPU tensor; on a CUDA tensor it launches or raises. Each counts its calls that launch
 (`.launches`), once per call, whatever the number of launches inside. The int8 plain
 versions use the int8 graph's primitives (`ops/int8.py`) in the TPU kernels' op order;
 the bf16 ones round to bf16 exactly where the TPU kernels do.
@@ -67,10 +70,11 @@ def _pw(x8: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 
 def _shortcut_reference(x8, wsc, bsc, s_in, dsc):
-    """K3's conv shortcut: bf16(x8·s_in) · wsc in f32 (TF32 off) + bsc → signed s8."""
-    x0 = (x8.float() * s_in).to(torch.bfloat16).float()
-    with full_f32():
-        sc = torch.matmul(x0, wsc.float())
+    """K3's conv shortcut: bf16(x8·s_in) · wsc + bsc → signed s8, the f32 sum being the
+    exact sum of the (exact) bf16 products rounded once to f32: computed in f64, so that
+    it names one value on every device and in every summation order."""
+    x0 = (x8.float() * s_in).to(torch.bfloat16)
+    sc = torch.matmul(x0.double(), wsc.double()).float()
     return requant_signed(sc + bsc, dsc)
 
 
@@ -130,7 +134,7 @@ def _lib():
         "ect_conv1x1_s8": [p, i, i, p, i, p, p, p, p, p, p, i, i, p],
         "ect_conv3x3_s8": [p, i, i, i, i, p, i, p, p, p, p, i, p],
         "ect_cb3_cb1_s8": [p, p, i, i, i, i] + [p] * 11 + [i, p],
-        "ect_shortcut_bf16": [p, p, i, i, i, p, p, p, p, i, p],
+        "ect_stage1_entry": [p, i, i, p, i, p, p, p, p, i, p, p, p, p, p, i, p],
     }
     for name, args in sig.items():
         fn = getattr(lib, name)
@@ -240,6 +244,33 @@ def _conv3x3(x8, k2t, s, b, r_out_ptr, out):
           s.data_ptr(), b.data_ptr(), r_out_ptr, out.data_ptr(), *_stream(x8))
 
 
+ENTRY_WIDTHS = {16: 64, 64: 256, 96: 384}  # K3's entry: Cin (= Cm) → Cout
+
+
+def _stage1_entry(x8, ops, r1_ptr, s_in_ptr, dsc_ptr):
+    """(d): one launch for cb1a and the conv shortcut of stage 1's block 0; returns (q1
+    (…, Cm) on r1, sc8 (…, Cout) on dsc)."""
+    dev = x8.device
+    cin = x8.shape[-1]
+    k1t, wsc, bsc = _kmajor_copy(ops, "k1a"), ops["wsc"], ops["bsc"]
+    cm, cout = k1t.shape[0], wsc.shape[-1]
+    if ENTRY_WIDTHS.get(cin) != cout or cm != cin:
+        raise ValueError(f"fused_stage1_int8 takes (Cin = Cm, Cout) in "
+                         f"{sorted(ENTRY_WIDTHS.items())}, got Cin = {cin}, Cm = {cm}, "
+                         f"Cout = {cout}")
+    _check_bf16("wsc", wsc, dev, (cin, cout))
+    _check_s8("cb1a kernel", k1t, dev)
+    for nm, t, n in (("cb1a scale", ops["s1a"], cm), ("cb1a bias", ops["b1a"], cm),
+                     ("bsc", bsc, cout)):
+        _check_f32(nm, t, dev, n)
+    q1 = torch.empty((*x8.shape[:-1], cm), dtype=torch.int8, device=dev)
+    sc8 = torch.empty((*x8.shape[:-1], cout), dtype=torch.int8, device=dev)
+    _call(_lib().ect_stage1_entry, x8.data_ptr(), x8.numel() // cin, cin, k1t.data_ptr(), cm,
+          ops["s1a"].data_ptr(), ops["b1a"].data_ptr(), r1_ptr, wsc.data_ptr(), cout,
+          s_in_ptr, bsc.data_ptr(), dsc_ptr, q1.data_ptr(), sc8.data_ptr(), *_stream(x8))
+    return q1, sc8
+
+
 def _cb3_cb1(x8, res8, k3t, s3, b3, k1t, s1, b1, r_res_ptr, r_out_ptr, r_next_ptr):
     """(c): one launch for the K-major k3t (C, Cm) and k1t (C1, C); returns (out8 (…, C),
     y8 (…, C1))."""
@@ -330,33 +361,23 @@ def fused_resblocks_int8(x8: torch.Tensor, block_ops: Sequence[Dict[str, torch.T
 def fused_stage1_int8(x8: torch.Tensor, ops: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The whole int8 CLIP-RN50 stage 1: x8 (N, H, W, Cin) s8 on the stem.out scale,
     ops from `ops/quantize.stage1_int8_operands`. Returns (N, H, W, Cout) s8 already
-    requantized to stage 2's input scale. Matches the plain version up to ±1 s8 step
-    on a small fraction of elements: the bf16 shortcut's f32 sum is the one
-    non-integer reduction, and its order differs."""
+    requantized to stage 2's input scale. Held to the plain version at ≤1 s8 step on
+    ≤0.5% of elements. The bf16 shortcut's f32 sum is the one non-integer reduction: the
+    tensor cores sum it in their own order, and every element whose requant that order
+    could change is summed again exactly, as the plain version does."""
     if _cuda_input("fused_stage1_int8", x8):
         return fused_stage1_int8_reference(x8, ops)
     scl = ops["scl"]
     dev = x8.device
     _check_f32("scl", scl, dev, 11)
-    wsc, bsc = ops["wsc"], ops["bsc"]
-    cin, cout = wsc.shape
-    if (wsc.dtype != torch.bfloat16 or wsc.device != dev or not wsc.is_contiguous()
-            or x8.shape[-1] != cin):
-        raise ValueError(f"fused_stage1_int8: wsc must be a contiguous bf16 ({x8.shape[-1]}, "
-                         f"Cout) tensor on {dev}, got {wsc.dtype} {tuple(wsc.shape)}")
-    _check_f32("bsc", bsc, dev, cout)
     shape = x8.shape[:-1]
-    m = x8.numel() // cin
-    cm = ops["k1a"].shape[-1]
+    cout = ops["wsc"].shape[-1]
+    q1, sc8 = _stage1_entry(x8, ops, _ptr(scl, 1), _ptr(scl, 0), _ptr(scl, 10))
+    cm = q1.shape[-1]
 
     def s8(c):
         return torch.empty((*shape, c), dtype=torch.int8, device=dev)
 
-    q1 = s8(cm)
-    _conv1x1(x8, _kmajor_copy(ops, "k1a"), ops["s1a"], ops["b1a"], _ptr(scl, 1), q1)
-    sc8 = s8(cout)
-    _call(_lib().ect_shortcut_bf16, x8.data_ptr(), wsc.data_ptr(), m, cin, cout,
-          _ptr(scl, 0), bsc.data_ptr(), _ptr(scl, 10), sc8.data_ptr(), *_stream(x8))
     res8, r_res = sc8, _ptr(scl, 10)
     for b, L in enumerate("abc"):
         q2 = s8(cm)

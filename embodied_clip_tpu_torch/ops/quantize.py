@@ -359,8 +359,9 @@ def quantized_trunk_apply(q: Dict[str, Any], x: torch.Tensor, stage_sizes: Seque
     t = _fp_conv(q, "stem2", t)
     if kernel_stem and t.shape[1] % 2 == 0 and t.shape[2] % 2 == 0:
         sub = q["fp"]["stem3"]
-        t8 = SK.stem3_requant_pool_int8(t.to(torch.bfloat16).contiguous(), sub["kernel"],
-                                        sub["bias"], s_in)
+        t8 = SK.stem3_requant_pool_int8(
+            t.to(torch.bfloat16).contiguous(), sub["kernel"], sub["bias"], s_in,
+            wmat=_cached(q, ("stem3",), lambda: SK.stem3_weight_matrix(sub["kernel"])))
     else:
         t8 = avg_pool_int8(requant(_fp_conv(q, "stem3", t, relu=False), s_in), 2)
 

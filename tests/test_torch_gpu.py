@@ -65,10 +65,16 @@ def _t(a, dev, dtype=None):
     return torch.from_numpy(np.asarray(a)).to(dev, dtype)
 
 
+# (n, h, w, cin, cout): small, RN50 (batch 3 and the main path's batch 128), a ragged
+# width (W/2 = 18 pooled columns: no multiple of a tile), the width-16 trunk (Cin 8 →
+# 16, zero-filled to one k16 step) and RN50x16 (48 → 96 at 192², in column spans).
 @pytest.mark.parametrize("n,h,w,cin,cout", [(2, 16, 16, 32, 64), (3, 112, 112, 32, 64),
-                                            (1, 192, 192, 48, 96)])
+                                            (1, 192, 192, 48, 96), (128, 112, 112, 32, 64),
+                                            (3, 20, 36, 32, 64), (2, 16, 16, 8, 16),
+                                            (2, 64, 64, 8, 16)])
 def test_stem3_kernel_matches_plain_version(cuda, n, h, w, cin, cout):
-    """K2 vs its plain version: ≤1 s8 step on ≤0.5% of elements (the f32 sum order)."""
+    """K2 vs its plain version: ≤1 s8 step on ≤0.5% of elements (the f32 sum order); a
+    second launch on the same input is bit-equal."""
     rng = np.random.RandomState(0)
     x = _t(np.abs(rng.randn(n, h, w, cin)).astype(np.float32) * 0.5, cuda, torch.bfloat16)
     kernel = _t(rng.randn(3, 3, cin, cout).astype(np.float32) * 0.1, cuda)
@@ -76,27 +82,65 @@ def test_stem3_kernel_matches_plain_version(cuda, n, h, w, cin, cout):
     scale = torch.tensor(2.3 / 127, device=cuda)
     before = SK.stem3_requant_pool_int8.launches
     got = SK.stem3_requant_pool_int8(x, kernel, bias, scale)
+    again = SK.stem3_requant_pool_int8(x, kernel, bias, scale,
+                                       wmat=SK.stem3_weight_matrix(kernel))
     torch.cuda.synchronize()
-    assert SK.stem3_requant_pool_int8.launches == before + 1
+    assert SK.stem3_requant_pool_int8.launches == before + 2
     want = SK.stem3_requant_pool_int8_reference(x, kernel, bias, scale)
     assert got.shape == want.shape == (n, h // 2, w // 2, cout)
     dmax, frac = C.step_diff(got, want)
     assert dmax <= 1 and frac <= 0.005, (dmax, frac)
+    assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("n,h", [(2, 14), (2, 56)])
-def test_stage1_kernel_matches_plain_version(cuda, n, h):
-    """K3 vs its plain version, RN50-shaped stage 1: ≤1 step on ≤0.5% of elements."""
+@pytest.mark.parametrize("cin,cout", [(16, 64), (32, 32), (64, 64)])
+def test_stem3_kernel_rejects_widths_it_cannot_take(cuda, cin, cout):
+    """K2 takes Cin 8, 32 or 48 and Cout 16, 64 or 96; any other width raises, naming
+    them, and is never computed some other way."""
+    x = torch.zeros((1, 16, 16, cin), dtype=torch.bfloat16, device=cuda)
+    before = SK.stem3_requant_pool_int8.launches
+    with pytest.raises(ValueError, match="Cin"):
+        SK.stem3_requant_pool_int8(x, torch.zeros((3, 3, cin, cout), device=cuda),
+                                   torch.zeros(cout, device=cuda), 0.01)
+    assert SK.stem3_requant_pool_int8.launches == before
+
+
+# (n, h, cin, cm, cout): RN50's stage 1 (small, 56², and the main path's widths at batch
+# 8), the width-16 trunk's stage 1 (16 → 64, Cm 16) and RN50x16's (96 → 384, Cm 96).
+@pytest.mark.parametrize("n,h,cin,cm,cout", [(2, 14, 64, 64, 256), (2, 56, 64, 64, 256),
+                                             (8, 56, 64, 64, 256), (2, 16, 16, 16, 64),
+                                             (2, 24, 96, 96, 384)])
+def test_stage1_kernel_matches_plain_version(cuda, n, h, cin, cm, cout):
+    """K3 vs its plain version: ≤1 step on ≤0.5% of elements; seven launches (the entry
+    launch, then 3 × (b), 2 × (c), (a)), counted once; a second call is bit-equal."""
     rng = np.random.RandomState(0)
-    ops = Q.stage1_int8_operands(C.to_torch(C.stage1_q(rng), cuda))
-    x8 = _t(C.s8(rng, (n, h, h, 64)), cuda)
+    ops = Q.stage1_int8_operands(C.to_torch(C.stage1_q(rng, cin, cm, cout), cuda))
+    x8 = _t(C.s8(rng, (n, h, h, cin)), cuda)
     before = BK.fused_stage1_int8.launches
     got = BK.fused_stage1_int8(x8, ops)
+    again = BK.fused_stage1_int8(x8, ops)
     torch.cuda.synchronize()
-    assert BK.fused_stage1_int8.launches == before + 1
+    assert BK.fused_stage1_int8.launches == before + 2
     want = BK.fused_stage1_int8_reference(x8, ops)
-    assert got.shape == want.shape == (n, h, h, 256)
+    assert got.shape == want.shape == (n, h, h, cout)
     dmax, frac = C.step_diff(got, want)
+    assert dmax <= 1 and frac <= 0.005, (dmax, frac)
+    assert torch.equal(got, again)
+
+
+def test_stage1_entry_launch_matches_its_parts(cuda):
+    """K3's entry launch at RN50's widths: q1 bit-exact against cb1a's plain epilogue, the
+    shortcut within 1 step of `_shortcut_reference` on ≤0.5% of elements."""
+    rng = np.random.RandomState(6)
+    ops = Q.stage1_int8_operands(C.to_torch(C.stage1_q(rng), cuda))
+    x8 = _t(C.s8(rng, (4, 28, 28, 64)), cuda)
+    scl = ops["scl"]
+    q1, sc8 = BK._stage1_entry(x8, ops, BK._ptr(scl, 1), BK._ptr(scl, 0), BK._ptr(scl, 10))
+    torch.cuda.synchronize()
+    want_q1 = requant(BK._affine(BK._pw(x8, ops["k1a"]), ops["s1a"], ops["b1a"]), scl[1])
+    assert torch.equal(q1, want_q1)
+    want_sc = BK._shortcut_reference(x8, ops["wsc"], ops["bsc"], scl[0], scl[10])
+    dmax, frac = C.step_diff(sc8, want_sc)
     assert dmax <= 1 and frac <= 0.005, (dmax, frac)
 
 

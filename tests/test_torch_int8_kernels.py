@@ -23,6 +23,7 @@ from embodied_clip_tpu.ops.pallas import bottleneck_kernel as jbk
 from embodied_clip_tpu.ops.pallas.stem_kernel import stem3_requant_pool_int8 as jax_stem
 
 from embodied_clip_tpu_torch.ops import quantize as Q
+from embodied_clip_tpu_torch.ops.int8 import requant_signed
 from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
 from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
 
@@ -48,6 +49,47 @@ def test_stem3_plain_version_matches_jax_kernel(n, h, cin, cout):
     assert got.dtype == torch.int8 and tuple(got.shape) == want.shape
     dmax, share = C.step_diff(got, want)
     assert dmax <= 1 and share <= 0.005, (dmax, share)
+
+
+@pytest.mark.parametrize("cin,cout", [(8, 16), (32, 64), (48, 96)])
+def test_stem3_weight_matrix_is_the_kernels_operand(cin, cout):
+    """K2's weights as its kernel reads them: (Cout, Kp) K-major bf16, k = (ky·3 + kx)·Cp
+    + c with Cin zero-padded to Cp = 16·⌈Cin/16⌉ and K to Kp = 64·⌈9·Cp/64⌉, so that the
+    padded im2col rows of x times its transpose are the 3×3 'SAME' conv of bf16 operands."""
+    rng = np.random.RandomState(11)
+    kernel = torch.from_numpy(rng.randn(3, 3, cin, cout).astype(np.float32))
+    x = torch.from_numpy(rng.randn(1, 5, 6, cin).astype(np.float32)).to(torch.bfloat16).float()
+    w = SK.stem3_weight_matrix(kernel)
+    cp = -(-cin // 16) * 16
+    kp = -(-9 * cp // 64) * 64
+    assert w.dtype == torch.bfloat16 and w.is_contiguous() and tuple(w.shape) == (cout, kp)
+    assert not w[:, 9 * cp:].any()
+    taps = w[:, :9 * cp].reshape(cout, 9, cp)
+    assert not taps[..., cin:].any()
+    xp = torch.nn.functional.pad(x, (0, cp - cin, 1, 1, 1, 1))
+    cols = torch.cat([xp[:, ky:ky + 5, kx:kx + 6] for ky in range(3) for kx in range(3)], -1)
+    got = cols.double() @ w[:, :9 * cp].double().t()
+    want = torch.nn.functional.conv2d(x.double().permute(0, 3, 1, 2),
+                                      kernel.to(torch.bfloat16).double().permute(3, 2, 0, 1),
+                                      padding=1).permute(0, 2, 3, 1)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-9)
+
+
+def test_stage1_shortcut_plain_version_rounds_the_exact_sum_once():
+    """K3's shortcut in its plain version: the exact sum of the bf16 products rounded
+    once to f32, whatever the summation order (here reversed k), then + bsc and the
+    signed requant."""
+    rng = np.random.RandomState(12)
+    x8 = torch.from_numpy(C.s8(rng, (2, 3, 3, 64), 127))
+    wsc = torch.from_numpy(rng.randn(64, 256).astype(np.float32) * 0.1).to(torch.bfloat16)
+    bsc = torch.from_numpy(rng.randn(256).astype(np.float32) * 0.05)
+    s_in, dsc = torch.tensor(2.0 / 127), torch.tensor(1.7 / 127)
+    x0 = (x8.float() * s_in).to(torch.bfloat16).double()
+    exact = torch.zeros((2, 3, 3, 256), dtype=torch.float64)
+    for k in reversed(range(64)):
+        exact += x0[..., k:k + 1] * wsc[k].double()
+    want = requant_signed(exact.float() + bsc, dsc)
+    assert torch.equal(BK._shortcut_reference(x8, wsc, bsc, s_in, dsc), want)
 
 
 def test_stage1_plain_version_matches_jax_kernel():
