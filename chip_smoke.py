@@ -281,9 +281,11 @@ def check_int8_kernels(qenc, frames, card, profile):
         ms = device_ms = plain_ms = bound_ms = 0.0
         by = {"bytes": 0.0, "operations": 0.0}
         for args, kw, out in calls:
+            # K2's `wmat` is the kernel's own copy of its weights, not an input of K2.
+            pkw = {k: v for k, v in kw.items() if k != "wmat"}
             before = fn.launches
             got = fn(*args, **kw)
-            want = ref(*args, **kw)
+            want = ref(*args, **pkw)
             torch.cuda.synchronize()
             check(fn.launches == before + 1, f"{name} launched its kernel")
             pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
@@ -300,7 +302,7 @@ def check_int8_kernels(qenc, frames, card, profile):
                                              f"{tuple(args[0].shape)}")
             k_ms = cuda_ms(lambda: fn(*args, **kw), 10)
             d_ms = graph_ms(lambda: fn(*args, **kw))
-            p_ms = cuda_ms(lambda: ref(*args, **kw), 3, warmup=1)
+            p_ms = cuda_ms(lambda: ref(*args, **pkw), 3, warmup=1)
             work = int8_work(name, args, kw, out)
             b_ms, b_by = bound(work, card)
             ms, device_ms = ms + k_ms, device_ms + d_ms
@@ -355,7 +357,8 @@ def stem_yardstick(recs):
 
 def stage1_entry(recs, card):
     """Phase 5: K3's entry launch (cb1a and the conv shortcut from one read of x8) on the
-    recorded batch-128 input, timed alone against its bound; beside it `torch.matmul` of
+    recorded batch-128 input, timed alone against its bound, and the share of shortcut
+    elements it flagged as near-ties and summed again exactly; beside it `torch.matmul` of
     the shortcut's bf16 product alone (not the launch's function; the port never calls
     it)."""
     import torch
@@ -369,9 +372,11 @@ def stage1_entry(recs, card):
         return BK._stage1_entry(x8, ops, BK._ptr(scl, 1), BK._ptr(scl, 0), BK._ptr(scl, 10))
 
     ms = cuda_ms(entry, 10)
-    q1, sc8 = entry()
+    q1, sc8, ties = entry()
     cin, cout = ops["wsc"].shape
     m = x8.numel() // cin
+    bits = torch.tensor([bin(i).count("1") for i in range(256)], device=x8.device)
+    flagged = int(bits[ties.view(torch.uint8).long()].sum()) / (m * cout)
     work = (nbytes(x8, q1, sc8, ops["k1a"], ops["s1a"], ops["b1a"], ops["wsc"], ops["bsc"]),
             2 * m * cin * ops["k1a"].shape[-1], 2 * m * cin * cout)
     b_ms, b_by = bound(work, card)
@@ -379,8 +384,10 @@ def stage1_entry(recs, card):
     mm_ms = cuda_ms(lambda: torch.matmul(a16, ops["wsc"]), 10)
     print(f"[5] K3 entry launch {tuple(x8.shape)} → q1 {tuple(q1.shape)}, sc8 "
           f"{tuple(sc8.shape)}: {ms:.4f} ms, {b_ms / ms:.1%} of its bound {b_ms:.4f} ms by "
-          f"{b_by}; yardstick: torch.matmul of the bf16 shortcut product alone {mm_ms:.4f} ms")
-    return {"entry_ms": ms, "entry_bound_ms": b_ms, "yardstick_ms": mm_ms,
+          f"{b_by}; {flagged:.3e} of sc8 flagged as near-ties and summed again exactly; "
+          f"yardstick: torch.matmul of the bf16 shortcut product alone {mm_ms:.4f} ms")
+    return {"entry_ms": ms, "entry_bound_ms": b_ms, "entry_flagged": flagged,
+            "yardstick_ms": mm_ms,
             "yardstick": "torch.matmul of the bf16 shortcut product, alone"}
 
 

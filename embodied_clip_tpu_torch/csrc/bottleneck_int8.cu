@@ -732,6 +732,7 @@ struct EntryParams {
   const float* dsc;
   const int8_t* x8p;  // x8 (M, CIN) and sc8 (M, COUT) in device memory, for the exact sums
   int8_t* sc8p;
+  uint64_t* ties;  // the flag words: [tile][pass][consumer thread]
   int M, tiles;
 };
 
@@ -763,19 +764,38 @@ __device__ __forceinline__ uint32_t shortcut_pair(uint32_t u, float s) {
 
 // sc8 must equal the plain version's on every element: a flipped shortcut step moves
 // the block output, and through the later blocks' convs and residuals reaches 2 steps of
-// K3's output. The plain version's sum is the exact sum of the bf16 products rounded once
-// to f32; the tensor cores' sum (products exact, 32-k groups promoted with IEEE adds)
-// differs from it by far less than kTieMargin · Σ_k |x0·w| ≤ kTieMargin · Σ_k |x0| ·
-// max_k |w|. Where the quotient sc / dsc lies within that margin of a requant boundary
-// (|q| + 0.5 an integer), the element's bit is set in its lane's flag word (no branch in
-// the epilogue, whose divisions then overlap), and after the pass the lane appends the
-// flagged (row, column) to the block's list. Once the block's last TMA store is done, its
-// consumer threads recompute each listed sum exactly from x8 in device memory and the
-// resident weights (f64 products and sum: exact at these widths) and rewrite the byte.
-// (Done inside the tile loop, the fix-ups kept every warp of a warpgroup waiting: at
-// RN50's widths, batch 128, on an H100, that cost more than the rest of the launch.)
-constexpr float kTieMargin = 1.0f / 1048576.0f;  // 16 f32 ulps
-constexpr int kTieCap = 8192;  // list entries a block keeps; past them, fixed at once
+// K3's output. The plain version's sum is fl(E), the exact sum E of the bf16 products
+// rounded once to f32. The tensor cores' sum acc differs from it by less than
+// kTieMargin · S, S = Σ_k |x0·w|:
+//  - A 32-k group is summed from zero on the tensor cores. Their arithmetic is taken to be
+//    the model of Fasi, Higham, Mikaitis and Pranesh ("Numerical behavior of NVIDIA tensor
+//    cores", PeerJ Comput. Sci. 7:e330, 2021): products exact; each addition of a block
+//    of b products to the running sum aligns every addend to the largest exponent among
+//    them and truncates it to at least 24 bits, and truncates the result to f32. Each
+//    such addition then errs by less than (b + 1) · 2^-23 of the group's S_g, and the
+//    group by less than (32 / b)(b + 1) · 2^-23 · S_g ≤ 2^-17 · S_g, for any b ≥ 1.
+//  - The G - 1 IEEE promotion adds and the rounding of E each err by at most 2^-24 · S.
+// So |acc - fl(E)| < (128 + G) · 2^-24 · S, and kTieMargin = 132 · 2^-24 covers CIN ≤ 128
+// (G ≤ 4). S ≤ ||x0||₂ · ||w[:, c]||₂ (Cauchy-Schwarz), both norms rounded up. Where the
+// quotient sc / dsc lies within that margin of a requant boundary (|q| + 0.5 an integer),
+// the element's bit is set in its lane's flag word for the pass (no branch in the
+// epilogue, whose divisions then overlap). Every word goes to device memory (`ties`, one
+// per consumer thread, pass and tile: 1/8 of sc8's bytes), and a nonzero one is listed
+// in its warpgroup's list in shared memory. The warpgroup flushes the list after its
+// last tile, and before a tile whose words might not fit: once every TMA store it issued
+// has landed, its threads share out the listed words, recompute each flagged element's
+// sum exactly from x8 in device memory and the resident weights (f64 products and sum:
+// exact at these widths) and rewrite the byte. (Fixed where flagged, inside the tile
+// loop, the fix-ups kept every warp of a warpgroup waiting; fixed by the thread that
+// flagged them, a warp ran one fix-up round for almost every word, with a few lanes busy.
+// At RN50's widths, batch 128, on an H100, either cost more than the rest of the launch.)
+// tests/test_torch_gpu.py plants near-ties at every entry width, enough of them to flush
+// mid-launch, and holds sc8 bit-equal to the plain version.
+constexpr float kTieMargin = 132.0f / 16777216.0f;
+// Nonzero flag words a warpgroup's list holds: (tile iteration << 10 | pass << 8 | tid).
+// A block runs fewer than 2^22 tile iterations: M < 2^31 rows over at least 5 blocks (an
+// H100 runs 114-132).
+constexpr int kTieCap = 4096;
 
 // wsc[k, c] in the resident N-major panels (64 columns × CIN k-rows, 128-byte swizzled).
 __device__ __forceinline__ float wsc_at(const uint8_t* wscs, int panel, int k, int c) {
@@ -783,9 +803,10 @@ __device__ __forceinline__ float wsc_at(const uint8_t* wscs, int panel, int k, i
       wscs + (c >> 6) * panel + k * 128 + (((((c & 63) >> 3) ^ k) & 7) << 4) + (c & 7) * 2));
 }
 
-// |a| + |b| of the two bf16 of a fragment register.
-__device__ __forceinline__ float abs_sum(uint32_t u) {
-  return __uint_as_float((u << 16) & 0x7FFFFFFFu) + __uint_as_float(u & 0x7FFF0000u);
+// s + a² + b² for the two bf16 a, b of a fragment register (exact squares), rounded up.
+__device__ __forceinline__ float add_squares(float s, uint32_t u) {
+  const float a = __uint_as_float(u << 16), b = __uint_as_float(u & 0xFFFF0000u);
+  return __fmaf_ru(b, b, __fmaf_ru(a, a, s));
 }
 
 // The quotient sc / dsc of the signed requant, and whether it lies within `margin` (plus
@@ -802,16 +823,21 @@ __device__ __forceinline__ bool near_tie(float v, float margin) {
   return fabsf(__fsub_rn(y, n)) <= margin + 4.8e-7f * av;
 }
 
-// The exact shortcut sum of x8 row xrow (CIN s8 in device memory), column c, rounded
-// once to f32; its requant.
+// The exact shortcut sum of x8 row xrow (CIN s8 in device memory, 16-byte aligned),
+// column c, rounded once to f32; its requant. The row comes in 16-byte loads, all issued
+// before the sum: one trip to memory per element.
 template <int CIN>
 __device__ __forceinline__ int8_t exact_shortcut_q(const int8_t* xrow, const uint8_t* wscs,
                                                    int c, float s_in, float b, float dsc) {
+  int4 xv[CIN / 16];
+#pragma unroll
+  for (int j = 0; j < CIN / 16; ++j) xv[j] = __ldg(reinterpret_cast<const int4*>(xrow) + j);
+  const int8_t* xs = reinterpret_cast<const int8_t*>(xv);
   double sum = 0.0;
-#pragma unroll 8
+#pragma unroll
   for (int k = 0; k < CIN; ++k) {
     const float x0 =
-        __bfloat162float(__float2bfloat16_rn(__fmul_rn(static_cast<float>(xrow[k]), s_in)));
+        __bfloat162float(__float2bfloat16_rn(__fmul_rn(static_cast<float>(xs[k]), s_in)));
     sum = fma(static_cast<double>(x0), static_cast<double>(wsc_at(wscs, CIN * 128, k, c)), sum);
   }
   return requant_quotient(quotient(__double2float_rn(sum), b, dsc));
@@ -834,8 +860,8 @@ __global__ void __launch_bounds__(kThreads, 1) entry_kernel(const __grid_constan
   uint8_t* wscs = k1s + CM * 128;                  // Cout / 64 panels
   uint8_t* staging = wscs + (COUT / 64) * kPanel;  // 2 warpgroups × 2 slots
   float* colm = reinterpret_cast<float*>(staging + 4 * kSlot);  // COUT margin factors
-  uint32_t* tie_list = reinterpret_cast<uint32_t*>(colm + COUT);  // row << 9 | column
-  int* tie_count = reinterpret_cast<int*>(tie_list + kTieCap);
+  uint32_t* tie_refs = reinterpret_cast<uint32_t*>(colm + COUT);  // 2 × kTieCap
+  int* tie_count = reinterpret_cast<int*>(tie_refs + 2 * kTieCap);  // one per warpgroup
   uint64_t* full = reinterpret_cast<uint64_t*>(tie_count + 2);
   uint64_t* empty = full + kEntryStages;
   uint64_t* wfull = empty + kEntryStages;
@@ -847,7 +873,7 @@ __global__ void __launch_bounds__(kThreads, 1) entry_kernel(const __grid_constan
       mbar_init(&empty[s], 256);  // every consumer thread
     }
     mbar_init(wfull, 1);
-    *tie_count = 0;
+    tie_count[0] = tie_count[1] = 0;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -892,12 +918,15 @@ __global__ void __launch_bounds__(kThreads, 1) entry_kernel(const __grid_constan
   const uint64_t k1desc = smem_desc(k1s, 16, 1024);
   int stage = 0, phase = 0, nslot = 0;
   mbar_wait(wfull, 0);
-  // Column c's factor of the tie margin: kTieMargin · max_k |wsc[k, c]| / dsc (in units of
-  // the quotient sc / dsc, per unit of a row's Σ_k |x0|).
+  // Column c's factor of the tie margin: kTieMargin · ||wsc[:, c]||₂ / dsc, rounded up (in
+  // units of the quotient sc / dsc, per unit of a row's ||x0||₂).
   for (int c = tid; c < COUT; c += 256) {
     float m = 0.0f;
-    for (int k = 0; k < CIN; ++k) m = fmaxf(m, fabsf(wsc_at(wscs, kPanel, k, c)));
-    colm[c] = kTieMargin * m / dsc;
+    for (int k = 0; k < CIN; ++k) {
+      const float w = wsc_at(wscs, kPanel, k, c);
+      m = __fmaf_ru(w, w, m);
+    }
+    colm[c] = __fdiv_ru(__fmul_ru(kTieMargin, __fsqrt_ru(m)), dsc);
   }
   named_sync<256>(3);
 
@@ -918,7 +947,41 @@ __global__ void __launch_bounds__(kThreads, 1) entry_kernel(const __grid_constan
     ++nslot;
   };
 
-  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+  // Sums the flagged elements of this warpgroup's listed words again exactly and empties
+  // the list, once every TMA store the warpgroup issued has landed.
+  auto flush = [&]() {
+    if (lt == 0) {
+      bulk_wait();
+      asm volatile("fence.proxy.async;\n" ::: "memory");
+    }
+    named_sync(1 + wg);
+    const int listed = tie_count[wg];
+    for (int j = lt; j < listed; j += 128) {
+      const uint32_t ref = tie_refs[wg * kTieCap + j];
+      const int tile = blockIdx.x + static_cast<int>(ref >> 10) * gridDim.x;
+      const int pass = (ref >> 8) & 3, owner = ref & 255, olane = owner & 31;
+      // The owner's rows and columns, as `rt` and `t` of that thread.
+      const int orow = tile * 128 + 64 * wg + 16 * ((owner & 127) >> 5) + (olane >> 2);
+      const int ocol = pass * NP + 2 * (olane & 3);
+      uint64_t ties = p.ties[(static_cast<size_t>(tile) * (COUT / NP) + pass) * 256 + owner];
+      while (ties) {
+        const int i = __ffsll(static_cast<long long>(ties)) - 1;
+        ties &= ties - 1;
+        const int row = orow + 8 * ((i >> 1) & 1), c = ocol + 8 * (i >> 2) + (i & 1);
+        if (row < p.M)
+          p.sc8p[static_cast<size_t>(row) * COUT + c] = exact_shortcut_q<CIN>(
+              p.x8p + static_cast<size_t>(row) * CIN, wscs, c, s_in, __ldg(p.bsc + c), dsc);
+      }
+    }
+    named_sync(1 + wg);
+    if (lt == 0) tie_count[wg] = 0;  // read by all only after stage_out's next barrier
+  };
+
+  int it = 0;  // this block's tile iteration
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++it) {
+    // Room for this tile's words (every append of the last tile was made before the
+    // last barrier of its stage_out, every one of this tile's after the next).
+    if (tie_count[wg] > kTieCap - 128 * (COUT / NP)) flush();
     const int row0 = tile * 128 + 64 * wg;
     mbar_wait(&full[stage], phase);
     const uint8_t* xt = ring + stage * kTile;
@@ -942,17 +1005,17 @@ __global__ void __launch_bounds__(kThreads, 1) entry_kernel(const __grid_constan
         a[s][h] = shortcut_pair(*reinterpret_cast<const uint16_t*>(chunk + 2 * t), s_in);
         a[s][2 + h] = shortcut_pair(*reinterpret_cast<const uint16_t*>(chunk + 8 + 2 * t), s_in);
       }
-    // Σ_k |x0| of rows rt and rt + 8: this lane's k, then the quad's (lanes t).
+    // ||x0||₂ of rows rt and rt + 8, rounded up: this lane's k, then the quad's (lanes t).
     float srow[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int s = 0; s < CK; ++s)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        srow[h] += abs_sum(a[s][h]) + abs_sum(a[s][2 + h]);
+        srow[h] = add_squares(add_squares(srow[h], a[s][h]), a[s][2 + h]);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      srow[h] += __shfl_xor_sync(0xffffffffu, srow[h], 1);
-      srow[h] += __shfl_xor_sync(0xffffffffu, srow[h], 2);
+      srow[h] = __fadd_ru(srow[h], __shfl_xor_sync(0xffffffffu, srow[h], 1));
+      srow[h] = __fsqrt_ru(__fadd_ru(srow[h], __shfl_xor_sync(0xffffffffu, srow[h], 2)));
     }
 #pragma unroll 1  // one copy of the pass's long unrolled epilogue: the loop stays small
     for (int pass = 0; pass < COUT / NP; ++pass) {
@@ -1017,24 +1080,17 @@ __global__ void __launch_bounds__(kThreads, 1) entry_kernel(const __grid_constan
             const int i = 4 * j + 2 * h;
             const float v0 = quotient(acc2[i], b.x, dsc);
             const float v1 = quotient(acc2[i + 1], b.y, dsc);
-            ties |= static_cast<uint64_t>(near_tie(v0, srow[h] * colm[n0 + c])) << i;
-            ties |= static_cast<uint64_t>(near_tie(v1, srow[h] * colm[n0 + c + 1])) << (i + 1);
+            ties |= static_cast<uint64_t>(near_tie(v0, __fmul_ru(srow[h], colm[n0 + c]))) << i;
+            ties |= static_cast<uint64_t>(near_tie(v1, __fmul_ru(srow[h], colm[n0 + c + 1])))
+                    << (i + 1);
             *reinterpret_cast<uint16_t*>(slot + sw128(rt + 8 * h, c)) =
                 pack2(requant_quotient(v0), requant_quotient(v1));
           }
         }
-        while (ties) {  // rare: list the flagged elements
-          const int i = __ffsll(static_cast<long long>(ties)) - 1;
-          ties &= ties - 1;
-          const int row = tile * 128 + 64 * wg + rt + 8 * ((i >> 1) & 1);
-          const int c = n0 + 8 * (i >> 2) + 2 * t + (i & 1);
-          const int at = atomicAdd(tie_count, 1);
-          if (at < kTieCap)
-            tie_list[at] = static_cast<uint32_t>(row) << 9 | c;
-          else if (row < p.M)  // the list is full: fix it now
-            slot[sw128(row - row0, c - n0)] = static_cast<uint8_t>(exact_shortcut_q<CIN>(
-                p.x8p + static_cast<size_t>(row) * CIN, wscs, c, s_in, __ldg(p.bsc + c), dsc));
-        }
+        p.ties[(static_cast<size_t>(tile) * (COUT / NP) + pass) * 256 + tid] = ties;
+        if (ties)
+          tie_refs[wg * kTieCap + atomicAdd(&tie_count[wg], 1)] =
+              static_cast<uint32_t>(it) << 10 | pass << 8 | tid;
       });
     }
     if (++stage == kEntryStages) {
@@ -1042,19 +1098,7 @@ __global__ void __launch_bounds__(kThreads, 1) entry_kernel(const __grid_constan
       phase ^= 1;
     }
   }
-  // The listed near-ties, once every TMA store of the block has landed.
-  if (lt == 0) {
-    bulk_wait();
-    asm volatile("fence.proxy.async;\n" ::: "memory");
-  }
-  named_sync<256>(3);
-  const int listed = min(*tie_count, kTieCap);
-  for (int i = tid; i < listed; i += 256) {
-    const int row = static_cast<int>(tie_list[i] >> 9), c = static_cast<int>(tie_list[i] & 511);
-    if (row < p.M)
-      p.sc8p[static_cast<size_t>(row) * COUT + c] = exact_shortcut_q<CIN>(
-          p.x8p + static_cast<size_t>(row) * CIN, wscs, c, s_in, __ldg(p.bsc + c), dsc);
-  }
+  flush();
 }
 
 // ---------------------------------------------------------------- host side
@@ -1250,11 +1294,16 @@ extern "C" int ect_cb3_cb1_s8(const void* x8, const void* res8, int M, int Cm, i
 
 // (d) K3's entry: q1 (M, Cm) on r1 and sc8 (M, Cout) on dsc from x8 (M, Cin), with k1t
 // the K-major (Cm, Cin) s8 cb1a kernel and wsc the (Cin, Cout) bf16 shortcut weights;
-// (Cin = Cm, Cout) one of (16, 64), (64, 256), (96, 384); s_in the scale of x8.
+// (Cin = Cm, Cout) one of (16, 64), (64, 256), (96, 384); s_in the scale of x8. ties is
+// scratch of ect_stage1_entry_ties(M, Cout) 8-byte words, read only by this launch.
+extern "C" long long ect_stage1_entry_ties(int M, int Cout) {
+  return (long long)((M + 127) / 128) * (Cout > 64 ? Cout / 128 : 1) * 256;
+}
+
 extern "C" int ect_stage1_entry(const void* x8, int M, int Cin, const void* k1t, int Cm,
                                 const void* S1, const void* b1, const void* r1,
                                 const void* wsc, int Cout, const void* s_in, const void* bsc,
-                                const void* dsc, void* q1, void* sc8, int device,
+                                const void* dsc, void* q1, void* sc8, void* ties, int device,
                                 void* stream) {
   if (Cm != Cin || !((Cin == 16 && Cout == 64) || (Cin == 64 && Cout == 256) ||
                      (Cin == 96 && Cout == 384)))
@@ -1279,6 +1328,7 @@ extern "C" int ect_stage1_entry(const void* x8, int M, int Cin, const void* k1t,
   p.dsc = static_cast<const float*>(dsc);
   p.x8p = static_cast<const int8_t*>(x8);
   p.sc8p = static_cast<int8_t*>(sc8);
+  p.ties = static_cast<uint64_t*>(ties);
   p.M = M;
   p.tiles = (M + 127) / 128;
   static bool configured[kMaxDevices] = {};
@@ -1291,7 +1341,7 @@ extern "C" int ect_stage1_entry(const void* x8, int M, int Cin, const void* k1t,
   }
   const size_t smem = 1024 + (size_t)kEntryStages * 128 * kBK + (size_t)Cm * 128 +
                       (size_t)(Cout / 64) * Cin * 128 + 4 * kSlot + 4 * (size_t)Cout +
-                      4 * (kTieCap + 2) + 8 * (2 * kEntryStages + 1);
+                      4 * (2 * kTieCap + 2) + 8 * (2 * kEntryStages + 1);
   const int grid = p.tiles < sms ? p.tiles : sms;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Cin == 16)

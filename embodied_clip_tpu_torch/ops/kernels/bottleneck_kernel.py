@@ -134,11 +134,13 @@ def _lib():
         "ect_conv1x1_s8": [p, i, i, p, i, p, p, p, p, p, p, i, i, p],
         "ect_conv3x3_s8": [p, i, i, i, i, p, i, p, p, p, p, i, p],
         "ect_cb3_cb1_s8": [p, p, i, i, i, i] + [p] * 11 + [i, p],
-        "ect_stage1_entry": [p, i, i, p, i, p, p, p, p, i, p, p, p, p, p, i, p],
+        "ect_stage1_entry": [p, i, i, p, i, p, p, p, p, i, p, p, p, p, p, p, i, p],
     }
     for name, args in sig.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, ctypes.c_int
+    lib.ect_stage1_entry_ties.argtypes = [i, i]
+    lib.ect_stage1_entry_ties.restype = ctypes.c_longlong
     lib.ect_error_string.argtypes = [ctypes.c_int]
     lib.ect_error_string.restype = ctypes.c_char_p
     return lib
@@ -249,7 +251,8 @@ ENTRY_WIDTHS = {16: 64, 64: 256, 96: 384}  # K3's entry: Cin (= Cm) → Cout
 
 def _stage1_entry(x8, ops, r1_ptr, s_in_ptr, dsc_ptr):
     """(d): one launch for cb1a and the conv shortcut of stage 1's block 0; returns (q1
-    (…, Cm) on r1, sc8 (…, Cout) on dsc)."""
+    (…, Cm) on r1, sc8 (…, Cout) on dsc, the launch's near-tie flag words: one set bit
+    per shortcut element that it summed again exactly)."""
     dev = x8.device
     cin = x8.shape[-1]
     k1t, wsc, bsc = _kmajor_copy(ops, "k1a"), ops["wsc"], ops["bsc"]
@@ -263,12 +266,16 @@ def _stage1_entry(x8, ops, r1_ptr, s_in_ptr, dsc_ptr):
     for nm, t, n in (("cb1a scale", ops["s1a"], cm), ("cb1a bias", ops["b1a"], cm),
                      ("bsc", bsc, cout)):
         _check_f32(nm, t, dev, n)
+    m = x8.numel() // cin
     q1 = torch.empty((*x8.shape[:-1], cm), dtype=torch.int8, device=dev)
     sc8 = torch.empty((*x8.shape[:-1], cout), dtype=torch.int8, device=dev)
-    _call(_lib().ect_stage1_entry, x8.data_ptr(), x8.numel() // cin, cin, k1t.data_ptr(), cm,
+    # The shortcut's near-tie flag words (1/8 of sc8's bytes).
+    ties = torch.empty(_lib().ect_stage1_entry_ties(m, cout), dtype=torch.int64, device=dev)
+    _call(_lib().ect_stage1_entry, x8.data_ptr(), m, cin, k1t.data_ptr(), cm,
           ops["s1a"].data_ptr(), ops["b1a"].data_ptr(), r1_ptr, wsc.data_ptr(), cout,
-          s_in_ptr, bsc.data_ptr(), dsc_ptr, q1.data_ptr(), sc8.data_ptr(), *_stream(x8))
-    return q1, sc8
+          s_in_ptr, bsc.data_ptr(), dsc_ptr, q1.data_ptr(), sc8.data_ptr(), ties.data_ptr(),
+          *_stream(x8))
+    return q1, sc8, ties
 
 
 def _cb3_cb1(x8, res8, k3t, s3, b3, k1t, s1, b1, r_res_ptr, r_out_ptr, r_next_ptr):
@@ -372,7 +379,7 @@ def fused_stage1_int8(x8: torch.Tensor, ops: Dict[str, torch.Tensor]) -> torch.T
     _check_f32("scl", scl, dev, 11)
     shape = x8.shape[:-1]
     cout = ops["wsc"].shape[-1]
-    q1, sc8 = _stage1_entry(x8, ops, _ptr(scl, 1), _ptr(scl, 0), _ptr(scl, 10))
+    q1, sc8, _ = _stage1_entry(x8, ops, _ptr(scl, 1), _ptr(scl, 0), _ptr(scl, 10))
     cm = q1.shape[-1]
 
     def s8(c):

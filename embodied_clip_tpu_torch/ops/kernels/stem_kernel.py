@@ -51,11 +51,10 @@ def stem3_weight_matrix(kernel: torch.Tensor) -> torch.Tensor:
 
 
 def stem3_requant_pool_int8_reference(x: torch.Tensor, kernel: torch.Tensor,
-                                      bias: torch.Tensor, scale, wmat=None) -> torch.Tensor:
+                                      bias: torch.Tensor, scale) -> torch.Tensor:
     """Plain version of K2 on any device: x (N, H, W, Cin) bf16, kernel (3, 3, Cin,
     Cout) HWIO, bias (Cout,), scale the stem.out activation scale → (N, H/2, W/2,
-    Cout) s8 = avg_pool_int8(requant(conv(x, bf16(kernel)) + bias, scale), 2). `wmat`,
-    the kernel's copy of `kernel`, is not read."""
+    Cout) s8 = avg_pool_int8(requant(conv(x, bf16(kernel)) + bias, scale), 2)."""
     w = kernel.to(torch.bfloat16).float().permute(3, 2, 0, 1)
     with full_f32():
         y = torch.nn.functional.conv2d(x.float().permute(0, 3, 1, 2), w, padding=1)

@@ -214,10 +214,10 @@ def test_rn50_int8_fidelity_matches_jax():
     quantized on golden_frames(32), vs the f32 unfolded encoder on golden_frames(8).
     The port's int8 cosine distance per key is no worse than the JAX package's own
     (the limit `chip_smoke.py` holds the conv map to comes from here). Prints both."""
-    from embodied_clip_tpu_torch.models.encoders import _random_state_dict
+    from embodied_clip_tpu_torch.models.encoders import ENCODER_SPECS, _random_state_dict
     from embodied_clip_tpu_torch.parity import golden_frames
 
-    sd = _random_state_dict("RN50", 0)
+    sd = _random_state_dict(ENCODER_SPECS["clip_rn50"], 0)
     g8, g32 = golden_frames(8), golden_frames(32)
     dist = {}
     jref = jax_build_encoder("clip_rn50", dtype=jnp.float32).load_torch_state_dict(sd)

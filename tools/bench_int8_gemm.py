@@ -68,12 +68,15 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     sig = {"ect_conv1x1_s8": [p, i, i, p, i, p, p, p, p, p, p, i, i, p],
            "ect_conv3x3_s8": [p, i, i, i, i, p, i, p, p, p, p, i, p],
            "ect_cb3_cb1_s8": [p, p, i, i, i, i] + [p] * 11 + [i, p],
-           "ect_stage1_entry": [p, i, i, p, i, p, p, p, p, i, p, p, p, p, p, i, p],
+           "ect_stage1_entry": [p, i, i, p, i, p, p, p, p, i, p, p, p, p, p, p, i, p],
            "ect_shortcut_bf16": [p, p, i, i, i, p, p, p, p, i, p]}  # before the entry
     for name, args in sig.items():
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, ctypes.c_int
+    if hasattr(lib, "ect_stage1_entry_ties"):
+        lib.ect_stage1_entry_ties.argtypes = [i, i]
+        lib.ect_stage1_entry_ties.restype = ctypes.c_longlong
     lib.ect_error_string.argtypes = [ctypes.c_int]
     lib.ect_error_string.restype = ctypes.c_char_p
     return lib
@@ -147,10 +150,14 @@ class Launch:
             q1, sc8 = self.outs
             k1t, wsc = ops["k1a_t"], ops["wsc"]
             if hasattr(lib, "ect_stage1_entry"):
+                if getattr(self, "ties", None) is None:  # the launch's scratch, made once
+                    self.ties = torch.empty(lib.ect_stage1_entry_ties(m, cout),
+                                            dtype=torch.int64, device=dev)
                 err = lib.ect_stage1_entry(x8.data_ptr(), m, cin, k1t.data_ptr(), cm,
                                            ops["s1a"].data_ptr(), ops["b1a"].data_ptr(), r1,
                                            wsc.data_ptr(), cout, s_in, ops["bsc"].data_ptr(),
-                                           dsc, q1.data_ptr(), sc8.data_ptr(), *stream)
+                                           dsc, q1.data_ptr(), sc8.data_ptr(),
+                                           self.ties.data_ptr(), *stream)
             else:  # cb1a as (a), then the CUDA-core shortcut kernel
                 err = (lib.ect_conv1x1_s8(x8.data_ptr(), m, cin, k1t.data_ptr(), cm,
                                           ops["s1a"].data_ptr(), ops["b1a"].data_ptr(), 0, 0,
