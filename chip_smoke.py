@@ -8,12 +8,17 @@ Phases:
   1. torch version, device, and `nvidia-smi`'s name and power limit;
   2. build every CUDA source of the port with nvcc (in parallel) and time it; check that
      the SASS of `bottleneck_bf16` (K6/K7) holds wgmma (HGMMA) and no mma.sync (HMMA),
-     that of `stem_int8` (K2) bf16 wgmma (HGMMA), and that of `bottleneck_int8` (K3-K5)
-     s8 wgmma (IGMMA) beside bf16 wgmma (HGMMA: K3's shortcut) and no dp4a (IDP.4A);
-  3. hold kernel K1 (fused preprocess) to its plain PyTorch version on the card, at the
-     main path's shape (golden_frames(128), 300x300 → 224): ≤1.5 uint8 LSB with <1e-3
-     of pixels flipped, bf16 output bit-equal to the f32 output cast; time both and
-     compute the kernel's bound for this card;
+     that of `stem_int8` (K2) bf16 wgmma (HGMMA), that of `bottleneck_int8` (K3-K5)
+     s8 wgmma (IGMMA) beside bf16 wgmma (HGMMA: K3's shortcut) and no dp4a (IDP.4A),
+     and that of `preprocess` (K1) the 1-D bulk copy (UBLKCP);
+  3. hold kernel K1 (fused preprocess) to its plain PyTorch version on the card:
+     bit-equal at the main path's shape (golden_frames(128), 300x300 → 224), f32 and
+     bf16; ≤1.5 uint8 LSB with <1e-3 of pixels flipped at batches 128, 1 and 5, on a
+     frames view at a data_ptr 13 bytes past 16-byte alignment, an upscale and an odd
+     width; bf16 output bit-equal to the f32 output cast; time the kernel (bf16 and f32
+     out) and the plain version at batches 128 and 1, with the kernel's bound for this
+     card and, as a yardstick the port never calls, `interpolate(mode="bicubic",
+     antialias=True)` of an f32 NCHW copy of the same frames (the resize alone);
   4. drive the bf16 path: BN-folded `clip_rn50` serving four requests of fresh uint8
      frames (batch 1, 8, 32, 128, NHWC and flat); check keys, shapes, finite values
      and the launches per request (K1 1, K7 1, K6 10); hold the bf16 features to the
@@ -505,17 +510,21 @@ def main(argv) -> int:
                 print(f"[2]   {src}: {line.strip()}")
     # K6/K7's GEMM runs on bf16 wgmma: its SASS holds HGMMA and no mma.sync (HMMA); K2's
     # conv on bf16 wgmma (HGMMA); K3-K5's s8 products on s8 wgmma (IGMMA) and K3's
-    # shortcut on bf16 wgmma (HGMMA), with no dp4a on the CUDA cores (IDP.4A).
+    # shortcut on bf16 wgmma (HGMMA), with no dp4a on the CUDA cores (IDP.4A); K1 stages
+    # its input bands with the 1-D bulk copy (UBLKCP).
     for src, wants, banned in (("bottleneck_bf16", ("HGMMA.",), "HMMA."),
                                ("stem_int8", ("HGMMA.",), "HMMA."),
-                               ("bottleneck_int8", ("IGMMA", "HGMMA."), "IDP.4A")):
+                               ("bottleneck_int8", ("IGMMA", "HGMMA."), "IDP.4A"),
+                               ("preprocess", ("UBLKCP",), None)):
         sass = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump",
                                "-sass", str(_build.library_path(src))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
-        counts, n_banned = {w: sass.count(w) for w in wants}, sass.count(banned)
+        counts = {w: sass.count(w) for w in wants}
+        n_banned = sass.count(banned) if banned else 0
         print(f"[2] {src} SASS: " + ", ".join(f"{n} {w.rstrip('.')}" for w, n in counts.items())
-              + f" (wgmma) instructions, {n_banned} {banned.rstrip('.')}")
-        check(all(counts.values()) and n_banned == 0, f"{src} runs on wgmma alone")
+              + " instructions" + (f", {n_banned} {banned.rstrip('.')}" if banned else ""))
+        check(all(counts.values()) and n_banned == 0,
+              f"{src} holds {', '.join(wants)}" + (f" and no {banned}" if banned else ""))
 
     # Full-f32 references: cuDNN convs and cuBLAS matmuls default to TF32 otherwise.
     torch.backends.cudnn.allow_tf32 = False
@@ -527,10 +536,26 @@ def main(argv) -> int:
     mean, std = constants.CLIP_MEAN, constants.CLIP_STD
     lsb = 1.0 / 255.0 / min(std)
     frames = torch.from_numpy(golden_frames(128)).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        check(torch.equal(K.fused_preprocess(frames, 224, mean, std, dtype=dtype),
+                          K.fused_preprocess_reference(frames, 224, mean, std, dtype=dtype)),
+              f"K1 bit-equal to its plain version at (128, 300, 300) → 224, {dtype}")
+    print("[3] K1 (128, 300, 300) → 224: bit-equal to its plain version, f32 and bf16")
+
+    def at_offset(x, offset):  # the same frames at a data_ptr `offset` bytes past 256
+        buf = torch.empty(offset + x.numel(), dtype=torch.uint8, device=dev)
+        y = buf[offset:].view(x.shape)
+        y.copy_(x)
+        return y
+
     worst_lsb = max_abs = 0.0
-    cases = [(frames, 224), (torch.from_numpy(golden_frames(4, size=160)[:, :, :120].copy()), 224),
-             (torch.from_numpy(golden_frames(4, size=301)[:, :, :299].copy()), 224)]
-    for x, size in cases:  # main shape, an upscale, and an odd width (byte loads)
+    cases = [(frames, 224), (frames[:1], 224), (frames[:5], 224),
+             (at_offset(frames[:3], 13), 224),
+             (torch.from_numpy(golden_frames(4, size=160)[:, :, :120].copy()), 224),
+             (at_offset(torch.from_numpy(golden_frames(4, size=301)[:, :, :299].copy())
+                        .to(dev), 1), 224)]
+    # main shape at batches 128, 1 and 5, a misaligned view, an upscale, an odd width
+    for x, size in cases:
         x = x.to(dev)
         before = K.fused_preprocess.launches
         k32 = K.fused_preprocess(x, size, mean, std, dtype=torch.float32)
@@ -540,26 +565,42 @@ def main(argv) -> int:
         ref = K.fused_preprocess_reference(x, size, mean, std, dtype=torch.float32)
         err = (k32 - ref).abs()
         flipped = float((err > 0.5 * lsb).float().mean())
-        print(f"[3] K1 {tuple(x.shape)} → {size}: max {float(err.max()) / lsb:.4f} LSB, "
-              f"flipped {flipped:.2e} (limits {LSB_LIMIT} LSB, {FLIP_LIMIT:g} flipped)")
+        print(f"[3] K1 {tuple(x.shape)} at data_ptr % 16 = {x.data_ptr() % 16} → {size}: "
+              f"max {float(err.max()) / lsb:.4f} LSB, flipped {flipped:.2e} (limits "
+              f"{LSB_LIMIT} LSB, {FLIP_LIMIT:g} flipped)")
         check(float(err.max()) <= LSB_LIMIT * lsb and flipped < FLIP_LIMIT,
               f"K1 vs plain version on {tuple(x.shape)}")
         check(torch.equal(kbf, k32.to(torch.bfloat16)), "K1 bf16 == f32 output cast")
         worst_lsb = max(worst_lsb, float(err.max()) / lsb)
         max_abs = max(max_abs, float(err.max()))
 
-    kernel_ms = cuda_ms(lambda: K.fused_preprocess(frames, 224, mean, std), 50)
-    plain_ms = cuda_ms(lambda: K.fused_preprocess_reference(frames, 224, mean, std), 10)
     card = card_rates(kind)
     bw, f32_peak = card[1], card[2]
-    pp_bytes, flops = preprocess_work(128, (300, 300), 224, 2)
-    bytes_ms, ops_ms = pp_bytes / bw * 1e3, flops / f32_peak * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"[3] K1 batch 128 bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms by {bound_by} ({pp_bytes} B at {bw:.3g} B/s, "
-          f"{flops} FLOP at {f32_peak:.3g} FLOP/s, {card[0]}); "
-          f"{pp_bytes / kernel_ms / 1e6:.1f} GB/s achieved")
+    k1_times = {}
+    for n_k1 in (128, 1):
+        x = frames[:n_k1]
+        nchw = x.permute(0, 3, 1, 2).float().contiguous()
+        t = {"ms": cuda_ms(lambda: K.fused_preprocess(x, 224, mean, std), 200),
+             "ms_f32": cuda_ms(lambda: K.fused_preprocess(x, 224, mean, std,
+                                                          dtype=torch.float32), 200),
+             "plain_ms": cuda_ms(lambda: K.fused_preprocess_reference(x, 224, mean, std),
+                                 10),
+             "interpolate_ms": cuda_ms(lambda: torch.nn.functional.interpolate(
+                 nchw, size=(224, 224), mode="bicubic", antialias=True), 50)}
+        pp_bytes, flops = preprocess_work(n_k1, (300, 300), 224, 2)
+        bytes_ms, ops_ms = pp_bytes / bw * 1e3, flops / f32_peak * 1e3
+        t["bound_ms"] = max(bytes_ms, ops_ms)
+        t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        k1_times[n_k1] = t
+        print(f"[3] K1 batch {n_k1} bf16: kernel {t['ms']:.4f} ms (f32 out {t['ms_f32']:.4f}),"
+              f" plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by "
+              f"{t['bound_by']} ({pp_bytes} B at {bw:.3g} B/s, {flops} FLOP at "
+              f"{f32_peak:.3g} FLOP/s, {card[0]}); {pp_bytes / t['ms'] / 1e6:.1f} GB/s "
+              f"achieved, {t['bound_ms'] / t['ms']:.1%} of the bound; yardstick "
+              f"interpolate(bicubic, antialias) of an f32 NCHW copy {t['interpolate_ms']:.4f}"
+              f" ms; {smi}")
+    kernel_ms, plain_ms = k1_times[128]["ms"], k1_times[128]["plain_ms"]
+    bound_ms, bound_by = k1_times[128]["bound_ms"], k1_times[128]["bound_by"]
 
     # -- 4. the bf16 path: BN-folded clip_rn50 serving requests -------------------------
     base = build_encoder("clip_rn50", dtype=torch.bfloat16, device="cuda")
@@ -733,7 +774,12 @@ def main(argv) -> int:
         "replaces": pallas + "preprocess_kernel.py:93",
         "launches": launches, "max_abs_err": max_abs, "max_err_lsb": worst_lsb,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]
+        "bound_by": bound_by, "library_ms": None,
+        "ms_f32_out": k1_times[128]["ms_f32"],
+        "interpolate_yardstick_ms": k1_times[128]["interpolate_ms"],
+        "batch1": {k: k1_times[1][k] for k in ("ms", "ms_f32", "plain_ms", "interpolate_ms",
+                                               "bound_ms", "bound_by")},
+        "ms_unit": "per batch-128 bf16 call"}]
     for name, source, replaces, path in (
             ("stem3_requant_pool_int8", "stem_int8.cu", "stem_kernel.py:79", "A"),
             ("fused_stage1_int8", "bottleneck_int8.cu", "bottleneck_kernel.py:312", "A"),

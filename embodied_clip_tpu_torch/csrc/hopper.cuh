@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the port's TMA + wgmma kernels
-// (bottleneck_bf16.cu: K6/K7; bottleneck_int8.cu: K3-K5; stem_int8.cu: K2): mbarriers,
-// TMA loads and stores, ldmatrix, wgmma (operands in shared memory, or A in registers),
+// (bottleneck_bf16.cu: K6/K7; bottleneck_int8.cu: K3-K5; stem_int8.cu: K2;
+// preprocess.cu: K1): mbarriers, 1-D bulk copies, TMA loads and stores, ldmatrix, wgmma
+// (operands in shared memory, or A in registers),
 // its fences and shared-memory descriptors on the device; the tensor-map encoders
 // (cuTensorMapEncodeTiled / Im2col) on the host. Each source that includes it is its own
 // library, so the anonymous namespace gives each its own copy.
@@ -49,6 +50,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from global `src` to shared `dst` (the 1-D bulk copy, no
+// tensor map), completing on `bar`'s transaction count. dst, src and bytes are
+// multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

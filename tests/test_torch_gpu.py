@@ -43,11 +43,25 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,in_hw,size", [(8, (300, 300), 224), (3, (160, 120), 224),
-                                          (2, (301, 299), 224), (2, (480, 640), 384)])
-def test_fused_preprocess_kernel_matches_plain_version(cuda, n, in_hw, size):
+def _frames_at(frames: np.ndarray, dev, offset: int) -> torch.Tensor:
+    """The frames as a contiguous CUDA tensor whose data_ptr lies `offset` bytes past a
+    256-byte-aligned allocation."""
+    buf = torch.empty(offset + frames.size, dtype=torch.uint8, device=dev)
+    x = buf[offset:].view(frames.shape)
+    x.copy_(torch.from_numpy(frames))
+    assert x.is_contiguous() and x.data_ptr() % 256 == offset
+    return x
+
+
+# (n, in_hw, size, offset): the main shape at batches 8, 1 and 5, an upscale, an odd
+# width (897-byte rows), a 384-px output, and frames at data_ptr offsets 1, 3 and 13.
+@pytest.mark.parametrize("n,in_hw,size,offset", [
+    (8, (300, 300), 224, 0), (3, (160, 120), 224, 0), (2, (301, 299), 224, 0),
+    (2, (480, 640), 384, 0), (1, (300, 300), 224, 0), (5, (300, 300), 224, 0),
+    (3, (300, 300), 224, 13), (2, (301, 299), 224, 1), (1, (480, 640), 384, 3)])
+def test_fused_preprocess_kernel_matches_plain_version(cuda, n, in_hw, size, offset):
     frames = np.random.RandomState(0).randint(0, 256, (n, *in_hw, 3), np.uint8)
-    x = torch.from_numpy(frames).to(cuda)
+    x = _frames_at(frames, cuda, offset)
     before = K.fused_preprocess.launches
     got = K.fused_preprocess(x, size, MEAN, STD, dtype=torch.float32)
     got_bf16 = K.fused_preprocess(x, size, MEAN, STD, dtype=torch.bfloat16)
@@ -59,6 +73,16 @@ def test_fused_preprocess_kernel_matches_plain_version(cuda, n, in_hw, size):
     assert float(err.max()) <= 1.5 * lsb
     assert float((err > 0.5 * lsb).float().mean()) < 1e-3
     assert torch.equal(got_bf16, got.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_preprocess_kernel_is_bit_equal_at_the_main_shape(cuda, dtype):
+    """At the main path's shape, (128, 300, 300) → 224, K1 computes its plain version's
+    arithmetic (f32 taps, FMAs in tap order, the same q() and normalise): bit-equal."""
+    x = torch.from_numpy(golden_frames(128)).to(cuda)
+    got = K.fused_preprocess(x, 224, MEAN, STD, dtype=dtype)
+    want = K.fused_preprocess_reference(x, 224, MEAN, STD, dtype=dtype)
+    assert torch.equal(got, want)
 
 
 def _t(a, dev, dtype=None):

@@ -6,7 +6,9 @@ Same numpy-seeded operands for both, at the JAX tests' shapes and contracts:
   K3 fused_stage1_int8        ≤1 step on ≤0.5%, RN50-shaped stage 1 at 14×14
                               (tests/test_bottleneck_kernel.py:177-178); at RN50 batch 8
                               and RN50x16 widths, the shortcut ≤1 step and the stage ≤2
-                              steps on ≤0.5% (a flipped shortcut step's cascade)
+                              steps on ≤0.5% (a flipped shortcut step's cascade), and no
+                              farther from the JAX package's XLA stage-1 graph than the
+                              JAX kernel is
   K4 fused_cb3_cb1_int8       bit-exact, K = C ≤ 1024 and > 1024 (tests/test_quantize.py:87)
   K5 fused_resblocks_int8     bit-exact, s8 and bf16 outputs
                               (tests/test_bottleneck_kernel.py:257,265)
@@ -19,6 +21,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from embodied_clip_tpu.ops import quantize as jq
 from embodied_clip_tpu.ops.pallas import bottleneck_kernel as jbk
@@ -128,34 +131,90 @@ def _f32_shortcut(x8, wsc, bsc, s_in, dsc):
     return requant_signed(torch.matmul(x0, wsc.float()) + bsc, dsc)
 
 
+def _jax_xla_stage1(qnp, x8):
+    """Stage 1 as the JAX package's main path computes it on the TPU: the XLA graph of
+    `quantized_trunk_apply` (s8 convs with s32 sums, the `_requant` epilogues, the bf16
+    einsum shortcut and its signed s8 round trip), built from JAX ops as
+    tests/test_bottleneck_kernel.py builds its reference."""
+    q = _jq(qnp)
+    a = q["act_scales"]
+
+    def qconv(sub, t8, s):
+        k = sub["kernel_q"]
+        if k.shape[0] == 1:
+            out = jnp.einsum("nhwc,cd->nhwd", t8, k[0, 0], preferred_element_type=jnp.int32)
+        else:
+            out = lax.conv_general_dilated(t8, k, (1, 1), [(1, 1), (1, 1)],
+                                           dimension_numbers=("NHWC", "HWIO", "NHWC"),
+                                           preferred_element_type=jnp.int32)
+        return out.astype(jnp.float32) * (s * sub["w_scale"]) + sub["bias"]
+
+    def ref(t8):
+        s_in = a["stem.out"]
+        for i, nm in enumerate(["layer1_0", "layer1_1", "layer1_2"]):
+            o = jax.nn.relu(qconv(q[f"{nm}/cb1"], t8, s_in))
+            o = jax.nn.relu(qconv(q[f"{nm}/cb2"], jq._requant(o, a[f"{nm}/cb2.in"]),
+                                  a[f"{nm}/cb2.in"]))
+            o = qconv(q[f"{nm}/cb3"], jq._requant(o, a[f"{nm}/cb3.in"]), a[f"{nm}/cb3.in"])
+            if i == 0:
+                sub = q["fp"]["layer1_0/down"]["conv"]
+                idt = jnp.einsum("nhwc,cd->nhwd",
+                                 (t8.astype(jnp.float32) * s_in).astype(jnp.bfloat16),
+                                 jnp.asarray(sub["kernel"], jnp.bfloat16)[0, 0],
+                                 preferred_element_type=jnp.float32) + sub["bias"]
+                ds = a["layer1_0/down.out"]
+                idt = jq._requant_signed(idt, ds).astype(jnp.float32) * ds
+            else:
+                idt = t8.astype(jnp.float32) * s_in
+            s_in = a[f"{nm}.out"]
+            t8 = jq._requant(jax.nn.relu(o + idt), s_in)
+        return t8
+
+    return np.asarray(jax.jit(ref)(jnp.asarray(x8)))
+
+
 # The stage-1 widths of RN50 (batch 8 at 56²) and RN50x16 (96 → 384), at sizes where one
-# flipped shortcut step shows as 2 steps of K3's output.
-@pytest.mark.parametrize("n,h,cin,cout", [(8, 56, 64, 256), (2, 24, 96, 384)])
-def test_stage1_plain_version_near_jax_kernel_at_full_width(monkeypatch, n, h, cin, cout):
-    """K3's plain version against the JAX kernel where the shortcut's cascade shows. The
-    plain shortcut (the exact sum rounded once) is within 1 step of the JAX kernel's on
-    ≤1e-5 of elements. Over the stage, a flipped shortcut step carries through the later
-    blocks to 2 steps, and the JAX kernel's epilogues (compiled by XLA for the CPU) round
-    differently from the plain version's IEEE steps; the exactly rounded sum keeps the
-    stage within the ≤0.5% share and no further from the JAX kernel than an f32 sum in
-    torch's order. Run with -s to print the distances."""
+# flipped shortcut step shows as 2 steps of K3's output. `kernel_share` is the JAX
+# kernel's measured share of elements off the JAX XLA graph (CPU: 1.079e-03 and
+# 2.439e-03), rounded up: the reference's own cascade, which bounds the port's.
+@pytest.mark.parametrize("n,h,cin,cout,kernel_share", [(8, 56, 64, 256, 1.1e-3),
+                                                       (2, 24, 96, 384, 2.5e-3)])
+def test_stage1_plain_version_near_jax_kernel_at_full_width(monkeypatch, n, h, cin, cout,
+                                                            kernel_share):
+    """K3's plain version against the JAX package's two stage-1 implementations where the
+    shortcut's cascade shows. The plain shortcut (the exact sum rounded once) is within 1
+    step of the JAX kernel's on ≤1e-5 of elements. Over the stage, a flipped shortcut step
+    carries through the later blocks to 2 steps. The JAX kernel (interpret mode) is itself
+    2 steps from the JAX XLA stage-1 graph, the TPU main path's, on `kernel_share` of
+    elements; the plain version is no farther from that graph (≤2 steps, ≤ the JAX
+    kernel's measured share), so the 2 steps between the plain version and the JAX kernel
+    are the reference's own cascade. Against the JAX kernel the plain version keeps the
+    ≤0.5% share and is no farther than an f32 shortcut sum in torch's order. Run with -s
+    to print the distances."""
     rng = np.random.RandomState(0)
     qnp = C.stage1_q(rng, cin=cin, cm=cin, cout=cout)
     x8 = C.s8(rng, (n, h, h, cin))
     want = np.asarray(jbk.fused_stage1_int8(jnp.asarray(x8),
                                             jax.jit(jq.stage1_int8_operands)(_jq(qnp)),
                                             interpret=True))
+    xla = _jax_xla_stage1(qnp, x8)
     ops = Q.stage1_int8_operands(C.to_torch(qnp))
     xt, scl = torch.from_numpy(x8), ops["scl"]
     sc_args = (xt, ops["wsc"], ops["bsc"], scl[0], scl[10])
     sc_step, sc_share = C.step_diff(BK._shortcut_reference(*sc_args),
                                     _jax_kernel_shortcut(*sc_args))
-    dmax, share = C.step_diff(BK.fused_stage1_int8(xt, ops), want)
+    got = BK.fused_stage1_int8(xt, ops)
+    kern_xla = C.step_diff(want, xla)
+    plain_xla = C.step_diff(got, xla)
+    dmax, share = C.step_diff(got, want)
     monkeypatch.setattr(BK, "_shortcut_reference", _f32_shortcut)
     dmax32, share32 = C.step_diff(BK.fused_stage1_int8(xt, ops), want)
-    print(f"\nK3 plain vs JAX kernel {(n, h, h, cin)} -> {cout}: shortcut {sc_step} step on "
-          f"{sc_share:.3e}; stage {dmax} steps on {share:.3e} (f32 shortcut sum: {dmax32} "
-          f"on {share32:.3e})")
+    print(f"\nK3 {(n, h, h, cin)} -> {cout}, (max steps, share): JAX kernel vs JAX XLA "
+          f"graph {kern_xla[0]}, {kern_xla[1]:.3e}; plain vs JAX XLA graph {plain_xla[0]}, "
+          f"{plain_xla[1]:.3e}; plain vs JAX kernel {dmax}, {share:.3e} (f32 shortcut sum: "
+          f"{dmax32}, {share32:.3e}); shortcut vs JAX kernel's {sc_step}, {sc_share:.3e}")
+    assert kern_xla[0] <= 2 and kern_xla[1] <= kernel_share, kern_xla
+    assert plain_xla[0] <= kern_xla[0] and plain_xla[1] <= kern_xla[1], (plain_xla, kern_xla)
     assert sc_step <= 1 and sc_share <= 1e-5, (sc_step, sc_share)
     assert dmax <= 2 and share <= 0.005 and share <= share32, (dmax, share, share32)
 
