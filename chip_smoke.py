@@ -52,7 +52,23 @@ Phases:
      K1 1 and no K6/K7), ≤1e-3 cosine vs their f32 unfolded encoders, batch-128 encode
      times; then `imagenet_rn50.quantize(golden_frames(32))` serves them, held to
      `IMAGENET_INT8_COSINE_LIMITS`, with its encode time;
-  9. print {"kernels": [...]}, then the last line {"ok": true, "device": {...}}.
+  9. the DD-PPO training step with the frozen encoder inside the rollout, at the
+     example's full width (`clip_rn50`, GridNav size 8 rendering 56×56 frames, 32 envs,
+     rollout 64, hidden 512, 4 PPO epochs), in a one-process NCCL group so that the
+     gradient all-reduce runs on the card: 5 iterations with the bf16 folded encoder
+     (loss finite, weights changed, launches per iteration K1 = K7 = 65, K6 = 650); the
+     stored `clip_conv` features of one rollout step within 1e-3 cosine of the f32
+     unfolded encoder on the same frames; every K6/K7 call of one rollout encode (batch
+     32) held to its plain version with phase 7's contract; K1 at the rollout's shape,
+     (32, 56, 56) → 224, held to its plain version and timed; one iteration on int8 path
+     A (K1, K2, K3 65, K5 195), its stored features within `INT8_COSINE_LIMITS`, every
+     K2/K3/K5 call of one rollout encode held with phase 5's contracts. Iterations 0, 2
+     and 3 are split into rollout (encode, env, policy step, the rest) and update (the
+     gradient all-reduces within it) by CUDA events and hooks; iterations 1 and 4 carry
+     only the iteration's own events, so that the split's cost shows; each iteration's
+     host ms in Python's garbage collector; env-steps/s, peak device memory; `--profile`
+     adds the device-busy share of one rollout and one update;
+ 10. print {"kernels": [...]}, then the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero. It exits non-zero at once, and
 prints no result, where no CUDA device is available.
@@ -255,6 +271,67 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
+def hold_int8_call(mod, name, args, kw):
+    """One recorded K2-K5 call against its plain version on the same inputs: K2 and K3
+    within STEP_LIMIT s8 steps on at most STEP_SHARE_LIMIT of the elements, K4 and K5
+    bit-exact. Returns (worst step, share of elements that differ)."""
+    import torch
+
+    fn, ref = getattr(mod, name), getattr(mod, name + "_reference")
+    # K2's `wmat` is the kernel's own copy of its weights, not an input of K2.
+    pkw = {k: v for k, v in kw.items() if k != "wmat"}
+    before = fn.launches
+    got = fn(*args, **kw)
+    want = ref(*args, **pkw)
+    torch.cuda.synchronize()
+    check(fn.launches == before + 1, f"{name} launched its kernel")
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    worst_step, worst_share = 0, 0.0
+    for g, w in pairs:
+        check(g.shape == w.shape and g.dtype == w.dtype, f"{name} output shape/type")
+        d = (g.int() - w.int()).abs()
+        step, share = int(d.max()), float((d != 0).float().mean())
+        worst_step, worst_share = max(worst_step, step), max(worst_share, share)
+        if name in ("stem3_requant_pool_int8", "fused_stage1_int8"):
+            check(step <= STEP_LIMIT and share <= STEP_SHARE_LIMIT,
+                  f"{name} vs plain: {step} steps on {share:.2e} of elements")
+        else:
+            check(torch.equal(g, w), f"{name} bit-exact vs its plain version on "
+                                     f"{tuple(args[0].shape)}")
+    return worst_step, worst_share
+
+
+def hold_bf16_call(name, args, kw, label):
+    """One recorded K6/K7 call against its plain version on the same inputs
+    (`parity.bf16_disagreement`; K7 block by block). Returns (kernel output, plain
+    output, share differing, worst of the allowance, per-block pairs)."""
+    import torch
+
+    from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
+    from embodied_clip_tpu_torch.parity import (
+        BF16_KERNEL_SHARE,
+        bf16_disagreement,
+        stage1_block_disagreements,
+    )
+
+    fn, ref = getattr(BK, name), getattr(BK, name + "_reference")
+    before = fn.launches
+    got = fn(*args, **kw)
+    want = ref(*args, **kw)
+    torch.cuda.synchronize()
+    check(fn.launches == before + 1, f"{name} launched its kernel")
+    check(got.shape == want.shape and got.dtype == want.dtype == torch.bfloat16
+          and bool(torch.isfinite(got.float()).all()), f"{name} output")
+    share, worst = bf16_disagreement(got, want)
+    per_block = (stage1_block_disagreements(*args) if name == "fused_stage1"
+                 else [(share, worst)])
+    # K7 is held block by block; its chained output is reported (parity.py).
+    check(all(s <= BF16_KERNEL_SHARE and w <= 1.0 for s, w in per_block),
+          f"{label} {name} {tuple(args[0].shape)} vs plain: {share:.2e} differ, "
+          f"worst {worst:.3f}; per block {per_block}")
+    return got, want, share, worst, per_block
+
+
 def check_int8_kernels(qenc, frames, card, profile):
     """Phase 5: every K2–K5 call of a batch-128 encode on paths A and B, against the
     plain version on the same inputs; timings and bounds summed over one encode."""
@@ -286,25 +363,9 @@ def check_int8_kernels(qenc, frames, card, profile):
         ms = device_ms = plain_ms = bound_ms = 0.0
         by = {"bytes": 0.0, "operations": 0.0}
         for args, kw, out in calls:
-            # K2's `wmat` is the kernel's own copy of its weights, not an input of K2.
+            step, share = hold_int8_call(mod, name, args, kw)
+            worst_step, worst_share = max(worst_step, step), max(worst_share, share)
             pkw = {k: v for k, v in kw.items() if k != "wmat"}
-            before = fn.launches
-            got = fn(*args, **kw)
-            want = ref(*args, **pkw)
-            torch.cuda.synchronize()
-            check(fn.launches == before + 1, f"{name} launched its kernel")
-            pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
-            for g, w in pairs:
-                check(g.shape == w.shape and g.dtype == w.dtype, f"{name} output shape/type")
-                if name in ("stem3_requant_pool_int8", "fused_stage1_int8"):
-                    d = (g.int() - w.int()).abs()
-                    step, share = int(d.max()), float((d != 0).float().mean())
-                    worst_step, worst_share = max(worst_step, step), max(worst_share, share)
-                    check(step <= STEP_LIMIT and share <= STEP_SHARE_LIMIT,
-                          f"{name} vs plain: {step} steps on {share:.2e} of elements")
-                else:
-                    check(torch.equal(g, w), f"{name} bit-exact vs its plain version on "
-                                             f"{tuple(args[0].shape)}")
             k_ms = cuda_ms(lambda: fn(*args, **kw), 10)
             d_ms = graph_ms(lambda: fn(*args, **kw))
             p_ms = cuda_ms(lambda: ref(*args, **pkw), 3, warmup=1)
@@ -403,11 +464,6 @@ def check_bf16_kernels(encoders, frames, card):
     import torch
 
     from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
-    from embodied_clip_tpu_torch.parity import (
-        BF16_KERNEL_SHARE,
-        bf16_disagreement,
-        stage1_block_disagreements,
-    )
 
     results = {}
     for label, enc in encoders.items():
@@ -421,20 +477,7 @@ def check_bf16_kernels(encoders, frames, card):
               f"{label}: K6/K7 calls {len(r6.calls)}/{len(r7.calls)} match its plan")
         for (name, (args, kw, out)), mod in zip(calls, steps):
             fn, ref = getattr(BK, name), getattr(BK, name + "_reference")
-            before = fn.launches
-            got = fn(*args, **kw)
-            want = ref(*args, **kw)
-            torch.cuda.synchronize()
-            check(fn.launches == before + 1, f"{name} launched its kernel")
-            check(got.shape == want.shape and got.dtype == want.dtype == torch.bfloat16
-                  and bool(torch.isfinite(got.float()).all()), f"{name} output")
-            share, worst = bf16_disagreement(got, want)
-            per_block = (stage1_block_disagreements(*args) if name == "fused_stage1"
-                         else [(share, worst)])
-            # K7 is held block by block; its chained output is reported (parity.py).
-            check(all(s <= BF16_KERNEL_SHARE and w <= 1.0 for s, w in per_block),
-                  f"{label} {name} {tuple(args[0].shape)} vs plain: {share:.2e} differ, "
-                  f"worst {worst:.3f}; per block {per_block}")
+            got, want, share, worst, per_block = hold_bf16_call(name, args, kw, label)
             xc = args[0].permute(0, 3, 1, 2)  # the NCHW channels-last view the block takes
             k_ms = cuda_ms(lambda: fn(*args, **kw), 10)
             p_ms = cuda_ms(lambda: ref(*args, **kw), 3, warmup=1)
@@ -472,6 +515,334 @@ def check_bf16_kernels(encoders, frames, card):
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, cuDNN route "
               f"{r['cudnn_route_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
     return results
+
+
+class EventSpans:
+    """CUDA-event spans around calls: `wrap(fn)` records an event before and after
+    each call while `on` is set (otherwise it calls fn alone); `ms()` sums the spans
+    since the last `reset()` (it synchronises)."""
+
+    def __init__(self):
+        self.spans, self.on = [], True
+
+    def mark(self):
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def wrap(self, fn):
+        def timed(*args, **kw):
+            if not self.on:
+                return fn(*args, **kw)
+            start = self.mark()
+            out = fn(*args, **kw)
+            self.spans.append((start, self.mark()))
+            return out
+        return timed
+
+    def reset(self, on=True):
+        self.spans, self.on = [], on
+
+    def ms(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.spans)
+
+
+class TimedEnv:
+    """The env with its `step` inside CUDA-event spans."""
+
+    def __init__(self, env, spans: EventSpans):
+        self.env, self.step = env, spans.wrap(env.step)
+
+    def __getattr__(self, name):
+        return getattr(self.env, name)
+
+
+class GCTime:
+    """Host ms spent in Python's garbage collector while active (`gc.callbacks`)."""
+
+    def __init__(self):
+        self.ms, self._t0 = 0.0, 0.0
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+
+    def __enter__(self):
+        import gc
+
+        self.ms = 0.0
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self)
+
+
+def hold_rollout_calls(fe, frames, label):
+    """Phase 9: every K2-K7 call of one rollout encode (the rollout's own batch-32
+    56×56 frames, upscaled to 224) against its plain version on the same inputs, with
+    phase 5's and phase 7's contracts. Returns {kernel: {calls, worst, share}}."""
+    import contextlib
+
+    import torch
+
+    from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
+    from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
+
+    per_encode = {"bf16": {"fused_stage1": 1, "fused_bottleneck": 10},
+                  "int8": {k: v for k, v in PER_REQUEST["A"].items()
+                           if v and k != "fused_preprocess"}}[label]
+    modules = {"stem3_requant_pool_int8": SK}
+    with torch.inference_mode(), contextlib.ExitStack() as stack:
+        recs = [stack.enter_context(Recorder(modules.get(name, BK), name))
+                for name in per_encode]
+        fe(frames)
+        torch.cuda.synchronize()
+    held = {}
+    with torch.inference_mode():
+        for r in recs:
+            check(len(r.calls) == per_encode[r.name],
+                  f"{label} rollout encode: {len(r.calls)} {r.name} calls, expected "
+                  f"{per_encode[r.name]}")
+            worst, share = 0.0, 0.0
+            for args, kw, _ in r.calls:
+                if label == "bf16":
+                    _, _, s, w, per_block = hold_bf16_call(r.name, args, kw, label)
+                    w, s = max(b for _, b in per_block), max(a for a, _ in per_block)
+                else:
+                    w, s = hold_int8_call(modules.get(r.name, BK), r.name, args, kw)
+                worst, share = max(worst, w), max(share, s)
+            contract = ("≤1% of elements differ, each within 2 bf16 steps" if label == "bf16"
+                        else f"≤{STEP_LIMIT} step on ≤{STEP_SHARE_LIMIT:g}"
+                        if r.name in ("stem3_requant_pool_int8", "fused_stage1_int8")
+                        else "bit-exact")
+            found = (f"{share:.2e} of elements differ, worst {worst:.3f} of the allowance"
+                     if label == "bf16" else f"worst {worst} step(s) on {share:.2e}")
+            print(f"[9 {label}] {r.name}: {len(r.calls)} call(s) of a rollout encode "
+                  f"(input {tuple(r.calls[0][0][0].shape)}) held to the plain version "
+                  f"({contract}): {found}")
+            held[r.name] = {"calls": len(r.calls), "input_shape": list(r.calls[0][0][0].shape),
+                            "worst": worst, "share_differing": share}
+    return held
+
+
+def check_ddppo(card, smi, profile, turns=1):
+    """Phase 9: the DD-PPO step at full width with the frozen encoder in the rollout.
+    The bf16 run takes a first iteration, then `turns` times (plain, instrumented,
+    instrumented, plain)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from embodied_clip_tpu_torch import constants
+    from embodied_clip_tpu_torch.envs.gridworld import GridNavEnv
+    from embodied_clip_tpu_torch.models.encoders import build_encoder
+    from embodied_clip_tpu_torch.models.policy import ActorCritic
+    from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
+    from embodied_clip_tpu_torch.ops.kernels import preprocess_kernel as K
+    from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
+    from embodied_clip_tpu_torch.parallel import mesh
+    from embodied_clip_tpu_torch.parallel.distributed import initialize_distributed
+    from embodied_clip_tpu_torch.parallel.dryrun import free_port
+    from embodied_clip_tpu_torch.parity import cosine_distance
+    from embodied_clip_tpu_torch.training.ddppo import DDPPOConfig, DDPPOLearner
+    from embodied_clip_tpu_torch.training.frames import frozen_encode_fn
+    from embodied_clip_tpu_torch.training.ppo import PPOConfig
+
+    check(initialize_distributed(f"localhost:{free_port()}", 1, 0, device="cuda")
+          and dist.get_backend() == "nccl", "a one-process NCCL group")
+    print(f"[9] torch.distributed: {dist.get_backend()} group of {dist.get_world_size()}; "
+          f"TF32 {'on' if torch.backends.cudnn.allow_tf32 else 'off'} for convs, "
+          f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'} for matmuls")
+    env = GridNavEnv(size=8, max_steps=64, frame_obs=True)
+    cfg = DDPPOConfig(rollout_len=64, env_batch=32, ppo=PPOConfig(lr=3e-4, epochs=4))
+    encodes = cfg.rollout_len + 1  # one a step, one for the bootstrap value
+    counted = {"fused_preprocess": K.fused_preprocess, "fused_stage1": BK.fused_stage1,
+               "fused_bottleneck": BK.fused_bottleneck,
+               "stem3_requant_pool_int8": SK.stem3_requant_pool_int8,
+               "fused_stage1_int8": BK.fused_stage1_int8,
+               "fused_resblocks_int8": BK.fused_resblocks_int8,
+               "fused_cb3_cb1_int8": BK.fused_cb3_cb1_int8}
+    want = {"bf16": {"fused_preprocess": 1, "fused_stage1": 1, "fused_bottleneck": 10},
+            "int8": PER_REQUEST["A"]}
+    out = {"launches": {}, "iterations": {}, "rollout_calls_held": {}}
+    all_sum_ = mesh.all_sum_
+    f32 = build_encoder("clip_rn50", dtype=torch.float32, device="cuda")
+
+    def rollout_fidelity(frames, stored, label):
+        """The stored features of a rollout step against the f32 unfolded encoder on
+        the same frames: bf16 within the north star, int8 within its conv-map limit."""
+        limit = COSINE_LIMIT if label == "bf16" else INT8_COSINE_LIMITS["clip_conv"]
+        cos = cosine_distance(stored, f32.encode(frames)["clip_conv"])
+        print(f"[9 {label}] stored clip_conv of rollout step 0 vs the f32 unfolded encoder "
+              f"on the same {tuple(frames.shape)} frames: cosine {cos:.3e} (limit {limit:g})")
+        check(cos <= limit, f"{label} rollout features within {limit:g} of f32")
+        return cos
+
+    def run(label, int8, instrumented):
+        """Iterations of the learner, one for each entry of `instrumented`: with the
+        split's CUDA events and hooks (True) or with only the iteration's own (False)."""
+        t0 = time.perf_counter()
+        fe, is_map = frozen_encode_fn("clip_rn50", torch.bfloat16, int8=int8, device="cuda")
+        torch.cuda.synchronize()
+        print(f"[9 {label}] frozen encoder built{' and quantized' if int8 else ''} in "
+              f"{time.perf_counter() - t0:.2f} s: key {fe.key} {fe.feature_shape}")
+        check(is_map and fe.feature_shape == (7, 7, 2048), "clip_rn50 conv map")
+        enc_t, env_t, pol_t, red_t = EventSpans(), EventSpans(), EventSpans(), EventSpans()
+        policy = ActorCritic(env.num_actions, fe.feature_shape, hidden=512,
+                             num_goal_classes=env.num_classes, visual_is_map=is_map)
+        policy.register_forward_pre_hook(
+            lambda *a: pol_t.spans.append([pol_t.mark()]) if pol_t.on else None)
+        policy.register_forward_hook(
+            lambda *a: pol_t.spans[-1].append(pol_t.mark()) if pol_t.on else None)
+        learner = DDPPOLearner(TimedEnv(env, env_t), policy, cfg,
+                               encode_fn=enc_t.wrap(fe), device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        act = learner.init(gen)
+        before = [p.detach().clone() for p in policy.parameters()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        rows = []
+        for it, on in enumerate(instrumented):
+            frames0 = act.obs["visual"].clone()
+            for sp in (enc_t, env_t, pol_t, red_t):
+                sp.reset(on)
+            for fn in counted.values():
+                fn.launches = 0  # count this iteration's launches only
+            torch.cuda.synchronize()
+            with GCTime() as gc_t:
+                h0 = time.perf_counter()
+                e0 = enc_t.mark()
+                rollout, last_value, act, env_m = learner.collect(act, gen)
+                e1 = enc_t.mark()
+                if on:
+                    mesh.all_sum_ = red_t.wrap(all_sum_)  # the gradient all-reduces
+                try:
+                    metrics = learner.update(rollout, last_value)
+                finally:
+                    mesh.all_sum_ = all_sum_
+                e2 = enc_t.mark()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - h0) * 1e3
+            got = {k: fn.launches for k, fn in counted.items()}
+            exp = {k: want[label].get(k, 0) * encodes for k in counted}
+            check(got == exp, f"{label} launches per iteration {got}, expected {exp}")
+            loss = float(metrics["loss"])
+            check(np.isfinite(loss), f"{label} loss finite")
+            r = {"instrumented": on, "iteration_ms": e0.elapsed_time(e2), "wall_ms": wall,
+                 "rollout_ms": e0.elapsed_time(e1), "update_ms": e1.elapsed_time(e2),
+                 "gc_ms": gc_t.ms, "loss": loss, "success": float(env_m["success"]),
+                 "episodes": float(env_m["episodes"])}
+            r["env_steps_per_s"] = cfg.rollout_len * cfg.env_batch / r["iteration_ms"] * 1e3
+            split = ""
+            if on:
+                r.update(encode_ms=enc_t.ms(), env_ms=env_t.ms(), allreduce_ms=red_t.ms(),
+                         policy_step_ms=sum(a.elapsed_time(b) for a, b in pol_t.spans))
+                r["rollout_rest_ms"] = (r["rollout_ms"] - r["encode_ms"] - r["env_ms"]
+                                        - r["policy_step_ms"])
+                split = (f" (encode {r['encode_ms']:.1f} over {encodes} encodes, env "
+                         f"{r['env_ms']:.1f}, policy step {r['policy_step_ms']:.1f}, rest "
+                         f"{r['rollout_rest_ms']:.1f})")
+            rows.append(r)
+            print(f"[9 {label}] iteration {it} ({'instrumented' if on else 'plain'}): "
+                  f"{r['iteration_ms']:.1f} ms (host clock {wall:.1f}, of which Python's "
+                  f"GC {gc_t.ms:.1f}) = rollout {r['rollout_ms']:.1f}{split} + update "
+                  f"{r['update_ms']:.1f}"
+                  + (f" (gradient all-reduces {r['allreduce_ms']:.1f} over "
+                     f"{len(red_t.spans)})" if on else "")
+                  + f"; {r['env_steps_per_s']:.0f} env-steps/s; loss {loss:.4f}; launches "
+                  f"{got}; {smi}")
+            if it == 0:
+                fid = rollout_fidelity(frames0, rollout.obs["visual"][0], label)
+                held = hold_rollout_calls(fe, frames0, label)
+        changed = any(not torch.equal(a, b) for a, b in zip(before, policy.parameters()))
+        check(changed, f"{label}: the policy's weights changed")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        above = peak - resident / 2 ** 30
+        print(f"[9 {label}] peak device memory {peak:.2f} GiB, {above:.2f} GiB above what "
+              f"was allocated before the iterations (earlier phases' encoders included); "
+              f"{smi}")
+        later = rows[1:]
+        for on in (True, False):
+            ms = [r["iteration_ms"] for r in later if r["instrumented"] == on]
+            if ms:
+                print(f"[9 {label}] after the first iteration, "
+                      f"{'instrumented' if on else 'plain'}: {min(ms):.1f} / "
+                      f"{float(np.median(ms)):.1f} / {max(ms):.1f} ms an iteration (least / "
+                      f"median / most of {len(ms)}); {smi}")
+        out["launches"][label] = got
+        out["rollout_calls_held"][label] = held
+        out["iterations"][label] = {"rows": rows, "peak_gib": peak,
+                                    "peak_above_start_gib": above, "cosine_vs_f32": fid}
+        if profile and label == "bf16":
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as torch_profile
+
+            for phase in ("rollout", "update"):
+                with torch_profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
+                    if phase == "rollout":
+                        rollout, last_value, act, _ = learner.collect(act, gen)
+                    else:
+                        learner.update(rollout, last_value)
+                    torch.cuda.synchronize()
+                # Busy: the union of the kernels' (and copies') intervals on the device.
+                spans = sorted((e.time_range.start, e.time_range.end)
+                               for e in prof.events() if e.device_type == DeviceType.CUDA)
+                busy, end = 0.0, float("-inf")
+                for a, b in spans:
+                    busy += max(0.0, b - max(a, end))
+                    end = max(end, b)
+                busy /= 1e3
+                unprofiled = min(r[f"{phase}_ms"] for r in later)
+                print(f"[9] bf16 {phase}, profiled: device busy {busy:.1f} ms (the union of "
+                      f"{len(spans)} device intervals), {busy / unprofiled:.1%} of the fastest "
+                      f"unprofiled {phase} ({unprofiled:.1f} ms); device time by op:")
+                print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+                out["iterations"][label][f"{phase}_device_busy_ms"] = busy
+        return frames0
+
+    # bf16: a first iteration (cuDNN's first calls), then plain and instrumented in turns.
+    frames = run("bf16", False, (True,) + (False, True, True, False) * turns)
+    run("int8", True, (True,))
+
+    # K1 at the rollout's shape: 32 frames of 56x56, upscaled to 224.
+    mean, std = constants.CLIP_MEAN, constants.CLIP_STD
+    lsb = 1.0 / 255.0 / min(std)
+    k32 = K.fused_preprocess(frames, 224, mean, std, dtype=torch.float32)
+    kbf = K.fused_preprocess(frames, 224, mean, std, dtype=torch.bfloat16)
+    ref = K.fused_preprocess_reference(frames, 224, mean, std, dtype=torch.float32)
+    err = (k32 - ref).abs()
+    flipped = float((err > 0.5 * lsb).float().mean())
+    check(float(err.max()) <= LSB_LIMIT * lsb and flipped < FLIP_LIMIT
+          and torch.equal(kbf, k32.to(torch.bfloat16)), "K1 at the rollout's shape")
+    pp_bytes, flops = preprocess_work(frames.shape[0], tuple(frames.shape[1:3]), 224, 2)
+    bytes_ms, ops_ms = pp_bytes / card[1] * 1e3, flops / card[2] * 1e3
+    b_ms, b_by = max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+    k1 = {"shape": list(frames.shape), "bit_equal": bool(torch.equal(k32, ref)),
+          "max_err_lsb": float(err.max()) / lsb, "flipped": flipped,
+          "ms": cuda_ms(lambda: K.fused_preprocess(frames, 224, mean, std), 200),
+          "plain_ms": cuda_ms(lambda: K.fused_preprocess_reference(frames, 224, mean, std),
+                              10),
+          "bound_ms": b_ms, "bound_by": b_by}
+    print(f"[9] K1 at the rollout's shape {tuple(frames.shape)} → 224 bf16: kernel "
+          f"{k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
+          f"max {k1['max_err_lsb']:.4f} LSB, flipped {flipped:.2e}, bit-equal to the plain "
+          f"version: {k1['bit_equal']}; {smi}")
+    out["k1_rollout_shape"] = k1
+    dist.destroy_process_group()
+    return out
 
 
 def main(argv) -> int:
@@ -766,7 +1137,12 @@ def main(argv) -> int:
     print(f"[8] imagenet_rn50 int8 encode, batch 128 on the device: "
           f"{imagenet_ms['imagenet_rn50']['int8']:.3f} ms on {smi}")
 
-    # -- 9. results ----------------------------------------------------------------------
+    # -- 9. the DD-PPO step with the frozen encoder inside the rollout ------------------
+    ddppo = check_ddppo(card, smi, profile)
+    per_iter = {k: v for launches in ddppo["launches"].values() for k, v in launches.items()
+                if v}
+
+    # -- 10. results ---------------------------------------------------------------------
     src = "embodied_clip_tpu_torch/csrc/"
     pallas = "embodied_clip_tpu/ops/pallas/"
     rows = [{
@@ -779,6 +1155,7 @@ def main(argv) -> int:
         "interpolate_yardstick_ms": k1_times[128]["interpolate_ms"],
         "batch1": {k: k1_times[1][k] for k in ("ms", "ms_f32", "plain_ms", "interpolate_ms",
                                                "bound_ms", "bound_by")},
+        "ddppo_rollout_shape": ddppo["k1_rollout_shape"],
         "ms_unit": "per batch-128 bf16 call"}]
     for name, source, replaces, path in (
             ("stem3_requant_pool_int8", "stem_int8.cu", "stem_kernel.py:79", "A"),
@@ -807,6 +1184,13 @@ def main(argv) -> int:
                                                            "int8_path_b": ms_b},
                                              **imagenet_ms},
                       "cosine_vs_f32": {k: v for k, v in imagenet_cos.items()},
+                      "card": smi}))
+    held = {k: v for calls in ddppo["rollout_calls_held"].values() for k, v in calls.items()}
+    for row in rows:
+        row["launches_ddppo_iteration"] = per_iter.get(row["name"], 0)
+        if row["name"] in held:
+            row["ddppo_rollout_calls_held"] = held[row["name"]]
+    print(json.dumps({"ddppo": {k: v for k, v in ddppo.items() if k != "k1_rollout_shape"},
                       "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

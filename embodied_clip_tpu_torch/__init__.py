@@ -6,6 +6,8 @@ normalise (kernel K1, `ops/kernels/preprocess_kernel.py`) → the bf16/f32
 `ModifiedResNet` trunk, or the int8 post-training-quantized trunk (`ops/quantize.py`,
 kernels K2-K5 in `ops/kernels/stem_kernel.py` and `bottleneck_kernel.py`) →
 `clip_conv` / `clip_avgpool` / `clip_attnpool`. The kernels are CUDA C++ in `csrc/`.
+It also trains: the DD-PPO step (`envs/`, `models/policy.py`, `training/`, `parallel/`)
+with the frozen encoder inside the rollout (`examples/train_objectnav.py --frames`).
 
 The package imports torch and numpy only — never jax, flax or `embodied_clip_tpu`.
 Entry points run on the GPU (`device="cuda"`) unless the caller asks for the CPU.

@@ -12,6 +12,8 @@ carries the JAX package's `{params, batch_stats}` across, inverting the layout r
 `from_flax_resnet_variables` does the same for the JAX torchvision-style `ResNet`
 (inverting `embodied_clip_tpu/models/convert.py:57-76`). `from_flax_qtrunk` carries a
 JAX quantized trunk (`qtrunk`, CLIP or torchvision) across as it is, in HWIO.
+`from_flax_policy_params` carries the JAX `ActorCritic` params (or a gradient tree of
+the same shape) into the port's `models/policy.ActorCritic` state_dict.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 __all__ = ["from_flax_variables", "from_flax_resnet_variables", "from_flax_qtrunk",
-           "load_torch_checkpoint", "visual_state_dict"]
+           "from_flax_policy_params", "load_torch_checkpoint", "visual_state_dict"]
 
 
 def _t(v) -> torch.Tensor:
@@ -116,6 +118,47 @@ def from_flax_qtrunk(qtrunk: Mapping[str, Any]) -> Dict[str, Any]:
             q[key] = {"kernel_q": t(sub["kernel_q"], np.int8), "w_scale": t(sub["w_scale"]),
                       "bias": t(sub["bias"])}
     return q
+
+
+def from_flax_policy_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX `ActorCritic` params (`embodied_clip_tpu/models/policy.py`), as numpy arrays
+    → the port's `ActorCritic` state_dict. Conv kernels HWIO → OIHW, Dense (in, out) →
+    Linear (out, in), Embed tables as they are. The GRU, from flax's per-gate Dense
+    layers to `torch.nn.GRUCell`'s packed [r; z; n] rows: weight_ih = [ir; iz; in]ᵀ,
+    bias_ih = [ir.b; iz.b; in.b], weight_hh = [hr; hz; hn]ᵀ, bias_hh = [0; 0; hn.b]
+    (flax's hr and hz carry no bias). A gradient tree of the params converts the same
+    way."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def dense(name, p):
+        sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+        sd[f"{name}.bias"] = _t(p["bias"])
+
+    def conv(name, p):
+        sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+        sd[f"{name}.bias"] = _t(p["bias"])
+
+    for mod, layers in (("compressor", ("reduce", "mix")), ("scratch", ("c1", "c2", "c3"))):
+        for layer in layers if mod in params else ():
+            conv(f"{mod}.{layer}", params[mod][layer])
+    if "scratch" in params:
+        dense("scratch.fc", params["scratch"]["fc"])
+    for name in ("visual_fc", "goal_fc", "actor", "critic"):
+        if name in params:
+            dense(name, params[name])
+    for name in ("goal_embed", "prev_action_embed"):
+        if name in params:
+            sd[f"{name}.weight"] = _t(params[name]["embedding"])
+    gru = params["gru"]
+    sd["gru.weight_ih"] = _t(np.concatenate([np.asarray(gru[g]["kernel"]).T
+                                             for g in ("ir", "iz", "in")]))
+    sd["gru.bias_ih"] = _t(np.concatenate([np.asarray(gru[g]["bias"])
+                                           for g in ("ir", "iz", "in")]))
+    sd["gru.weight_hh"] = _t(np.concatenate([np.asarray(gru[g]["kernel"]).T
+                                             for g in ("hr", "hz", "hn")]))
+    hn_b = np.asarray(gru["hn"]["bias"], np.float32)
+    sd["gru.bias_hh"] = _t(np.concatenate([np.zeros(2 * hn_b.size, np.float32), hn_b]))
+    return sd
 
 
 def visual_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

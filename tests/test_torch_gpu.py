@@ -514,3 +514,51 @@ def test_bf16_folded_encoder_launch_counts(cuda, name, k7, k6):
         assert [f.launches - b for f, b in zip(counted, before)] == want
         assert all(v.dtype == torch.bfloat16 and bool(torch.isfinite(v.float()).all())
                    for v in out.values())
+
+
+def test_ddppo_iteration_with_the_encoder_in_the_rollout(cuda):
+    """One DD-PPO iteration on the card with the bf16 folded `clip_rn_tiny` encoder
+    inside the rollout: a finite loss, changed weights, and per iteration T + 1 encodes,
+    each launching K1 and K7 once (its trunk has no stride-1 identity block for K6)."""
+    from embodied_clip_tpu_torch.envs.gridworld import GridNavEnv
+    from embodied_clip_tpu_torch.models.policy import ActorCritic
+    from embodied_clip_tpu_torch.training.ddppo import DDPPOConfig, DDPPOLearner
+    from embodied_clip_tpu_torch.training.frames import frozen_encode_fn
+    from embodied_clip_tpu_torch.training.ppo import PPOConfig
+
+    fe, is_map = frozen_encode_fn("clip_rn_tiny", torch.bfloat16, device="cuda")
+    env = GridNavEnv(size=5, max_steps=8, frame_obs=True)
+    policy = ActorCritic(env.num_actions, fe.feature_shape, hidden=32,
+                         visual_is_map=is_map)
+    learner = DDPPOLearner(env, policy, DDPPOConfig(rollout_len=4, env_batch=3,
+                                                    ppo=PPOConfig(epochs=2)),
+                           encode_fn=fe, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    act = learner.init(gen)
+    before = [p.detach().clone() for p in policy.parameters()]
+    counted = (K.fused_preprocess, BK.fused_stage1, BK.fused_bottleneck)
+    start = [f.launches for f in counted]
+    act, metrics = learner.train_iteration(act, gen)
+    torch.cuda.synchronize()
+    assert [f.launches - s for f, s in zip(counted, start)] == [5, 5, 0]
+    assert np.isfinite(float(metrics["loss"]))
+    assert any(not torch.equal(a, b) for a, b in zip(before, policy.parameters()))
+    assert act.obs["visual"].is_cuda and act.h.is_cuda
+
+
+def test_fused_preprocess_kernel_at_the_rollout_shape(cuda):
+    """K1 at the DD-PPO rollout's shape: 32 GridNav frames of 56x56, upscaled to 224."""
+    from embodied_clip_tpu_torch.envs.gridworld import GridNavEnv
+
+    env = GridNavEnv(size=8, frame_obs=True)
+    _, obs = env.reset(torch.Generator(device="cuda").manual_seed(0), 32)
+    x = obs["visual"]
+    assert x.shape == (32, 56, 56, 3) and x.dtype == torch.uint8 and x.is_cuda
+    got = K.fused_preprocess(x, 224, MEAN, STD, dtype=torch.float32)
+    got_bf16 = K.fused_preprocess(x, 224, MEAN, STD, dtype=torch.bfloat16)
+    ref = K.fused_preprocess_reference(x, 224, MEAN, STD, dtype=torch.float32)
+    lsb = 1.0 / 255.0 / min(STD)
+    err = (got - ref).abs()
+    assert float(err.max()) <= 1.5 * lsb
+    assert float((err > 0.5 * lsb).float().mean()) < 1e-3
+    assert torch.equal(got_bf16, got.to(torch.bfloat16))
