@@ -68,7 +68,33 @@ Phases:
      only the iteration's own events, so that the split's cost shows; each iteration's
      host ms in Python's garbage collector; env-steps/s, peak device memory; `--profile`
      adds the device-busy share of one rollout and one update;
- 10. print {"kernels": [...]}, then the last line {"ok": true, "device": {...}}.
+ 10. the host-simulator path at full width: pools of 8 worker processes (VectorEnv,
+     started from its fork server after CUDA is up, frames through the shared-memory
+     ring, checked live) of the port's THOR adapters over `tests/fake_thor.py`'s
+     scripted controller (the only THOR here; ai2thor is not installed) at 300×300,
+     feeding the bf16 folded `clip_rn50` and the allenact policy (hidden 512):
+     (a) `HostPPOLearner`, rollout 64, 4 epochs, 3 iterations: loss finite, weights
+     changed, launches per iteration K1 = K7 = 65 and K6 = 650, the stored features of
+     act step 0 within 1e-3 cosine of the f32 unfolded encoder on the same frames, every
+     K6/K7 call of one act-step encode (batch 8) held to its plain version with phase
+     7's contract, the act / env_step / update split, env-steps/s, the encode's share
+     of the act step, peak device memory (`--profile`: the device-busy share of one
+     rollout and one update); (c) one iteration on int8 path A (K1, K2, K3 65, K5 195):
+     the stored features equal to the encoder's output on the same frames, the encoder
+     at batch 8 within `INT8_COSINE_LIMITS` on golden_frames(8), the stored features'
+     distance to f32 printed beside the plain int8 graph's (the scripted controller's
+     flat frames put both far from f32), every K2/K3/K5 call of one act-step encode held
+     with phase 5's contracts; (d) a worker SIGKILLed at act step 20:
+     respawned, its step and the respawned worker's first step masked invalid (the
+     latter done), the update runs; (e) `evaluate_policy_host` (deterministic, val
+     scenes) delivers 16 episodes, written by `write_metrics_json` and scored by
+     `compute_scores`; (b) 2 pipelined groups of 8 workers, 2 iterations (launches
+     doubled), env-steps/s beside (a) and (c); (f) `HostDAggerLearner` on the 1-phase
+     `THORRearrangeEnv` (both views encoded: K1 = K7 = 128, K6 = 1280 an iteration of
+     64 steps; a 4096-channel map), 2 iterations with the aggregate of 2 rollouts in
+     host memory; (g) K1 at Habitat's frame shape (8, 480, 640) → 224 held to its plain
+     version and timed;
+ 11. print {"kernels": [...]}, then the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero. It exits non-zero at once, and
 prints no result, where no CUDA device is available.
@@ -587,10 +613,11 @@ class GCTime:
         gc.callbacks.remove(self)
 
 
-def hold_rollout_calls(fe, frames, label):
-    """Phase 9: every K2-K7 call of one rollout encode (the rollout's own batch-32
-    56×56 frames, upscaled to 224) against its plain version on the same inputs, with
-    phase 5's and phase 7's contracts. Returns {kernel: {calls, worst, share}}."""
+def hold_rollout_calls(fe, frames, label, phase="9"):
+    """Phases 9 and 10: every K2-K7 call of one rollout encode (the rollout's own
+    frames: batch-32 56×56 in phase 9, batch-8 300×300 in phase 10) against its plain
+    version on the same inputs, with phase 5's and phase 7's contracts. Returns
+    {kernel: {calls, worst, share}}."""
     import contextlib
 
     import torch
@@ -627,7 +654,7 @@ def hold_rollout_calls(fe, frames, label):
                         else "bit-exact")
             found = (f"{share:.2e} of elements differ, worst {worst:.3f} of the allowance"
                      if label == "bf16" else f"worst {worst} step(s) on {share:.2e}")
-            print(f"[9 {label}] {r.name}: {len(r.calls)} call(s) of a rollout encode "
+            print(f"[{phase} {label}] {r.name}: {len(r.calls)} call(s) of a rollout encode "
                   f"(input {tuple(r.calls[0][0][0].shape)}) held to the plain version "
                   f"({contract}): {found}")
             held[r.name] = {"calls": len(r.calls), "input_shape": list(r.calls[0][0][0].shape),
@@ -785,7 +812,6 @@ def check_ddppo(card, smi, profile, turns=1):
         out["iterations"][label] = {"rows": rows, "peak_gib": peak,
                                     "peak_above_start_gib": above, "cosine_vs_f32": fid}
         if profile and label == "bf16":
-            from torch.autograd import DeviceType
             from torch.profiler import ProfilerActivity
             from torch.profiler import profile as torch_profile
 
@@ -797,17 +823,10 @@ def check_ddppo(card, smi, profile, turns=1):
                     else:
                         learner.update(rollout, last_value)
                     torch.cuda.synchronize()
-                # Busy: the union of the kernels' (and copies') intervals on the device.
-                spans = sorted((e.time_range.start, e.time_range.end)
-                               for e in prof.events() if e.device_type == DeviceType.CUDA)
-                busy, end = 0.0, float("-inf")
-                for a, b in spans:
-                    busy += max(0.0, b - max(a, end))
-                    end = max(end, b)
-                busy /= 1e3
+                busy = busy_ms(prof)
                 unprofiled = min(r[f"{phase}_ms"] for r in later)
                 print(f"[9] bf16 {phase}, profiled: device busy {busy:.1f} ms (the union of "
-                      f"{len(spans)} device intervals), {busy / unprofiled:.1%} of the fastest "
+                      f"the device's intervals), {busy / unprofiled:.1%} of the fastest "
                       f"unprofiled {phase} ({unprofiled:.1f} ms); device time by op:")
                 print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
                 out["iterations"][label][f"{phase}_device_busy_ms"] = busy
@@ -842,6 +861,401 @@ def check_ddppo(card, smi, profile, turns=1):
           f"version: {k1['bit_equal']}; {smi}")
     out["k1_rollout_shape"] = k1
     dist.destroy_process_group()
+    return out
+
+
+class EncodeProbe:
+    """The frozen encoder as a learner's `encode_fn`, with CUDA-event spans around each
+    call (`spans`), the frames and features of the first call after `capture()` kept
+    (`first`), and an optional SIGKILL of a worker process at the k-th call from
+    `kill_at(k, proc)` (counted from that call; the process is joined before the
+    encode returns, so the worker is dead before its action is sent)."""
+
+    def __init__(self, fn, spans: "EventSpans"):
+        self.fn, self.spans, self.first, self._kill = spans.wrap(fn), spans, None, None
+        self._armed = False
+
+    def capture(self):
+        self.first, self._armed = None, True
+
+    def kill_at(self, k: int, proc):
+        self._kill = [k, proc]
+
+    def __call__(self, frames):
+        if self._kill is not None:
+            self._kill[0] -= 1
+            if self._kill[0] < 0:
+                self._kill[1].kill()  # SIGKILL
+                self._kill[1].join(timeout=10)
+                self._kill = None
+        out = self.fn(frames)
+        if self._armed:
+            self.first, self._armed = (frames.clone(), out.clone()), False
+        return out
+
+
+def busy_ms(prof) -> float:
+    """The union of the device's kernel (and copy) intervals of a torch.profiler run."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3
+
+
+def check_host_path(card, smi, profile):
+    """Phase 10: the host-simulator path at full width. Pools of THOR workers (the
+    scripted controller of tests/fake_thor.py at 300×300) feed the folded clip_rn50
+    encoder and the allenact policy on the card: (a) host PPO, bf16; (b) two pipelined
+    groups; (c) int8 path A; (d) a worker SIGKILLed mid-rollout; (e) host evaluation;
+    (f) host DAgger on the 1-phase rearrangement, both views encoded; (g) K1 at
+    Habitat's frame shape."""
+    import functools
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from embodied_clip_tpu_torch import constants
+    from embodied_clip_tpu_torch.envs.thor import THORObjectNavEnv
+    from embodied_clip_tpu_torch.envs.thor_rearrange import REARRANGE_ACTIONS, THORRearrangeEnv
+    from embodied_clip_tpu_torch.envs.vector import VectorEnv
+    from embodied_clip_tpu_torch.models.allenact_policy import AllenActResnetPolicy
+    from embodied_clip_tpu_torch.models.encoders import build_encoder
+    from embodied_clip_tpu_torch.native.frame_ring import frame_ring_available
+    from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
+    from embodied_clip_tpu_torch.ops.kernels import preprocess_kernel as K
+    from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
+    from embodied_clip_tpu_torch.ops.quantize import KERNELS_OFF
+    from embodied_clip_tpu_torch.parity import cosine_distance, golden_frames
+    from embodied_clip_tpu_torch.training.dagger import DAggerConfig, HostDAggerLearner
+    from embodied_clip_tpu_torch.training.ddppo import DDPPOConfig
+    from embodied_clip_tpu_torch.training.evaluate import (
+        compute_scores,
+        evaluate_policy_host,
+        write_metrics_json,
+    )
+    from embodied_clip_tpu_torch.training.frames import frozen_encode_fn
+    from embodied_clip_tpu_torch.training.host_ppo import HostPPOLearner
+    from embodied_clip_tpu_torch.training.ppo import PPOConfig
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from fake_thor import FakeController
+
+    check(frame_ring_available(), "the shared-memory frame ring builds and loads")
+    print("[10] simulators: the port's THORObjectNavEnv and THORRearrangeEnv over "
+          "tests/fake_thor.FakeController, a scripted numpy stand-in for "
+          "ai2thor.Controller (neither ai2thor nor habitat-sim is installed here), "
+          "300x300 frames; pools from VectorEnv's fork server, started after CUDA is up")
+    T, W, frame = 64, 8, (300, 300, 3)
+    train = [f"FloorPlan_Train{i}_{j}" for i in range(1, 13) for j in range(1, 6)]
+    val = [f"FloorPlan_Val{i}_{j}" for i in range(1, 4) for j in range(1, 6)]
+
+    def objectnav_pool(seeds, scenes=train, **kw):
+        venv = VectorEnv([functools.partial(THORObjectNavEnv, scenes, seed=s,
+                                            controller_factory=FakeController, **kw)
+                          for s in seeds], frame_shape=frame, max_steps=kw.get("max_steps"))
+        check(venv.ring is not None, "the pool moves frames through the frame ring")
+        return venv
+
+    counted = {"fused_preprocess": K.fused_preprocess, "fused_stage1": BK.fused_stage1,
+               "fused_bottleneck": BK.fused_bottleneck,
+               "stem3_requant_pool_int8": SK.stem3_requant_pool_int8,
+               "fused_stage1_int8": BK.fused_stage1_int8,
+               "fused_resblocks_int8": BK.fused_resblocks_int8,
+               "fused_cb3_cb1_int8": BK.fused_cb3_cb1_int8}
+    per_encode = {"bf16": {"fused_preprocess": 1, "fused_stage1": 1, "fused_bottleneck": 10},
+                  "int8": PER_REQUEST["A"]}
+    cfg = DDPPOConfig(rollout_len=T, ppo=PPOConfig(lr=3e-4, epochs=4))
+    f32 = build_encoder("clip_rn50", dtype=torch.float32, device="cuda")
+    out = {"env_steps_per_s": {}, "rollout_calls_held": {}}
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.launches = 0
+
+    def check_counts(label, encodes, what):
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in counted.items()}
+        exp = {k: per_encode[label].get(k, 0) * encodes for k in counted}
+        check(got == exp, f"{what}: launches {got}, expected {exp}")
+        return got
+
+    def fidelity(probe):
+        frames, stored = probe.first
+        cos = cosine_distance(stored, f32.encode(frames)["clip_conv"])
+        print(f"[10a bf16] stored clip_conv of act step 0 vs the f32 unfolded encoder on "
+              f"the same {tuple(frames.shape)} frames: cosine {cos:.3e} (limit "
+              f"{COSINE_LIMIT:g})")
+        check(cos <= COSINE_LIMIT, f"bf16 host-rollout features within {COSINE_LIMIT:g} "
+              "of f32")
+        return frames, cos
+
+    def report(sub, label, it, m, probe, launches, act_encodes=T):
+        enc_ms = sum(a.elapsed_time(b) for a, b in probe.spans.spans[:act_encodes])
+        share = enc_ms / (m["act_s"] * 1e3)
+        print(f"[10{sub} {label}] iteration {it}: {m['env_steps_per_s']:.1f} env-steps/s "
+              f"({m['env_steps']:.0f} env steps); act {m['act_s'] * 1e3:.1f} ms "
+              f"({m['act_frac']:.1%}), env_step {m['env_step_s'] * 1e3:.1f} ms "
+              f"({m['env_step_frac']:.1%}), update {m['update_s'] * 1e3:.1f} ms "
+              f"({m['update_frac']:.1%}); encode {enc_ms:.1f} ms over the {act_encodes} act "
+              f"steps' encodes = {share:.1%} of act; loss {m['loss']:.4f}; episodes "
+              f"{m['episodes']:.0f}; launches {launches}; {smi}")
+        return {k: m[k] for k in ("env_steps_per_s", "act_s", "act_frac", "env_step_s",
+                                  "env_step_frac", "update_s", "update_frac", "loss",
+                                  "episodes")} | {"encode_ms": enc_ms,
+                                                  "encode_share_of_act": share}
+
+    pools = []
+    try:
+        fe, is_map = frozen_encode_fn("clip_rn50", torch.bfloat16, device="cuda")
+        check(is_map and fe.feature_shape == (7, 7, 2048), "clip_rn50 conv map")
+
+        # -- (a) host PPO, bf16 ---------------------------------------------------
+        venv = objectnav_pool(range(W))
+        pools.append(venv)
+        probe = EncodeProbe(fe, EventSpans())
+        policy = AllenActResnetPolicy()
+        learner = HostPPOLearner(venv, policy, cfg, encode_fn=probe, device="cuda")
+        learner.init(seed=1)
+        before = [p.detach().clone() for p in policy.parameters()]
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        rows = []
+        for it in range(3):
+            probe.spans.reset()
+            if it == 0:
+                probe.capture()
+            zero_counts()
+            m = learner.train_iteration()
+            got = check_counts("bf16", T + 1, f"(a) iteration {it}")
+            check(np.isfinite(m["loss"]), "(a) loss finite")
+            rows.append(report("a", "bf16", it, m, probe, got))
+            if it == 0:
+                frames, cos = fidelity(probe)
+        check(any(not torch.equal(a, b) for a, b in zip(before, policy.parameters())),
+              "(a) the policy's weights changed")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[10a] peak device memory {peak:.2f} GiB, "
+              f"{peak - resident / 2 ** 30:.2f} GiB above what was allocated before the "
+              f"iterations; {smi}")
+        out["launches"] = got
+        out["ppo_bf16"] = {"iterations": rows, "cosine_vs_f32": cos, "peak_gib": peak,
+                           "peak_above_start_gib": peak - resident / 2 ** 30}
+        out["env_steps_per_s"]["a_bf16_1_group"] = [r["env_steps_per_s"] for r in rows]
+        out["rollout_calls_held"]["bf16"] = hold_rollout_calls(fe, frames, "bf16", "10a")
+        if profile:
+            busy = {}
+            with torch_profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                rollout, last, _ = learner.collector.collect(T)
+                torch.cuda.synchronize()
+                wall = {"rollout": (time.perf_counter() - t0) * 1e3}
+            busy["rollout"] = busy_ms(prof)
+            with torch_profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                learner.update(rollout, last)
+                torch.cuda.synchronize()
+                wall["update"] = (time.perf_counter() - t0) * 1e3
+            busy["update"] = busy_ms(prof)
+            for k in busy:
+                print(f"[10a] bf16 {k}, profiled: device busy {busy[k]:.1f} ms of "
+                      f"{wall[k]:.1f} ms on the host's clock ({busy[k] / wall[k]:.1%})")
+            print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15))
+            out["ppo_bf16"]["device_busy_ms"] = busy
+            out["ppo_bf16"]["profiled_wall_ms"] = wall
+
+        # -- (c) int8 path A, one iteration ------------------------------------------
+        fe8, _ = frozen_encode_fn("clip_rn50", torch.bfloat16, int8=True, device="cuda")
+        probe8 = EncodeProbe(fe8, EventSpans())
+        learner8 = HostPPOLearner(venv, AllenActResnetPolicy(seed=2), cfg, encode_fn=probe8,
+                                  device="cuda")
+        learner8.init(seed=1)
+        probe8.capture()
+        zero_counts()
+        m = learner8.train_iteration()
+        got8 = check_counts("int8", T + 1, "(c) int8 iteration")
+        check(np.isfinite(m["loss"]), "(c) loss finite")
+        row8 = report("c", "int8", 0, m, probe8, got8)
+        # The scripted controller renders one or two flat colours a frame; per-tensor
+        # int8 PTQ is far from f32 on such frames in its plain graph too (the JAX int8
+        # graph's math). So the stored features are held to the encoder's own output,
+        # the encoder at the act step's batch to INT8_COSINE_LIMITS on golden frames,
+        # and each kernel call to its plain version; the distance on the rollout's
+        # frames is reported beside the plain graph's.
+        frames8, stored8 = probe8.first
+        check(torch.equal(stored8, fe8(frames8)), "(c) the stored features are the "
+              "int8 encoder's on the act step's frames")
+        g8 = golden_frames(8)
+        got, ref = fe8.encoder.encode(g8), f32.encode(g8)
+        cos8 = {k: cosine_distance(got[k], ref[k]) for k in ref}
+        print(f"[10c int8] the act step's encoder at batch 8 on golden_frames(8) vs the "
+              f"f32 unfolded encoder: " + ", ".join(
+                  f"{k} {v:.3e} (limit {INT8_COSINE_LIMITS[k]:g})" for k, v in cos8.items()))
+        check(all(v <= INT8_COSINE_LIMITS[k] for k, v in cos8.items()),
+              f"(c) int8 encoder at batch 8 within {INT8_COSINE_LIMITS}")
+        ref8 = f32.encode(frames8)["clip_conv"]
+        plain = fe8.encoder.with_kernels(**KERNELS_OFF).encode(frames8)["clip_conv"]
+        cos_env = {"path_a": cosine_distance(stored8, ref8),
+                   "plain_graph": cosine_distance(plain, ref8)}
+        print(f"[10c int8] stored clip_conv of act step 0 vs the f32 unfolded encoder on "
+              f"the same {tuple(frames8.shape)} frames: cosine {cos_env['path_a']:.3e}; the "
+              f"plain int8 graph (no kernel) on them: {cos_env['plain_graph']:.3e}")
+        out["ppo_int8"] = row8 | {"cosine_vs_f32_golden8": cos8,
+                                  "cosine_vs_f32_rollout_frames": cos_env, "launches": got8}
+        out["env_steps_per_s"]["c_int8_1_group"] = [m["env_steps_per_s"]]
+        out["rollout_calls_held"]["int8"] = hold_rollout_calls(fe8, frames8, "int8", "10c")
+
+        # -- (d) a worker SIGKILLed in the middle of a rollout --------------------------
+        learner.init(seed=3)
+        victim, at = 3, 20
+        probe.kill_at(at, venv.procs[victim])
+        zero_counts()
+        rollout, last, env_m = learner.collector.collect(T)
+        metrics = learner.update(rollout, last)
+        check_counts("bf16", T + 1, "(d) rollout with a killed worker")
+        invalid = (~rollout.valid).nonzero().tolist()
+        print(f"[10d] worker {victim} SIGKILLed at act step {at}: respawns "
+              f"{venv.respawn_count}, worker alive {venv.procs[victim].is_alive()}, "
+              f"(step, env) pairs masked invalid {invalid}, done flagged at "
+              f"{rollout.dones[:, victim].nonzero().flatten().tolist()}; loss "
+              f"{float(metrics['loss']):.4f}")
+        check(venv.respawn_count == 1 and venv.procs[victim].is_alive(),
+              "(d) the killed worker was respawned")
+        check(invalid == [[at, victim], [at + 1, victim]] and bool(rollout.dones[at + 1, victim]),
+              "(d) the killed worker's step and the respawned worker's first step are "
+              "masked invalid, the latter flagged done")
+        check(np.isfinite(float(metrics["loss"])), "(d) the iteration completes")
+        out["worker_killed"] = {"respawns": venv.respawn_count, "invalid": invalid}
+
+        # -- (e) host evaluation ---------------------------------------------------------
+        eval_pool = objectnav_pool(range(100, 100 + W), val, max_steps=40)
+        pools.append(eval_pool)
+        t0 = time.perf_counter()
+        eps = evaluate_policy_host(eval_pool, policy, 16, 6, deterministic=True,
+                                   encode_fn=fe, class_names=constants.ROBOTHOR_OBJECT_TYPES,
+                                   device="cuda")
+        eval_s = time.perf_counter() - t0
+        check(len(eps) == 16 and all(0 <= e["success"] <= 1 and 0 <= e["spl"] <= 1
+                                     and e["ep_length"] > 0 for e in eps),
+              "(e) 16 evaluation episodes delivered")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = write_metrics_json(os.path.join(tmp, "metrics.json"), eps)
+            types = sorted({e["task_info"]["object_type"] for e in eps})
+            scores = {t: compute_scores(path, t) for t in types}
+        print(f"[10e] evaluate_policy_host (deterministic, val scenes, horizon 40): 16 "
+              f"episodes in {eval_s:.2f} s; success/SPL by object type {scores}")
+        out["eval"] = {"episodes": len(eps), "seconds": eval_s, "scores": scores}
+        for p in pools:
+            p.close()
+        pools = []
+
+        # -- (b) two pipelined groups of 8 workers -------------------------------------
+        groups = [objectnav_pool(range(g * W, (g + 1) * W)) for g in range(2)]
+        pools.extend(groups)
+        probe2 = EncodeProbe(fe, EventSpans())
+        learner2 = HostPPOLearner(groups, AllenActResnetPolicy(seed=4), cfg,
+                                  encode_fn=probe2, device="cuda")
+        learner2.init(seed=1)
+        rows2 = []
+        for it in range(2):
+            probe2.spans.reset()
+            zero_counts()
+            m = learner2.train_iteration()
+            got2 = check_counts("bf16", 2 * (T + 1), f"(b) iteration {it}")
+            check(np.isfinite(m["loss"]), "(b) loss finite")
+            rows2.append(report("b", "bf16", it, m, probe2, got2, 2 * T))
+        out["pipelined_bf16"] = rows2
+        out["env_steps_per_s"]["b_bf16_2_groups"] = [r["env_steps_per_s"] for r in rows2]
+        print(f"[10b] env-steps/s, 1 group of 8 (a): "
+              f"{', '.join(f'{r:.1f}' for r in out['env_steps_per_s']['a_bf16_1_group'])}; "
+              f"2 pipelined groups of 8 (b): "
+              f"{', '.join(f'{r:.1f}' for r in out['env_steps_per_s']['b_bf16_2_groups'])}; "
+              f"int8, 1 group (c): {out['env_steps_per_s']['c_int8_1_group'][0]:.1f}; {smi}")
+        for p in pools:
+            p.close()
+        pools = []
+
+        # -- (f) host DAgger on the 1-phase rearrangement, both views --------------------
+        rooms = [f"FloorPlan{i}" for i in range(1, 21)]
+        rvenv = VectorEnv([functools.partial(THORRearrangeEnv, rooms, seed=s,
+                                             controller_factory=FakeController)
+                           for s in range(W)], frame_shape=frame)
+        pools.append(rvenv)
+        check(rvenv.ring is not None, "the rearrangement pool uses the frame ring")
+        probe_r = EncodeProbe(fe, EventSpans())
+        rpolicy = AllenActResnetPolicy(in_channels=2 * 2048,
+                                       num_actions=len(REARRANGE_ACTIONS), seed=5)
+        dagger = HostDAggerLearner(rvenv, rpolicy, DAggerConfig(
+            rollout_len=T, epochs=2, lr=3e-4, beta_decay_iters=4, aggregate_size=2),
+            encode_fn=probe_r, device="cuda")
+        dagger.init(seed=1)
+        rows_f = []
+        for it in range(2):
+            probe_r.spans.reset()
+            zero_counts()
+            m = dagger.train_iteration(it)
+            got_f = check_counts("bf16", 2 * T, f"(f) DAgger iteration {it}")
+            check(np.isfinite(m["loss"]) and 0.0 <= m["expert_match"] <= 1.0,
+                  "(f) loss finite, expert_match in [0, 1]")
+            agg = dagger.aggregate.items
+            check(len(agg) == it + 1 and agg[-1][0]["visual"].device.type == "cpu"
+                  and tuple(agg[-1][0]["visual"].shape) == (T, W, 7, 7, 4096),
+                  "(f) the aggregate in host memory, 4096-channel maps")
+            enc_ms = sum(a.elapsed_time(b) for a, b in probe_r.spans.spans)
+            print(f"[10f] DAgger iteration {it} (beta {m['beta']:.2f}): "
+                  f"{m['env_steps_per_s']:.1f} env-steps/s; act {m['act_s'] * 1e3:.1f} ms "
+                  f"({m['act_frac']:.1%}), env_step (experts + steps) "
+                  f"{m['env_step_s'] * 1e3:.1f} ms ({m['env_step_frac']:.1%}), update "
+                  f"{m['update_s'] * 1e3:.1f} ms ({m['update_frac']:.1%}); encode "
+                  f"{enc_ms:.1f} ms over {2 * T} encodes; loss {m['loss']:.4f}, "
+                  f"expert_match {m['expert_match']:.3f}; aggregate {len(agg)} rollouts "
+                  f"of {agg[-1][0]['visual'].nbytes / 2 ** 20:.0f} MiB of features in host "
+                  f"memory; launches {got_f}; {smi}")
+            rows_f.append({k: m[k] for k in ("env_steps_per_s", "act_s", "env_step_s",
+                                             "update_s", "loss", "expert_match")}
+                          | {"encode_ms": enc_ms, "launches": got_f})
+        out["dagger"] = rows_f
+    finally:
+        for p in pools:
+            p.close()
+
+    # -- (g) K1 at Habitat's frame shape ---------------------------------------------
+    mean, std = constants.CLIP_MEAN, constants.CLIP_STD
+    lsb = 1.0 / 255.0 / min(std)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randint(0, 256, (W, 480, 640, 3), generator=g, device="cuda",
+                      dtype=torch.uint8)
+    k32 = K.fused_preprocess(x, 224, mean, std, dtype=torch.float32)
+    kbf = K.fused_preprocess(x, 224, mean, std, dtype=torch.bfloat16)
+    ref = K.fused_preprocess_reference(x, 224, mean, std, dtype=torch.float32)
+    err = (k32 - ref).abs()
+    flipped = float((err > 0.5 * lsb).float().mean())
+    check(float(err.max()) <= LSB_LIMIT * lsb and flipped < FLIP_LIMIT
+          and torch.equal(kbf, k32.to(torch.bfloat16)), "K1 at Habitat's frame shape")
+    pp_bytes, flops = preprocess_work(W, (480, 640), 224, 2)
+    bytes_ms, ops_ms = pp_bytes / card[1] * 1e3, flops / card[2] * 1e3
+    k1 = {"shape": list(x.shape), "max_err_lsb": float(err.max()) / lsb, "flipped": flipped,
+          "bit_equal": bool(torch.equal(k32, ref)),
+          "ms": cuda_ms(lambda: K.fused_preprocess(x, 224, mean, std), 200),
+          "plain_ms": cuda_ms(lambda: K.fused_preprocess_reference(x, 224, mean, std), 10),
+          "bound_ms": max(bytes_ms, ops_ms),
+          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    print(f"[10g] K1 at Habitat's frame shape {tuple(x.shape)} → 224 bf16: kernel "
+          f"{k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
+          f"by {k1['bound_by']}; max {k1['max_err_lsb']:.4f} LSB, flipped {flipped:.2e}, "
+          f"bit-equal to the plain version: {k1['bit_equal']}; {smi}")
+    out["k1_habitat_shape"] = k1
     return out
 
 
@@ -1142,7 +1556,10 @@ def main(argv) -> int:
     per_iter = {k: v for launches in ddppo["launches"].values() for k, v in launches.items()
                 if v}
 
-    # -- 10. results ---------------------------------------------------------------------
+    # -- 10. the host-simulator path: worker pools feeding the encoder and the learners ---
+    host = check_host_path(card, smi, profile)
+
+    # -- 11. results ---------------------------------------------------------------------
     src = "embodied_clip_tpu_torch/csrc/"
     pallas = "embodied_clip_tpu/ops/pallas/"
     rows = [{
@@ -1186,11 +1603,21 @@ def main(argv) -> int:
                       "cosine_vs_f32": {k: v for k, v in imagenet_cos.items()},
                       "card": smi}))
     held = {k: v for calls in ddppo["rollout_calls_held"].values() for k, v in calls.items()}
+    host_held = {k: v for calls in host["rollout_calls_held"].values()
+                 for k, v in calls.items()}
+    host_per_iter = {**host["ppo_int8"]["launches"],
+                     **{k: v for k, v in host["launches"].items() if v}}
     for row in rows:
         row["launches_ddppo_iteration"] = per_iter.get(row["name"], 0)
         if row["name"] in held:
             row["ddppo_rollout_calls_held"] = held[row["name"]]
+        row["launches_host_ppo_iteration"] = host_per_iter.get(row["name"], 0)
+        if row["name"] in host_held:
+            row["host_rollout_calls_held"] = host_held[row["name"]]
+    rows[0]["host_habitat_shape"] = host["k1_habitat_shape"]  # K1
     print(json.dumps({"ddppo": {k: v for k, v in ddppo.items() if k != "k1_rollout_shape"},
+                      "card": smi}))
+    print(json.dumps({"host": {k: v for k, v in host.items() if k != "k1_habitat_shape"},
                       "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -13,7 +13,9 @@ carries the JAX package's `{params, batch_stats}` across, inverting the layout r
 (inverting `embodied_clip_tpu/models/convert.py:57-76`). `from_flax_qtrunk` carries a
 JAX quantized trunk (`qtrunk`, CLIP or torchvision) across as it is, in HWIO.
 `from_flax_policy_params` carries the JAX `ActorCritic` params (or a gradient tree of
-the same shape) into the port's `models/policy.ActorCritic` state_dict.
+the same shape) into the port's `models/policy.ActorCritic` state_dict, and
+`from_flax_allenact_params` the JAX `AllenActResnetPolicy` params into the allenact
+state_dict that the port's `models/allenact_policy.AllenActResnetPolicy` loads.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 __all__ = ["from_flax_variables", "from_flax_resnet_variables", "from_flax_qtrunk",
-           "from_flax_policy_params", "load_torch_checkpoint", "visual_state_dict"]
+           "from_flax_policy_params", "from_flax_allenact_params", "load_torch_checkpoint", "visual_state_dict"]
 
 
 def _t(v) -> torch.Tensor:
@@ -158,6 +160,49 @@ def from_flax_policy_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor
                                              for g in ("hr", "hz", "hn")]))
     hn_b = np.asarray(gru["hn"]["bias"], np.float32)
     sd["gru.bias_hh"] = _t(np.concatenate([np.zeros(2 * hn_b.size, np.float32), hn_b]))
+    return sd
+
+
+def from_flax_allenact_params(params: Mapping[str, Any], grid: int = 7
+                              ) -> Dict[str, torch.Tensor]:
+    """JAX `AllenActResnetPolicy` params (`embodied_clip_tpu/models/allenact_policy.py`)
+    → allenact's ResnetTensorNavActorCritic state_dict, inverting the JAX converter
+    (`convert_allenact_state_dict`). The JAX module flattens the combiner's output in
+    HWC order, allenact in CHW order: the visual columns of the GRU's input weights go
+    back through `perm[hwc] = chw` (the JAX `_chw_to_hwc_perm`), the prev-action columns
+    follow in order. flax's GRUCell folds allenact's two r/z biases into one, which
+    lands in bias_ih (bias_hh's r/z rows are 0: the same function)."""
+    pre = "goal_visual_encoder."
+    sd: Dict[str, torch.Tensor] = {f"{pre}embed_goal.weight": _t(params["embed_goal"]["embedding"])}
+    for name, mod in (("compress1", "resnet_compressor.0"), ("compress2", "resnet_compressor.2"),
+                      ("combine1", "target_obs_combiner.0"),
+                      ("combine2", "target_obs_combiner.2")):
+        sd[f"{pre}{mod}.weight"] = _t(np.asarray(params[name]["kernel"]).transpose(3, 2, 0, 1))
+        sd[f"{pre}{mod}.bias"] = _t(params[name]["bias"])
+    c = np.asarray(params["combine2"]["kernel"]).shape[-1]
+    perm = np.arange(c * grid * grid).reshape(c, grid, grid).transpose(1, 2, 0).reshape(-1)
+    gru = params["gru"]
+
+    def input_rows(gate):
+        k = np.asarray(gru[gate]["kernel"]).T  # (H, F) with the visual columns in HWC order
+        w = np.empty_like(k)
+        w[:, perm] = k[:, :perm.size]
+        w[:, perm.size:] = k[:, perm.size:]
+        return w
+
+    rnn = "state_encoders.single_belief.rnn."
+    sd[rnn + "weight_ih_l0"] = _t(np.concatenate([input_rows(g) for g in ("ir", "iz", "in")]))
+    sd[rnn + "weight_hh_l0"] = _t(np.concatenate([np.asarray(gru[g]["kernel"]).T
+                                                  for g in ("hr", "hz", "hn")]))
+    sd[rnn + "bias_ih_l0"] = _t(np.concatenate([np.asarray(gru[g]["bias"])
+                                                for g in ("ir", "iz", "in")]))
+    hn_b = np.asarray(gru["hn"]["bias"], np.float32)
+    sd[rnn + "bias_hh_l0"] = _t(np.concatenate([np.zeros(2 * hn_b.size, np.float32), hn_b]))
+    for name, mod in (("actor", "actor.linear"), ("critic", "critic.fc")):
+        sd[f"{mod}.weight"] = _t(np.asarray(params[name]["kernel"]).T)
+        sd[f"{mod}.bias"] = _t(params[name]["bias"])
+    if "embed_prev_action" in params:
+        sd["prev_action_embedder.fc.weight"] = _t(params["embed_prev_action"]["embedding"])
     return sd
 
 

@@ -26,7 +26,7 @@ from embodied_clip_tpu_torch.training.optim import ClippedAdam
 from embodied_clip_tpu_torch.training.ppo import PPOConfig, Rollout, compute_gae, ppo_loss
 from embodied_clip_tpu_torch.training.rollout import ActState, collect_rollout, init_act_state
 
-__all__ = ["DDPPOConfig", "DDPPOLearner", "iter_minibatches"]
+__all__ = ["DDPPOConfig", "DDPPOLearner", "iter_minibatches", "ppo_update"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +55,37 @@ def iter_minibatches(m: int, rollout: Rollout, advantages, returns):
         yield rollout.envs(sl), advantages[:, sl], returns[:, sl]
 
 
+def ppo_update(policy, tx: ClippedAdam, cfg: DDPPOConfig, rollout: Rollout,
+               last_value: torch.Tensor, own: slice, global_batch: int
+               ) -> Dict[str, torch.Tensor]:
+    """GAE, then K epochs × m minibatches of PPO on this process's share of each global
+    minibatch; gradients summed over processes before the clipped Adam step. `rollout`
+    holds the envs `own` (a slice of the `global_batch` envs of all processes). Returns
+    the last minibatch's loss metrics (global)."""
+    ppo = cfg.ppo
+    advantages, returns = compute_gae(rollout.rewards, rollout.values, rollout.dones,
+                                      last_value, ppo.gamma, ppo.gae_lambda,
+                                      valid=rollout.valid)
+    params = list(policy.parameters())
+    metrics = {}
+    for _ in range(ppo.epochs):
+        for sl in _minibatch_slices(global_batch, cfg.num_minibatches):
+            lo = min(max(sl.start, own.start), own.stop) - own.start
+            hi = max(min(sl.stop, own.stop), own.start) - own.start
+            loss, metrics = ppo_loss(policy, rollout.envs(slice(lo, hi)),
+                                     advantages[:, lo:hi], returns[:, lo:hi], ppo,
+                                     reduce=mesh.all_sum)
+            for p in params:
+                p.grad = None
+            loss.backward()
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+            mesh.all_sum_(grads)
+            tx.step(grads)
+    names = list(metrics)
+    summed = mesh.all_sum(torch.stack([metrics[k] for k in names]))
+    return dict(zip(names, summed))
+
+
 class DDPPOLearner:
     """Owns the policy (moved to `device`), its optimizer (`tx`) and this process's env
     slice. `init` → `train_iteration` (= `collect` + `update`) …"""
@@ -81,33 +112,10 @@ class DDPPOLearner:
                                self.encode_fn, reduce=mesh.all_sum)
 
     def update(self, rollout: Rollout, last_value: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """GAE, then K epochs × m minibatches of PPO on this process's share of each
-        global minibatch; gradients summed over processes before the clipped Adam step.
-        Returns the last minibatch's loss metrics (global)."""
-        ppo = self.cfg.ppo
-        advantages, returns = compute_gae(rollout.rewards, rollout.values, rollout.dones,
-                                          last_value, ppo.gamma, ppo.gae_lambda,
-                                          valid=rollout.valid)
-        own = self.envs
-        params = list(self.policy.parameters())
-        metrics = {}
-        for _ in range(ppo.epochs):
-            for sl in _minibatch_slices(self.cfg.env_batch, self.cfg.num_minibatches):
-                lo = min(max(sl.start, own.start), own.stop) - own.start
-                hi = max(min(sl.stop, own.stop), own.start) - own.start
-                loss, metrics = ppo_loss(self.policy, rollout.envs(slice(lo, hi)),
-                                         advantages[:, lo:hi], returns[:, lo:hi], ppo,
-                                         reduce=mesh.all_sum)
-                for p in params:
-                    p.grad = None
-                loss.backward()
-                grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                         for p in params]
-                mesh.all_sum_(grads)
-                self.tx.step(grads)
-        names = list(metrics)
-        summed = mesh.all_sum(torch.stack([metrics[k] for k in names]))
-        return dict(zip(names, summed))
+        """`ppo_update` of this process's env slice. Returns the last minibatch's loss
+        metrics (global)."""
+        return ppo_update(self.policy, self.tx, self.cfg, rollout, last_value, self.envs,
+                          self.cfg.env_batch)
 
     def train_iteration(self, act: ActState, generator: torch.Generator
                         ) -> Tuple[ActState, Dict[str, torch.Tensor]]:

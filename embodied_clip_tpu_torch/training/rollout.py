@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from embodied_clip_tpu_torch.training.ppo import Rollout
 
-__all__ = ["ActState", "init_act_state", "collect_rollout", "sample_actions"]
+__all__ = ["ActState", "init_act_state", "collect_rollout", "policy_obs", "sample_actions"]
 
 
 class ActState(NamedTuple):
@@ -48,10 +48,14 @@ def sample_actions(logits: torch.Tensor, generator: torch.Generator) -> torch.Te
     return torch.multinomial(logits.softmax(-1), 1, generator=generator)[:, 0]
 
 
-def _policy_obs(obs, prev_action, encode_fn):
+def policy_obs(obs, prev_action, encode_fn=None, goal_map_fn=None):
+    """The policy's inputs: `obs` with its frames encoded (`encode_fn`), its goals mapped
+    (`goal_map_fn`) and the previous actions."""
     o = dict(obs)
     if encode_fn is not None:
         o["visual"] = encode_fn(o["visual"])
+    if goal_map_fn is not None:
+        o["goal"] = goal_map_fn(o["goal"])
     o["prev_action"] = prev_action
     return o
 
@@ -81,7 +85,7 @@ def collect_rollout(env, policy, act: ActState, num_steps: int, generator: torch
     infos = {k: new(torch.float32) for k in ("done", "success", "spl", "episode_len")}
     h0 = act.h
     for t in range(num_steps):
-        obs_in = _policy_obs(act.obs, act.prev_action, encode_fn)
+        obs_in = policy_obs(act.obs, act.prev_action, encode_fn)
         for k, v in obs_in.items():
             if k not in buf:
                 buf[k] = new(v.dtype, *v.shape[1:])
@@ -98,7 +102,7 @@ def collect_rollout(env, policy, act: ActState, num_steps: int, generator: torch
         act = ActState(env_state, obs, h, prev_action, done)
 
     # Bootstrap value for the state after the last step.
-    _, last_value, _ = policy(_policy_obs(act.obs, act.prev_action, encode_fn), act.h,
+    _, last_value, _ = policy(policy_obs(act.obs, act.prev_action, encode_fn), act.h,
                               act.is_start)
     rollout = Rollout(obs=buf, is_start=starts, actions=actions, log_probs=logps,
                       values=values, rewards=rewards, dones=dones, h0=h0)

@@ -562,3 +562,45 @@ def test_fused_preprocess_kernel_at_the_rollout_shape(cuda):
     assert float(err.max()) <= 1.5 * lsb
     assert float((err > 0.5 * lsb).float().mean()) < 1e-3
     assert torch.equal(got_bf16, got.to(torch.bfloat16))
+
+
+def test_host_act_steps_with_the_ring_after_cuda_is_up(cuda):
+    """The host-simulator path on the card: a 2-worker `VectorEnv` of `HostGridNav`
+    started after CUDA is up (its workers come from the fork server, which holds no CUDA
+    context) with the shared-memory ring live, one `collect` of 3 steps through the bf16
+    folded `clip_rn_tiny` encoder: T + 1 encodes a collect, each launching K1 and K7
+    once; the stored features on the card, finite; a worker SIGKILLed between collects
+    is respawned and its next transition masked invalid."""
+    from embodied_clip_tpu_torch.envs.vector import VectorEnv
+    from embodied_clip_tpu_torch.models.policy import ActorCritic
+    from embodied_clip_tpu_torch.native.frame_ring import frame_ring_available
+    from embodied_clip_tpu_torch.training.frames import frozen_encode_fn
+    from embodied_clip_tpu_torch.training.host_rollout import HostRolloutCollector
+
+    import torch_host_cases as H
+
+    fe, is_map = frozen_encode_fn("clip_rn_tiny", torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()  # CUDA is up before the pool starts
+    assert frame_ring_available()
+    venv = VectorEnv(H.hostgrid_fns(range(2)), frame_shape=H.FRAME)
+    try:
+        assert venv.ring is not None
+        policy = ActorCritic(6, fe.feature_shape, hidden=32, visual_is_map=is_map).cuda()
+        col = HostRolloutCollector(venv, policy, encode_fn=fe, device="cuda")
+        col.reset(0)
+        counted = (K.fused_preprocess, BK.fused_stage1)
+        start = [f.launches for f in counted]
+        roll, last, _ = col.collect(3)
+        torch.cuda.synchronize()
+        assert [f.launches - s for f, s in zip(counted, start)] == [4, 4]
+        v = roll.obs["visual"]
+        assert v.is_cuda and v.shape == (3, 2) + fe.feature_shape
+        assert bool(torch.isfinite(v.float()).all()) and bool(torch.isfinite(last).all())
+        assert bool(roll.valid.all())
+        venv.procs[1].kill()
+        venv.procs[1].join(timeout=5)
+        roll, _, _ = col.collect(3)
+        assert venv.respawn_count == 1 and venv.procs[1].is_alive()
+        assert not bool(roll.valid[:, 1].all()) and bool(roll.valid[:, 0].all())
+    finally:
+        venv.close()
