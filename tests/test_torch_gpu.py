@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1–K7) on the card, each held to its plain PyTorch
 version at small shapes and at the main path's widths, with the JAX package's contracts
-(K6/K7: `parity.bf16_disagreement`).
+(K6/K7: `parity.bf16_disagreement`); the DD-PPO iteration and the host act steps with
+the encoder on the card.
 
 Marked `gpu`: each test skips where no CUDA device is present (decided inside the
 test). This file imports no JAX, so it runs on a machine without it:
