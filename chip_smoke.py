@@ -72,23 +72,27 @@ Phases:
      started from its fork server after CUDA is up, frames through the shared-memory
      ring, checked live) of the port's THOR adapters over `tests/fake_thor.py`'s
      scripted controller (the only THOR here; ai2thor is not installed) at 300×300,
-     feeding the bf16 folded `clip_rn50` and the allenact policy (hidden 512):
+     feeding the bf16 folded `clip_rn50` and the allenact policy (hidden 512), the host
+     learners' collectives in a one-process NCCL group:
      (a) `HostPPOLearner`, rollout 64, 4 epochs, 3 iterations: loss finite, weights
      changed, launches per iteration K1 = K7 = 65 and K6 = 650, the stored features of
      act step 0 within 1e-3 cosine of the f32 unfolded encoder on the same frames, every
      K6/K7 call of one act-step encode (batch 8) held to its plain version with phase
-     7's contract, the act / env_step / update split, env-steps/s, the encode's share
-     of the act step, peak device memory (`--profile`: the device-busy share of one
-     rollout and one update); (c) one iteration on int8 path A (K1, K2, K3 65, K5 195):
-     the stored features equal to the encoder's output on the same frames, the encoder
-     at batch 8 within `INT8_COSINE_LIMITS` on golden_frames(8), the stored features'
-     distance to f32 printed beside the plain int8 graph's (the scripted controller's
-     flat frames put both far from f32), every K2/K3/K5 call of one act-step encode held
-     with phase 5's contracts; (d) a worker SIGKILLed at act step 20:
-     respawned, its step and the respawned worker's first step masked invalid (the
-     latter done), the update runs; (e) `evaluate_policy_host` (deterministic, val
-     scenes) delivers 16 episodes, written by `write_metrics_json` and scored by
-     `compute_scores`; (b) 2 pipelined groups of 8 workers, 2 iterations (launches
+     7's contract, K1 at the act step's shape (8, 300, 300) → 224 held to its plain
+     version and timed, the act / env_step / update split, env-steps/s, the encode's
+     share of the act step, peak device memory (`--profile`: the device-busy share of
+     one rollout and one update); (c) one iteration on int8 path A (K1, K2, K3 65, K5
+     195): the stored features equal to the encoder's output on the same frames, the
+     encoder at batch 8 within `INT8_COSINE_LIMITS` on golden_frames(8), the stored
+     features' distance to f32 printed beside the plain int8 graph's (the scripted
+     controller's flat frames put both far from f32), and held within 1e-3 cosine
+     (`INT8_PLAIN_GRAPH_LIMIT`) of the plain int8 graph fed by the same stem (K2) on the
+     same frames, the distance to the plain graph with its own stem printed beside it;
+     every K2/K3/K5 call of one act-step encode held with phase 5's contracts; (d) a
+     worker SIGKILLed at act step 20: respawned, its step and the respawned worker's
+     first step masked invalid (the latter done), the update runs; (e)
+     `evaluate_policy_host` (deterministic, val scenes) delivers 16 episodes, written by
+     `write_metrics_json` and scored by `compute_scores`; (b) 2 pipelined groups of 8 workers, 2 iterations (launches
      doubled), env-steps/s beside (a) and (c); (f) `HostDAggerLearner` on the 1-phase
      `THORRearrangeEnv` (both views encoded: K1 = K7 = 128, K6 = 1280 an iteration of
      64 steps; a 4096-channel map), 2 iterations with the aggregate of 2 rollouts in
@@ -126,6 +130,9 @@ INT8_COSINE_LIMITS = {"clip_conv": 2e-3, "clip_avgpool": 1e-3, "clip_attnpool": 
 # imagenet_rn50 is at 1.357e-3 on the conv map and 5.8e-5 on the pooled key
 # (tests/test_torch_quantize.py::test_imagenet_rn50_int8_fidelity_matches_jax).
 IMAGENET_INT8_COSINE_LIMITS = {"imagenet_conv": 1.5e-3, "imagenet_avgpool": 1e-3}
+# int8 path A's features vs the plain int8 graph fed by the same stem (K2) on the same
+# frames: the limit at which tests/test_torch_gpu.py holds the int8 paths to the plain graph.
+INT8_PLAIN_GRAPH_LIMIT = 1e-3
 STEP_LIMIT, STEP_SHARE_LIMIT = 1, 0.005  # K2, K3 vs plain (tests/test_stem_kernel.py:43)
 # Launches per request on each int8 path (clip_rn50: 3 identity runs, 12 boundaries).
 PER_REQUEST = {"A": {"fused_preprocess": 1, "stem3_requant_pool_int8": 1,
@@ -662,6 +669,39 @@ def hold_rollout_calls(fe, frames, label, phase="9"):
     return held
 
 
+def hold_k1(x, card, smi, tag, what):
+    """Phases 9 and 10: K1 on the uint8 frames `x` (on the card) → 224 held to its plain
+    version (≤LSB_LIMIT uint8 LSB with <FLIP_LIMIT of pixels flipped, the bf16 output
+    equal to the f32 output cast) and timed beside its bound."""
+    import torch
+
+    from embodied_clip_tpu_torch import constants
+    from embodied_clip_tpu_torch.ops.kernels import preprocess_kernel as K
+
+    mean, std = constants.CLIP_MEAN, constants.CLIP_STD
+    lsb = 1.0 / 255.0 / min(std)
+    k32 = K.fused_preprocess(x, 224, mean, std, dtype=torch.float32)
+    kbf = K.fused_preprocess(x, 224, mean, std, dtype=torch.bfloat16)
+    ref = K.fused_preprocess_reference(x, 224, mean, std, dtype=torch.float32)
+    err = (k32 - ref).abs()
+    flipped = float((err > 0.5 * lsb).float().mean())
+    check(float(err.max()) <= LSB_LIMIT * lsb and flipped < FLIP_LIMIT
+          and torch.equal(kbf, k32.to(torch.bfloat16)), f"K1 at {what}")
+    pp_bytes, flops = preprocess_work(x.shape[0], tuple(x.shape[1:3]), 224, 2)
+    bytes_ms, ops_ms = pp_bytes / card[1] * 1e3, flops / card[2] * 1e3
+    k1 = {"shape": list(x.shape), "bit_equal": bool(torch.equal(k32, ref)),
+          "max_err_lsb": float(err.max()) / lsb, "flipped": flipped,
+          "ms": cuda_ms(lambda: K.fused_preprocess(x, 224, mean, std), 200),
+          "plain_ms": cuda_ms(lambda: K.fused_preprocess_reference(x, 224, mean, std), 10),
+          "bound_ms": max(bytes_ms, ops_ms),
+          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    print(f"[{tag}] K1 at {what} {tuple(x.shape)} → 224 bf16: kernel {k1['ms']:.4f} ms, "
+          f"plain {k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms by "
+          f"{k1['bound_by']}; max {k1['max_err_lsb']:.4f} LSB, flipped {flipped:.2e}, "
+          f"bit-equal to the plain version: {k1['bit_equal']}; {smi}")
+    return k1
+
+
 def check_ddppo(card, smi, profile, turns=1):
     """Phase 9: the DD-PPO step at full width with the frozen encoder in the rollout.
     The bf16 run takes a first iteration, then `turns` times (plain, instrumented,
@@ -670,7 +710,6 @@ def check_ddppo(card, smi, profile, turns=1):
     import torch
     import torch.distributed as dist
 
-    from embodied_clip_tpu_torch import constants
     from embodied_clip_tpu_torch.envs.gridworld import GridNavEnv
     from embodied_clip_tpu_torch.models.encoders import build_encoder
     from embodied_clip_tpu_torch.models.policy import ActorCritic
@@ -837,29 +876,7 @@ def check_ddppo(card, smi, profile, turns=1):
     run("int8", True, (True,))
 
     # K1 at the rollout's shape: 32 frames of 56x56, upscaled to 224.
-    mean, std = constants.CLIP_MEAN, constants.CLIP_STD
-    lsb = 1.0 / 255.0 / min(std)
-    k32 = K.fused_preprocess(frames, 224, mean, std, dtype=torch.float32)
-    kbf = K.fused_preprocess(frames, 224, mean, std, dtype=torch.bfloat16)
-    ref = K.fused_preprocess_reference(frames, 224, mean, std, dtype=torch.float32)
-    err = (k32 - ref).abs()
-    flipped = float((err > 0.5 * lsb).float().mean())
-    check(float(err.max()) <= LSB_LIMIT * lsb and flipped < FLIP_LIMIT
-          and torch.equal(kbf, k32.to(torch.bfloat16)), "K1 at the rollout's shape")
-    pp_bytes, flops = preprocess_work(frames.shape[0], tuple(frames.shape[1:3]), 224, 2)
-    bytes_ms, ops_ms = pp_bytes / card[1] * 1e3, flops / card[2] * 1e3
-    b_ms, b_by = max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
-    k1 = {"shape": list(frames.shape), "bit_equal": bool(torch.equal(k32, ref)),
-          "max_err_lsb": float(err.max()) / lsb, "flipped": flipped,
-          "ms": cuda_ms(lambda: K.fused_preprocess(frames, 224, mean, std), 200),
-          "plain_ms": cuda_ms(lambda: K.fused_preprocess_reference(frames, 224, mean, std),
-                              10),
-          "bound_ms": b_ms, "bound_by": b_by}
-    print(f"[9] K1 at the rollout's shape {tuple(frames.shape)} → 224 bf16: kernel "
-          f"{k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
-          f"max {k1['max_err_lsb']:.4f} LSB, flipped {flipped:.2e}, bit-equal to the plain "
-          f"version: {k1['bit_equal']}; {smi}")
-    out["k1_rollout_shape"] = k1
+    out["k1_rollout_shape"] = hold_k1(frames, card, smi, "9", "the rollout's shape")
     dist.destroy_process_group()
     return out
 
@@ -920,6 +937,7 @@ def check_host_path(card, smi, profile):
 
     import numpy as np
     import torch
+    import torch.distributed as dist
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -934,6 +952,8 @@ def check_host_path(card, smi, profile):
     from embodied_clip_tpu_torch.ops.kernels import preprocess_kernel as K
     from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
     from embodied_clip_tpu_torch.ops.quantize import KERNELS_OFF
+    from embodied_clip_tpu_torch.parallel.distributed import initialize_distributed
+    from embodied_clip_tpu_torch.parallel.dryrun import free_port
     from embodied_clip_tpu_torch.parity import cosine_distance, golden_frames
     from embodied_clip_tpu_torch.training.dagger import DAggerConfig, HostDAggerLearner
     from embodied_clip_tpu_torch.training.ddppo import DDPPOConfig
@@ -1014,6 +1034,11 @@ def check_host_path(card, smi, profile):
                                   "episodes")} | {"encode_ms": enc_ms,
                                                   "encode_share_of_act": share}
 
+    # The host learners' collectives (the global env count, the weights' broadcast, the
+    # batch statistics and the gradient all-reduce) run through NCCL on the card.
+    check(initialize_distributed(f"localhost:{free_port()}", 1, 0, device="cuda")
+          and dist.get_backend() == "nccl", "a one-process NCCL group")
+    print(f"[10] torch.distributed: {dist.get_backend()} group of {dist.get_world_size()}")
     pools = []
     try:
         fe, is_map = frozen_encode_fn("clip_rn50", torch.bfloat16, device="cuda")
@@ -1052,6 +1077,7 @@ def check_host_path(card, smi, profile):
                            "peak_above_start_gib": peak - resident / 2 ** 30}
         out["env_steps_per_s"]["a_bf16_1_group"] = [r["env_steps_per_s"] for r in rows]
         out["rollout_calls_held"]["bf16"] = hold_rollout_calls(fe, frames, "bf16", "10a")
+        out["k1_act_step_shape"] = hold_k1(frames, card, smi, "10a", "the act step's shape")
         if profile:
             busy = {}
             with torch_profile(activities=[ProfilerActivity.CPU,
@@ -1104,13 +1130,37 @@ def check_host_path(card, smi, profile):
                   f"{k} {v:.3e} (limit {INT8_COSINE_LIMITS[k]:g})" for k, v in cos8.items()))
         check(all(v <= INT8_COSINE_LIMITS[k] for k, v in cos8.items()),
               f"(c) int8 encoder at batch 8 within {INT8_COSINE_LIMITS}")
+        # The whole encode on the act step's frames: path A against the plain graph fed
+        # by the same stem (K2, whose call is held below), so a fault of K3 or K5 or of
+        # their chaining fails the run. The plain graph with its own stem is reported
+        # beside it: it rounds the stem3 conv to bf16 before the requant, which K2 does
+        # not, and on flat frames a flipped requant flips whole regions.
         ref8 = f32.encode(frames8)["clip_conv"]
         plain = fe8.encoder.with_kernels(**KERNELS_OFF).encode(frames8)["clip_conv"]
+        zero_counts()
+        k2_plain = fe8.encoder.with_kernels(**{**KERNELS_OFF, "kernel_stem": True}).encode(
+            frames8)["clip_conv"]
+        torch.cuda.synchronize()
+        check({k: fn.launches for k, fn in counted.items() if fn.launches}
+              == {"fused_preprocess": 1, "stem3_requant_pool_int8": 1},
+              "(c) the plain graph fed by K2 launches K1 and K2 alone")
         cos_env = {"path_a": cosine_distance(stored8, ref8),
-                   "plain_graph": cosine_distance(plain, ref8)}
+                   "plain_graph": cosine_distance(plain, ref8),
+                   "path_a_vs_plain_graph_after_k2": cosine_distance(stored8, k2_plain),
+                   "path_a_vs_plain_graph": cosine_distance(stored8, plain),
+                   "plain_graph_after_k2_vs_plain_graph": cosine_distance(k2_plain, plain)}
         print(f"[10c int8] stored clip_conv of act step 0 vs the f32 unfolded encoder on "
               f"the same {tuple(frames8.shape)} frames: cosine {cos_env['path_a']:.3e}; the "
               f"plain int8 graph (no kernel) on them: {cos_env['plain_graph']:.3e}")
+        print(f"[10c int8] stored clip_conv vs the plain int8 graph fed by K2's stem: "
+              f"{cos_env['path_a_vs_plain_graph_after_k2']:.3e} (limit "
+              f"{INT8_PLAIN_GRAPH_LIMIT:g}); vs the plain graph with its own stem: "
+              f"{cos_env['path_a_vs_plain_graph']:.3e}, of which the two stems alone (the "
+              f"plain graph after K2 vs the plain graph): "
+              f"{cos_env['plain_graph_after_k2_vs_plain_graph']:.3e}")
+        check(cos_env["path_a_vs_plain_graph_after_k2"] <= INT8_PLAIN_GRAPH_LIMIT,
+              f"(c) the stored features within {INT8_PLAIN_GRAPH_LIMIT:g} of the plain int8 "
+              "graph fed by K2 on the act step's frames")
         out["ppo_int8"] = row8 | {"cosine_vs_f32_golden8": cos8,
                                   "cosine_vs_f32_rollout_frames": cos_env, "launches": got8}
         out["env_steps_per_s"]["c_int8_1_group"] = [m["env_steps_per_s"]]
@@ -1229,33 +1279,13 @@ def check_host_path(card, smi, profile):
     finally:
         for p in pools:
             p.close()
+        dist.destroy_process_group()
 
     # -- (g) K1 at Habitat's frame shape ---------------------------------------------
-    mean, std = constants.CLIP_MEAN, constants.CLIP_STD
-    lsb = 1.0 / 255.0 / min(std)
     g = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randint(0, 256, (W, 480, 640, 3), generator=g, device="cuda",
                       dtype=torch.uint8)
-    k32 = K.fused_preprocess(x, 224, mean, std, dtype=torch.float32)
-    kbf = K.fused_preprocess(x, 224, mean, std, dtype=torch.bfloat16)
-    ref = K.fused_preprocess_reference(x, 224, mean, std, dtype=torch.float32)
-    err = (k32 - ref).abs()
-    flipped = float((err > 0.5 * lsb).float().mean())
-    check(float(err.max()) <= LSB_LIMIT * lsb and flipped < FLIP_LIMIT
-          and torch.equal(kbf, k32.to(torch.bfloat16)), "K1 at Habitat's frame shape")
-    pp_bytes, flops = preprocess_work(W, (480, 640), 224, 2)
-    bytes_ms, ops_ms = pp_bytes / card[1] * 1e3, flops / card[2] * 1e3
-    k1 = {"shape": list(x.shape), "max_err_lsb": float(err.max()) / lsb, "flipped": flipped,
-          "bit_equal": bool(torch.equal(k32, ref)),
-          "ms": cuda_ms(lambda: K.fused_preprocess(x, 224, mean, std), 200),
-          "plain_ms": cuda_ms(lambda: K.fused_preprocess_reference(x, 224, mean, std), 10),
-          "bound_ms": max(bytes_ms, ops_ms),
-          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    print(f"[10g] K1 at Habitat's frame shape {tuple(x.shape)} → 224 bf16: kernel "
-          f"{k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
-          f"by {k1['bound_by']}; max {k1['max_err_lsb']:.4f} LSB, flipped {flipped:.2e}, "
-          f"bit-equal to the plain version: {k1['bit_equal']}; {smi}")
-    out["k1_habitat_shape"] = k1
+    out["k1_habitat_shape"] = hold_k1(x, card, smi, "10g", "Habitat's frame shape")
     return out
 
 
@@ -1614,10 +1644,12 @@ def main(argv) -> int:
         row["launches_host_ppo_iteration"] = host_per_iter.get(row["name"], 0)
         if row["name"] in host_held:
             row["host_rollout_calls_held"] = host_held[row["name"]]
-    rows[0]["host_habitat_shape"] = host["k1_habitat_shape"]  # K1
+    rows[0]["host_act_step_shape"] = host["k1_act_step_shape"]  # K1
+    rows[0]["host_habitat_shape"] = host["k1_habitat_shape"]
     print(json.dumps({"ddppo": {k: v for k, v in ddppo.items() if k != "k1_rollout_shape"},
                       "card": smi}))
-    print(json.dumps({"host": {k: v for k, v in host.items() if k != "k1_habitat_shape"},
+    print(json.dumps({"host": {k: v for k, v in host.items()
+                               if k not in ("k1_act_step_shape", "k1_habitat_shape")},
                       "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -14,16 +14,15 @@ simulator never stalls the card.
 When a C++ shared-memory frame ring (native/frame_ring) is built, workers write frames
 directly into shared memory instead of pickling them through pipes.
 
-Workers start from a fork server by default (`start_method="forkserver"`), not by
-forking the caller as the JAX package does: by the time a learner builds its pool (or
-respawns a worker mid-training) its process holds a CUDA context and the threads of
-torch and the CUDA driver, and a fork of a threaded process can inherit a lock held by
-a thread that does not exist in the child. The fork server is a fresh interpreter,
-started on first use, that imports this module (and so torch, which initialises no
-CUDA) once; every worker, the respawned ones included, is forked from it, so it starts
-in milliseconds and never holds or touches a CUDA context. Env factories are therefore
-pickled: pass a class or a `functools.partial`, not a lambda. `start_method="fork"`
-remains for callers with no CUDA context.
+Workers start from a fork server, not by forking the caller as the JAX package does:
+by the time a learner builds its pool (or respawns a worker mid-training) its process
+holds a CUDA context and the threads of torch and the CUDA driver, and a fork of a
+threaded process can inherit a lock held by a thread that does not exist in the child.
+The fork server is a fresh interpreter, started on first use, that imports this module
+(and so torch, which initialises no CUDA) once; every worker, the respawned ones
+included, is forked from it, so it starts in milliseconds and never holds or touches a
+CUDA context. Env factories are therefore pickled: pass a class or a
+`functools.partial`, not a lambda.
 """
 
 from __future__ import annotations
@@ -89,8 +88,7 @@ class VectorEnv:
 
     def __init__(self, env_fns: Sequence[Callable], frame_shape: Optional[Tuple[int, int, int]] = None,
                  cutoff_fraction: float = 1.0, cutoff_timeout_s: float = 30.0,
-                 respawn_timeout_s: float = 60.0, start_method: str = "forkserver",
-                 max_steps: Optional[int] = None):
+                 respawn_timeout_s: float = 60.0, max_steps: Optional[int] = None):
         """`max_steps` is the envs' episode horizon, where the caller knows it
         (`training/evaluate.evaluate_policy_host` sizes its step budget from it)."""
         self.n = len(env_fns)
@@ -101,10 +99,9 @@ class VectorEnv:
         # straggler; one silent past THIS deadline is declared dead and respawned
         self.respawn_timeout_s = respawn_timeout_s
         self._env_fns = list(env_fns)
-        self._ctx = mp.get_context(start_method)
-        if start_method == "forkserver":
-            # Takes effect when the server starts (the first pool of the process).
-            self._ctx.set_forkserver_preload([__name__])
+        self._ctx = mp.get_context("forkserver")
+        # Takes effect when the server starts (the first pool of the process).
+        self._ctx.set_forkserver_preload([__name__])
         self.ring = None
         self._ring_info = None
         if frame_shape is not None and frame_ring_available():

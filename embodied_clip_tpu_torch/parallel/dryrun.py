@@ -4,7 +4,8 @@
     python -c "from embodied_clip_tpu_torch.parallel import dryrun; dryrun.dryrun_multichip(2)"
 
 `run_ranks(n, fn, *args)` starts n spawned processes joined in a gloo group on a free
-localhost port, runs `fn(*args)` in each and returns their results in rank order.
+localhost port (an NCCL group, one card a process, with `device="cuda"`), runs
+`fn(*args)` in each and returns their results in rank order.
 `dryrun_multichip(n)` runs one DD-PPO iteration in n such processes at tiny shapes
 (GridNav size 5, episodes of 8 steps, hidden 32, rollout 2, 2 envs a process, 1 epoch).
 """
@@ -27,7 +28,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(fn, rank: int, n: int, port: int, args, results) -> None:
+def _rank_main(fn, rank: int, n: int, port: int, args, results, device) -> None:
     import torch
     import torch.distributed as dist
 
@@ -35,7 +36,7 @@ def _rank_main(fn, rank: int, n: int, port: int, args, results) -> None:
 
     torch.set_num_threads(1)
     try:
-        initialize_distributed(f"localhost:{port}", n, rank, device="cpu")
+        initialize_distributed(f"localhost:{port}", n, rank, device=device)
         results.put((rank, True, fn(*args)))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
@@ -45,13 +46,15 @@ def _rank_main(fn, rank: int, n: int, port: int, args, results) -> None:
             dist.destroy_process_group()
 
 
-def run_ranks(n: int, fn: Callable, *args, timeout: float = 300.0) -> List[Any]:
-    """`fn(*args)` in n gloo processes (fn and args must pickle); results in rank
-    order. Raises if a process fails or the run outlasts `timeout` seconds."""
+def run_ranks(n: int, fn: Callable, *args, timeout: float = 300.0,
+              device: str = "cpu") -> List[Any]:
+    """`fn(*args)` in n processes (fn and args must pickle), joined by gloo, or by NCCL
+    with rank r on card r when `device` is "cuda"; results in rank order. Raises if a
+    process fails or the run outlasts `timeout` seconds."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=_rank_main, args=(fn, r, n, port, args, results),
+    procs = [ctx.Process(target=_rank_main, args=(fn, r, n, port, args, results, device),
                          daemon=True) for r in range(n)]
     for p in procs:
         p.start()

@@ -51,7 +51,9 @@ class HostPPOLearner:
         self.venv = self.collector.venv
         self.num_envs = self.collector.num_envs
         self.envs = slice(env_id_offset, env_id_offset + self.num_envs)  # global ids
-        self.global_envs = int(mesh.all_sum(torch.tensor(self.num_envs)))
+        # On the learner's device: NCCL, the group's backend on the card, reduces no
+        # host tensor.
+        self.global_envs = int(mesh.all_sum(torch.tensor(self.num_envs, device=self.device)))
         self.tx = ClippedAdam(self.policy.parameters(), cfg.ppo.lr, cfg.ppo.max_grad_norm,
                               cfg.ppo.lr_decay_updates)
 

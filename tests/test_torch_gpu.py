@@ -605,3 +605,40 @@ def test_host_act_steps_with_the_ring_after_cuda_is_up(cuda):
         assert not bool(roll.valid[:, 1].all()) and bool(roll.valid[:, 0].all())
     finally:
         venv.close()
+
+
+def test_host_ppo_in_two_nccl_processes_equals_one(cuda):
+    """Multi-process host DD-PPO on the cards: pools of 3 and 2 envs (offsets 0 and 3) in
+    two processes joined by NCCL, one card each, update as one process with the pool of
+    5 does on one card (a rollout of the port's GridNav, 2 epochs × 3 minibatches, about
+    a fifth of the steps masked invalid): metrics within 1e-6, weights within 1e-6
+    wherever every step's gradient is at least 1e-6 and within 2·lr a step below
+    (`torch_rl_cases.assert_adam_close`)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from embodied_clip_tpu_torch.envs.gridworld import GridNavEnv
+    from embodied_clip_tpu_torch.parallel import dryrun
+    from embodied_clip_tpu_torch.training.ddppo import DDPPOConfig
+    from embodied_clip_tpu_torch.training.ppo import PPOConfig
+    from embodied_clip_tpu_torch.training.rollout import collect_rollout, init_act_state
+
+    import torch_host_cases as H
+    import torch_rl_cases as RC
+
+    T, B = 4, 5
+    env, pol = GridNavEnv(**RC.ENV_KW), RC.port_policy()
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        roll, last, _, _ = collect_rollout(env, pol, init_act_state(env, gen, B, RC.HIDDEN),
+                                           T, gen)
+    roll = roll._replace(valid=torch.from_numpy(RC.random_valid(T, B, seed=3)))
+    sd = pol.state_dict()
+    cfg = DDPPOConfig(rollout_len=T, num_minibatches=3, ppo=PPOConfig(epochs=2, lr=1e-3))
+    want_sd, want_m, grads = H.host_update_rank(sd, roll, last, cfg, (B,), "cuda")
+    ranks = dryrun.run_ranks(2, H.host_update_rank, sd, roll, last, cfg, (3, 2), "cuda",
+                             timeout=240, device="cuda")
+    grads = {k: torch.from_numpy(v) for k, v in grads.items()}
+    for got_sd, got_m, _ in ranks:
+        RC.assert_adam_close(got_sd, want_sd, grads, cfg.ppo.lr, 2 * 3)
+        for k in want_m:
+            assert abs(got_m[k] - want_m[k]) <= 1e-6, k

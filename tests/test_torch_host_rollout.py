@@ -187,8 +187,12 @@ def case():
     return C.jax_case(batch=B, steps=T)
 
 
-@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("m", [1, 2, 3])
 def test_host_ppo_update_matches_jax(case, m):
+    """Every weight within 1e-6 of JAX's at m = 1 and 3. At m = 2 one GRU input weight's
+    gradient falls below 1e-6 in a step (Adam's float32-noise regime), so m = 2 holds the
+    weights with `torch_rl_cases.assert_adam_close`: 1e-6 wherever every step's gradient
+    is at least 1e-6, 2·lr a step below."""
     jenv, jpol, _, params, _, jr, jlast, _, _ = case
     valid = C.random_valid(T, B, seed=5)
     ppo = dict(epochs=1, lr=3e-4)  # two epochs: test_torch_ddppo.py, the same ppo_update
@@ -200,13 +204,18 @@ def test_host_ppo_update_matches_jax(case, m):
     pol = C.port_policy(params)
     learner = HostPPOLearner(H.StubPool(B), pol, DDPPOConfig(
         rollout_len=T, num_minibatches=m, ppo=PPOConfig(**ppo)), device="cpu")
+    steps = C.record_steps(learner.tx)
     metrics = learner.update(C.to_port_rollout(jr, valid), C.t(jlast))
-    assert learner.tx.count == ppo["epochs"] * m
+    assert learner.tx.count == len(steps) == ppo["epochs"] * m
     for k in jm:
         assert abs(float(metrics[k]) - float(jm[k])) <= 1e-5, k
     want = from_flax_policy_params(C.tree_np(jp))
-    for name, p in pol.named_parameters():
-        torch.testing.assert_close(p.detach(), want[name], atol=1e-6, rtol=0, msg=name)
+    if m == 2:
+        got = {name: p.detach() for name, p in pol.named_parameters()}
+        C.assert_adam_close(got, want, C.min_abs_grads(pol, steps), ppo["lr"], len(steps))
+    else:
+        for name, p in pol.named_parameters():
+            torch.testing.assert_close(p.detach(), want[name], atol=1e-6, rtol=0, msg=name)
 
 
 def test_two_gloo_processes_with_offsets_equal_one(case):
@@ -215,10 +224,10 @@ def test_two_gloo_processes_with_offsets_equal_one(case):
     roll = C.to_port_rollout(jr, C.random_valid(T, B, seed=3))
     sd = C.port_policy(params).state_dict()
     cfg = DDPPOConfig(rollout_len=T, num_minibatches=3, ppo=PPOConfig(epochs=2, lr=1e-3))
-    want_sd, want_m = H.host_update_rank(sd, roll, C.t(jlast), cfg, (B,))
+    want_sd, want_m, _ = H.host_update_rank(sd, roll, C.t(jlast), cfg, (B,))
     ranks = dryrun.run_ranks(2, H.host_update_rank, sd, roll, C.t(jlast), cfg, (3, 2),
                              timeout=240)
-    for got_sd, got_m in ranks:
+    for got_sd, got_m, _ in ranks:
         for k in want_sd:
             np.testing.assert_allclose(got_sd[k], want_sd[k], atol=1e-6, rtol=0, err_msg=k)
         for k in want_m:

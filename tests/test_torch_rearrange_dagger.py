@@ -53,8 +53,8 @@ from embodied_clip_tpu_torch.training.optim import ClippedAdam
 
 import torch_host_cases as H
 from fake_thor import FakeController
+from torch_rl_cases import assert_adam_close, tree_np
 from torch_rl_cases import t as tt
-from torch_rl_cases import tree_np
 
 B = 4
 KW = dict(size=5, max_steps=12)
@@ -170,16 +170,13 @@ def _port_map_policy(params, num_actions=5):
 
 def _assert_update(pol, jparams, lr):
     """The weights after one step within 1e-6 of JAX's wherever the port's gradient (left
-    in `.grad` by `supervised_step`) is at least 1e-6. Below that, Adam's first step
-    g / (|g| + 1e-8) is set by float32 summation noise (the packages sum in different
-    orders), and the weight may move by up to lr either way: within 2·lr."""
-    want = from_flax_policy_params(tree_np(jparams))
-    for name, p in pol.named_parameters():
-        g = p.grad if p.grad is not None else torch.zeros_like(p)  # the critic: no loss
-        d = (p.detach() - want[name]).abs()
-        tiny = g.abs() < 1e-6
-        assert float(torch.where(tiny, 0.0, d).max()) <= 1e-6, name
-        assert float(torch.where(tiny, d, 0.0).max()) <= 2 * lr, name
+    in `.grad` by `supervised_step`) is at least 1e-6, within 2·lr below
+    (`torch_rl_cases.assert_adam_close`)."""
+    got = {name: p.detach() for name, p in pol.named_parameters()}
+    # The critic has no loss here, so no gradient.
+    grads = {name: (p.grad if p.grad is not None else torch.zeros_like(p)).abs()
+             for name, p in pol.named_parameters()}
+    assert_adam_close(got, from_flax_policy_params(tree_np(jparams)), grads, lr, 1)
 
 
 @pytest.mark.parametrize("weighted", [False, True])

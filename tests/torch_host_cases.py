@@ -12,6 +12,7 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from embodied_clip_tpu_torch.envs.host_gridworld import HostGridNav
 from embodied_clip_tpu_torch.envs.thor_rearrange import THORRearrangeEnv
@@ -159,22 +160,32 @@ def flat_encode(frames):
     return frames[:, ::8, ::8].float().flatten(1) / 255.0
 
 
-def host_update_rank(params_sd, rollout, last_value, cfg, sizes):
+def host_update_rank(params_sd, rollout, last_value, cfg, sizes, device="cpu"):
     """One process of a multi-process host DD-PPO update: this rank's pool of
     `sizes[rank]` envs at its `env_id_offset`, `HostPPOLearner.update` on its envs of the
-    global rollout. Returns (state_dict after, metrics) as numpy."""
+    global rollout, on `device` (on the card: TF32 off, cuDNN deterministic). Returns
+    (state_dict after, metrics, each parameter's smallest |gradient| over the steps) as
+    numpy."""
     from embodied_clip_tpu_torch.parallel import mesh
     from embodied_clip_tpu_torch.training.host_ppo import HostPPOLearner
-    from torch_rl_cases import port_policy
+    from torch_rl_cases import min_abs_grads, port_policy, record_steps
 
     r = mesh.rank()
     offset = sum(sizes[:r])
     pol = port_policy()
     pol.load_state_dict(params_sd)
     learner = HostPPOLearner(StubPool(sizes[r]), pol, cfg, env_id_offset=offset,
-                             device="cpu")
+                             device=device)
     assert learner.global_envs == sum(sizes)
-    own = slice(offset, offset + sizes[r])
-    metrics = learner.update(rollout.envs(own), last_value[own])
-    return ({k: v.numpy().copy() for k, v in pol.state_dict().items()},
-            {k: float(v) for k, v in metrics.items()})
+    own, dev = slice(offset, offset + sizes[r]), learner.device
+    mine = rollout.envs(own)
+    mine = mine._replace(**{f: v.to(dev) for f, v in mine._asdict().items()
+                            if isinstance(v, torch.Tensor)},
+                         obs={k: v.to(dev) for k, v in mine.obs.items()})
+    steps = record_steps(learner.tx)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        metrics = learner.update(mine, last_value[own].to(dev))
+    return ({k: v.cpu().numpy().copy() for k, v in pol.state_dict().items()},
+            {k: float(v) for k, v in metrics.items()},
+            {k: v.numpy() for k, v in min_abs_grads(pol, steps).items()})

@@ -113,3 +113,35 @@ def update_rank(params_sd, rollout: Rollout, last_value, cfg):
     metrics = learner.update(rollout.envs(own), last_value[own])
     return ({k: v.numpy().copy() for k, v in pol.state_dict().items()},
             {k: float(v) for k, v in metrics.items()})
+
+
+def record_steps(tx) -> list:
+    """Keep the gradients of every `tx.step` from now on: returns the list that each step
+    appends its gradients to (in the order of the optimizer's parameters)."""
+    steps, step = [], tx.step
+
+    def recording(grads=None):
+        steps.append([g.detach().clone() for g in grads])
+        return step(grads)
+
+    tx.step = recording
+    return steps
+
+
+def min_abs_grads(policy, steps) -> dict:
+    """Each parameter's smallest |gradient| over the recorded steps, by name."""
+    names = [n for n, _ in policy.named_parameters()]
+    return {n: torch.stack([s[i].abs() for s in steps]).amin(0).cpu()
+            for i, n in enumerate(names)}
+
+
+def assert_adam_close(got: dict, want: dict, min_abs_grad: dict, lr: float, steps: int):
+    """Weights after `steps` Adam steps within 1e-6 of `want` wherever every step's
+    gradient is at least 1e-6. Below that, Adam's step g / (sqrt(v) + 1e-8) is set by
+    float32 summation noise (two computations sum in different orders), and a weight may
+    move by up to lr either way a step: within 2·lr·steps."""
+    for name, w in want.items():
+        d = (torch.as_tensor(got[name]) - torch.as_tensor(w)).abs()
+        tiny = min_abs_grad[name] < 1e-6
+        assert float(torch.where(tiny, 0.0, d).max()) <= 1e-6, name
+        assert float(torch.where(tiny, d, 0.0).max()) <= 2 * lr * steps, name
