@@ -96,9 +96,12 @@ Phases:
      doubled), env-steps/s beside (a) and (c); (f) `HostDAggerLearner` on the 1-phase
      `THORRearrangeEnv` (both views encoded: K1 = K7 = 128, K6 = 1280 an iteration of
      64 steps; a 4096-channel map), 2 iterations with the aggregate of 2 rollouts in
-     host memory; (g) K1 at Habitat's frame shape (8, 480, 640) → 224 held to its plain
+     host memory; every pool closed with no worker left, then the fork server and its
+     resource tracker stopped (`stop_fork_server`), which would otherwise outlive the
+     script; (g) K1 at Habitat's frame shape (8, 480, 640) → 224 held to its plain
      version and timed;
- 11. print {"kernels": [...]}, then the last line {"ok": true, "device": {...}}.
+ 11. check that no process the script started is left, then print {"kernels": [...]}
+     and the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero. It exits non-zero at once, and
 prints no result, where no CUDA device is available.
@@ -107,6 +110,7 @@ prints no result, where no CUDA device is available.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -159,6 +163,31 @@ FEATURE_SHAPES = {  # per frame
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
+
+
+def descendants() -> dict:
+    """{pid: parent pid} of every process below this one that has not exited, read
+    from /proc (zombies, already exited, are left out)."""
+    parent = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:  # exited while we looked
+            continue
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        if state != "Z":
+            parent[int(d)] = int(ppid)
+    out, frontier = {}, [os.getpid()]
+    while frontier:
+        pid = frontier.pop()
+        for child, pp in parent.items():
+            if pp == pid:
+                out[child] = pp
+                frontier.append(child)
+    return out
 
 
 def card_rates(name: str):
@@ -932,7 +961,6 @@ def check_host_path(card, smi, profile):
     (f) host DAgger on the 1-phase rearrangement, both views encoded; (g) K1 at
     Habitat's frame shape."""
     import functools
-    import os
     import tempfile
 
     import numpy as np
@@ -944,7 +972,7 @@ def check_host_path(card, smi, profile):
     from embodied_clip_tpu_torch import constants
     from embodied_clip_tpu_torch.envs.thor import THORObjectNavEnv
     from embodied_clip_tpu_torch.envs.thor_rearrange import REARRANGE_ACTIONS, THORRearrangeEnv
-    from embodied_clip_tpu_torch.envs.vector import VectorEnv
+    from embodied_clip_tpu_torch.envs.vector import VectorEnv, stop_fork_server
     from embodied_clip_tpu_torch.models.allenact_policy import AllenActResnetPolicy
     from embodied_clip_tpu_torch.models.encoders import build_encoder
     from embodied_clip_tpu_torch.native.frame_ring import frame_ring_available
@@ -1276,10 +1304,22 @@ def check_host_path(card, smi, profile):
                                              "update_s", "loss", "expert_match")}
                           | {"encode_ms": enc_ms, "launches": got_f})
         out["dagger"] = rows_f
+        for p in pools:
+            p.close()
+        pools = []
+        # The workers are the fork server's children: none may outlive its pool.
+        workers = [pid for pid, pp in descendants().items() if pp != os.getpid()]
+        check(not workers, f"(close) every pool's workers have ended, left: {workers}")
     finally:
         for p in pools:
             p.close()
         dist.destroy_process_group()
+        stop_fork_server()
+    left = descendants()
+    check(not left, f"(close) the fork server and the resource tracker have ended, "
+                    f"left: {left}")
+    print("[10] pools closed: every worker, the fork server and the resource tracker "
+          "have ended")
 
     # -- (g) K1 at Habitat's frame shape ---------------------------------------------
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -1651,6 +1691,8 @@ def main(argv) -> int:
     print(json.dumps({"host": {k: v for k, v in host.items()
                                if k not in ("k1_act_step_shape", "k1_habitat_shape")},
                       "card": smi}))
+    check(not descendants(), f"every process the script started has ended, left: "
+                             f"{descendants()}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -22,20 +22,32 @@ The fork server is a fresh interpreter, started on first use, that imports this 
 (and so torch, which initialises no CUDA) once; every worker, the respawned ones
 included, is forked from it, so it starts in milliseconds and never holds or touches a
 CUDA context. Env factories are therefore pickled: pass a class or a
-`functools.partial`, not a lambda.
+`functools.partial`, not a lambda. The server, and the resource tracker it starts,
+outlive every pool and end only after the process that started them has ended: a
+program that must leave no process behind calls `stop_fork_server()` once its last
+pool is closed.
 """
 
 from __future__ import annotations
 
 import multiprocessing as mp
 import time
+from multiprocessing import forkserver, resource_tracker
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from embodied_clip_tpu_torch.native.frame_ring import FrameRing, frame_ring_available
 
-__all__ = ["VectorEnv"]
+__all__ = ["VectorEnv", "stop_fork_server"]
+
+
+def stop_fork_server() -> None:
+    """Stop the fork server the workers start from and the resource tracker it
+    started, and wait for both to exit. Call it only when no pool is open; a pool
+    built afterwards starts a new server."""
+    forkserver._forkserver._stop()  # first: the server holds the tracker's pipe
+    resource_tracker._resource_tracker._stop()
 
 
 def _worker(remote, env_fn, ring_info, slot):
@@ -408,5 +420,9 @@ class VectorEnv:
             p.join(timeout=2)
             if p.is_alive():
                 p.terminate()
+                p.join(timeout=2)
+            if p.is_alive():
+                p.kill()
+                p.join()
         if self.ring is not None:
             self.ring.close()

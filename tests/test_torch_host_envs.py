@@ -14,6 +14,7 @@ the CPU.
 
 import functools
 import mmap
+import os
 import struct
 
 import numpy as np
@@ -27,7 +28,7 @@ from embodied_clip_tpu.envs import thor_rearrange as jax_rearrange
 from embodied_clip_tpu_torch.envs import habitat, host_gridworld, thor, thor_rearrange
 from embodied_clip_tpu_torch.envs.host_gridworld import HostGridNav
 from embodied_clip_tpu_torch.envs.thor_rearrange import REARRANGE_ACTIONS
-from embodied_clip_tpu_torch.envs.vector import VectorEnv
+from embodied_clip_tpu_torch.envs.vector import VectorEnv, stop_fork_server
 from embodied_clip_tpu_torch.native.frame_ring import FrameRing, frame_ring_available
 
 import torch_host_cases as H
@@ -318,3 +319,30 @@ def test_expert_actions_survive_worker_death():
         assert venv.expert_actions().shape == (3,)
     finally:
         venv.close()
+
+
+def _running(pid):
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            stat = f.read()
+    except FileNotFoundError:
+        return False
+    return stat[stat.rindex(")") + 2] != "Z"
+
+
+def test_stop_fork_server_leaves_no_process():
+    from multiprocessing import forkserver, resource_tracker
+
+    for _ in range(2):  # a pool after the stop starts a new server
+        venv = _venv(n=2)
+        try:
+            venv.reset()
+            _, _, _, _, valid = venv.step(np.zeros(2, np.int64))
+            assert valid.all()
+            pids = [p.pid for p in venv.procs]
+        finally:
+            venv.close()
+        helpers = [forkserver._forkserver._forkserver_pid, resource_tracker._resource_tracker._pid]
+        assert all(pid is not None and _running(pid) for pid in helpers)
+        stop_fork_server()
+        assert not any(_running(pid) for pid in pids + helpers)
