@@ -5,7 +5,11 @@ CLIP ResNet features: uint8 frames → PIL-parity bicubic resize + centre crop +
 normalise (kernel K1, `ops/kernels/preprocess_kernel.py`) → the bf16/f32
 `ModifiedResNet` trunk, or the int8 post-training-quantized trunk (`ops/quantize.py`,
 kernels K2-K5 in `ops/kernels/stem_kernel.py` and `bottleneck_kernel.py`) →
-`clip_conv` / `clip_avgpool` / `clip_attnpool`. The kernels are CUDA C++ in `csrc/`.
+`clip_conv` / `clip_avgpool` / `clip_attnpool`; and the CLIP ViTs (`models/clip_vit.py`,
+`clip_embed`, bf16/f32 or int8 through `ops/quantize_vit.py`). The kernels are CUDA C++
+in `csrc/`. The text tower, the tokenizer and the dual-tower CLIP (`models/clip_text.py`,
+`tokenizer.py`, `clip.py`) give zero-shot ObjectNav its goal table (`zeroshot/`,
+`config/rl_experiments._GoalMappedEnv`).
 It also trains: the DD-PPO step (`envs/`, `models/policy.py`, `training/`, `parallel/`)
 with the frozen encoder inside the rollout (`examples/train_objectnav.py --frames`), and
 the host-simulator path: pools of THOR/Habitat-style simulator processes

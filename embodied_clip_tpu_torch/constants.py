@@ -1,4 +1,4 @@
-"""Task and preprocessing constants; a copy of `embodied_clip_tpu/constants.py:21-34` and
+"""Task and preprocessing constants; a copy of `embodied_clip_tpu/constants.py:21-39` and
 of `embodied_clip_tpu/envs/thor.py:25`.
 
 The preprocessing sets follow reference thor_image_features.py:36-44 and the pinned
@@ -15,6 +15,13 @@ ROBOTHOR_OBJECT_TYPES = [
     'AlarmClock', 'Apple', 'BaseballBat', 'BasketBall', 'Bowl', 'GarbageCan',
     'HousePlant', 'Laptop', 'Mug', 'SprayBottle', 'Television', 'Vase',
 ]
+
+# Zero-shot ObjectNav split (reference readme_files/zeroshot_objectnav.md:31-32).
+ZEROSHOT_SEEN_OBJECTS = [
+    'AlarmClock', 'BaseballBat', 'Bowl', 'GarbageCan', 'Laptop', 'Mug',
+    'SprayBottle', 'Vase',
+]
+ZEROSHOT_UNSEEN_OBJECTS = ['Apple', 'BasketBall', 'HousePlant', 'Television']
 
 # THOR's discrete ObjectNav action space (the same names and indices as
 # envs/gridworld.ACTIONS, so a checkpoint transfers across backends).

@@ -10,8 +10,15 @@ carries the JAX package's `{params, batch_stats}` across, inverting the layout r
   BatchNorm scale/bias         → weight/bias; batch_stats mean/var → running_mean/var
 
 `from_flax_resnet_variables` does the same for the JAX torchvision-style `ResNet`
-(inverting `embodied_clip_tpu/models/convert.py:57-76`). `from_flax_qtrunk` carries a
-JAX quantized trunk (`qtrunk`, CLIP or torchvision) across as it is, in HWIO.
+(inverting `embodied_clip_tpu/models/convert.py:57-76`). `from_flax_vit_params`,
+`from_flax_text_params` and `from_flax_clip_variables` invert
+`embodied_clip_tpu/models/convert.py:111-180` for the ViT visual, the text tower and the
+dual-tower CLIP (flax Dense kernels → (out, in); the fused in-proj kernel (C, 3C) →
+`in_proj_weight` (3C, C), q-k-v rows in order; the HWIO patch embed → OIHW `conv1`;
+`token_embedding.embedding` → `.weight`; LayerNorm scale/bias → weight/bias).
+`from_flax_qtrunk` carries a JAX quantized trunk (`qtrunk`, CLIP or torchvision) across
+as it is, in HWIO; `from_flax_qvit` a JAX quantized ViT tower into the tree of
+`ops/quantize_vit.py`.
 `from_flax_policy_params` carries the JAX `ActorCritic` params (or a gradient tree of
 the same shape) into the port's `models/policy.ActorCritic` state_dict, and
 `from_flax_allenact_params` the JAX `AllenActResnetPolicy` params into the allenact
@@ -25,8 +32,10 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["from_flax_variables", "from_flax_resnet_variables", "from_flax_qtrunk",
-           "from_flax_policy_params", "from_flax_allenact_params", "load_torch_checkpoint", "visual_state_dict"]
+__all__ = ["from_flax_variables", "from_flax_resnet_variables", "from_flax_vit_params",
+           "from_flax_text_params", "from_flax_clip_variables", "from_flax_qtrunk",
+           "from_flax_qvit", "from_flax_policy_params", "from_flax_allenact_params",
+           "load_torch_checkpoint", "visual_state_dict"]
 
 
 def _t(v) -> torch.Tensor:
@@ -99,6 +108,99 @@ def from_flax_resnet_variables(variables: Mapping[str, Any]) -> Dict[str, torch.
             _conv_bn(sd, f"{t}.downsample.0", f"{t}.downsample.1", block["down"],
                      st.get("down", {}))
     return sd
+
+
+def _ln(sd: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any]) -> None:
+    sd[f"{name}.weight"] = _t(p["scale"])
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _dense(sd: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any]) -> None:
+    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"], np.float32).T)
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _transformer(sd: Dict[str, torch.Tensor], prefix: str, params: Mapping[str, Any]) -> None:
+    """JAX `Transformer` params (`block{i}`) → openai's `{prefix}.resblocks.{i}.*`."""
+    for name, blk in params.items():
+        t = f"{prefix}.resblocks.{int(name[len('block'):])}"
+        _ln(sd, f"{t}.ln_1", blk["ln_1"])
+        _ln(sd, f"{t}.ln_2", blk["ln_2"])
+        in_proj = blk["attn"]["in_proj"]
+        sd[f"{t}.attn.in_proj_weight"] = _t(np.asarray(in_proj["kernel"], np.float32).T)
+        sd[f"{t}.attn.in_proj_bias"] = _t(in_proj["bias"])
+        _dense(sd, f"{t}.attn.out_proj", blk["attn"]["out_proj"])
+        _dense(sd, f"{t}.mlp.c_fc", blk["mlp_fc"])
+        _dense(sd, f"{t}.mlp.c_proj", blk["mlp_proj"])
+
+
+def from_flax_vit_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX `VisionTransformer` params (a `CLIPVisual`'s `params["vit"]`), as numpy
+    arrays → the port's ViT visual state_dict (openai's `visual.*`, prefix stripped)."""
+    sd = {"conv1.weight": _t(np.asarray(params["patch_embed"]["kernel"]).transpose(3, 2, 0, 1))}
+    for name in ("class_embedding", "positional_embedding", "proj"):
+        sd[name] = _t(params[name])
+    _ln(sd, "ln_pre", params["ln_pre"])
+    _ln(sd, "ln_post", params["ln_post"])
+    _transformer(sd, "transformer", params["transformer"])
+    return sd
+
+
+def from_flax_text_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX `TextTransformer` params, as numpy arrays → the port's text-tower
+    state_dict (openai's top-level text keys)."""
+    sd = {"token_embedding.weight": _t(params["token_embedding"]["embedding"]),
+          "positional_embedding": _t(params["positional_embedding"]),
+          "text_projection": _t(params["text_projection"])}
+    _ln(sd, "ln_final", params["ln_final"])
+    _transformer(sd, "transformer", params["transformer"])
+    return sd
+
+
+def from_flax_clip_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX `CLIP` variables ({params: {visual, text, logit_scale}, batch_stats}), as
+    numpy arrays → the port's `CLIP` state_dict: openai's full layout."""
+    params = variables["params"]
+    visual = params["visual"]
+    if "vit" in visual:
+        vis = from_flax_vit_params(visual["vit"])
+    else:
+        vis = from_flax_variables({"params": visual, "batch_stats":
+                                   variables.get("batch_stats", {}).get("visual", {})})
+    sd = from_flax_text_params(params["text"])
+    sd["logit_scale"] = _t(params["logit_scale"])
+    sd.update({f"visual.{k}": v for k, v in vis.items()})
+    return sd
+
+
+def from_flax_qvit(qtower: Mapping[str, Any]) -> Dict[str, Any]:
+    """A JAX quantized ViT tower (`ops/quantize_vit.py:quantize_vit`'s tree, as numpy
+    arrays) → the port's tree (`embodied_clip_tpu_torch/ops/quantize_vit.py`) on the
+    CPU: `fp` in openai names, each block's s8 `weight_q` (out, in) with its `w_scale`
+    and bias, `act_scales` as 0-dim f32. The bf16 attention kernels JAX keeps for its
+    `ECT_VIT_QUANT_ATTN=0` experiment are left out."""
+    fp_in = qtower["fp"]
+    fp = {"conv1.weight": _t(np.asarray(fp_in["patch_embed"]["kernel"]).transpose(3, 2, 0, 1))}
+    for name in ("class_embedding", "positional_embedding", "proj"):
+        fp[name] = _t(fp_in[name])
+    _ln(fp, "ln_pre", fp_in["ln_pre"])
+    _ln(fp, "ln_post", fp_in["ln_post"])
+    biases = {"in_proj": lambda b: b["attn"]["in_proj"],
+              "out_proj": lambda b: b["attn"]["out_proj"],
+              "mlp_fc": lambda b: b["mlp_fc"], "mlp_proj": lambda b: b["mlp_proj"]}
+    blocks = []
+    for i in range(len(qtower["blocks"])):
+        fb = fp_in["transformer"][f"block{i}"]
+        _ln(fp, f"transformer.resblocks.{i}.ln_1", fb["ln_1"])
+        _ln(fp, f"transformer.resblocks.{i}.ln_2", fb["ln_2"])
+        qb = qtower["blocks"][f"block{i}"]
+        blocks.append({name: {"weight_q": torch.from_numpy(np.ascontiguousarray(
+                                  np.asarray(qb[name]["kernel_q"], np.int8).T)),
+                              "w_scale": _t(qb[name]["w_scale"]),
+                              "bias": _t(get(fb)["bias"])}
+                       for name, get in biases.items()})
+    return {"fp": fp, "blocks": blocks,
+            "act_scales": {k: _t(v).reshape(()) for k, v in qtower["act_scales"].items()}}
 
 
 def from_flax_qtrunk(qtrunk: Mapping[str, Any]) -> Dict[str, Any]:

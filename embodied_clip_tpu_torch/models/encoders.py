@@ -1,15 +1,18 @@
 """Frozen visual encoders: uint8 frames → features (port of
-`embodied_clip_tpu/models/encoders.py` for the CLIP and torchvision ResNets).
+`embodied_clip_tpu/models/encoders.py` for the CLIP ResNets and ViTs and the
+torchvision ResNets).
 
 The raw uint8 frame batch goes to the device once; preprocess (kernel K1 in bf16, the
 plain f32 path otherwise), the trunk and all pooling heads run there, under
 `torch.inference_mode()`. Keys match the reference's cache schema
-(thor_image_features.py:129-138): {clip_conv, clip_avgpool, clip_attnpool} and
-{imagenet_conv, imagenet_avgpool}, with the conv map NHWC as in the JAX package.
+(thor_image_features.py:129-138): {clip_conv, clip_avgpool, clip_attnpool},
+{clip_embed} for the ViTs and {imagenet_conv, imagenet_avgpool}, with the conv map NHWC
+as in the JAX package.
 `fold_bn()` gives the serving configuration, whose bf16 bottleneck trunks run kernels
-K6/K7 (models/stages.py). `FrozenEncoder.quantize()` returns the int8-trunk encoder
-(`_QuantizedCLIPEncoder`, `_QuantizedResNetEncoder`; port of
-`embodied_clip_tpu/models/encoders.py:221-264,280-403,436-457`).
+K6/K7 (models/stages.py); a ViT has no BN, and `fold_bn()` returns it as it is.
+`FrozenEncoder.quantize()` returns the int8 encoder (`_QuantizedCLIPEncoder`,
+`_QuantizedViTEncoder`, `_QuantizedResNetEncoder`; port of
+`embodied_clip_tpu/models/encoders.py:221-264,280-457`).
 """
 
 from __future__ import annotations
@@ -21,7 +24,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from embodied_clip_tpu_torch.models.clip import CLIPVisual, image_size_of
+from embodied_clip_tpu_torch.models.clip import (
+    CLIPViTVisual,
+    _device,
+    clip_visual,
+    image_size_of,
+    init_weights_,
+)
+from embodied_clip_tpu_torch.models.clip_vit import CLIP_VIT_CONFIGS
 from embodied_clip_tpu_torch.models.convert import load_torch_checkpoint, visual_state_dict
 from embodied_clip_tpu_torch.models.resnet import RESNET_CONFIGS, ResNet
 from embodied_clip_tpu_torch.ops.fold_bn import fold_conv_bn_state_dict
@@ -33,7 +43,7 @@ __all__ = ["EncoderSpec", "FrozenEncoder", "build_encoder", "ENCODER_SPECS"]
 @dataclasses.dataclass(frozen=True)
 class EncoderSpec:
     family: str  # 'imagenet' | 'clip': the preprocess constant set and key prefix
-    arch: str    # 'resnet18' | 'resnet50' | 'RN50' | 'RN50x16' | 'RNtiny'
+    arch: str    # 'resnet18' | 'resnet50' | 'RN50' | 'RN50x16' | 'ViT-B/32' | '*tiny'
 
 
 ENCODER_SPECS = {
@@ -41,17 +51,11 @@ ENCODER_SPECS = {
     "imagenet_rn18": EncoderSpec("imagenet", "resnet18"),
     "clip_rn50": EncoderSpec("clip", "RN50"),
     "clip_rn50x16": EncoderSpec("clip", "RN50x16"),
-    # Smoke-scale CLIP ResNet (full code path, CPU-test cost; not a paper model).
+    "clip_vit_b32": EncoderSpec("clip", "ViT-B/32"),
+    # Smoke-scale CLIP ResNet/ViT (full code path, CPU-test cost; not paper models).
     "clip_rn_tiny": EncoderSpec("clip", "RNtiny"),
+    "clip_vit_tiny": EncoderSpec("clip", "ViTtiny"),
 }
-
-
-def _device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
-                           "on the CPU")
-    return device
 
 
 def _new_module(spec: EncoderSpec, dtype=torch.float32, folded: bool = False,
@@ -59,30 +63,17 @@ def _new_module(spec: EncoderSpec, dtype=torch.float32, folded: bool = False,
     if spec.family == "imagenet":
         return ResNet(dtype=dtype, folded=folded, fused_bottlenecks=fused_bottlenecks,
                       **RESNET_CONFIGS[spec.arch])
-    return CLIPVisual(spec.arch, dtype, folded=folded, fused_bottlenecks=fused_bottlenecks)
+    return clip_visual(spec.arch, dtype, folded=folded, fused_bottlenecks=fused_bottlenecks)
 
 
 def _random_state_dict(spec: EncoderSpec, seed: int) -> Dict[str, torch.Tensor]:
     """Random f32 weights from a seeded generator, made on the CPU, so every device
-    and dtype built from one seed holds the same weights. Flax's defaults: truncated
-    LeCun-normal kernels, zero biases, identity BN, N(0, 1/c) positional embedding."""
+    and dtype built from one seed holds the same weights: flax's defaults
+    (`models/clip.init_weights_`)."""
     with torch.device("meta"):
         module = _new_module(spec)
     module = module.to_empty(device="cpu")
-    gen = torch.Generator().manual_seed(seed)
-    for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            std = (1.0 / m.weight[0].numel()) ** 0.5 / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=gen)
-            if m.bias is not None:
-                nn.init.zeros_(m.bias)
-        elif isinstance(m, nn.BatchNorm2d):
-            m.reset_parameters()
-    if spec.family == "clip":
-        pos = module.attnpool.positional_embedding
-        nn.init.normal_(pos, 0.0, pos.shape[1] ** -0.5, generator=gen)
-    return module.state_dict()
+    return init_weights_(module, torch.Generator().manual_seed(seed)).state_dict()
 
 
 def _make_module(spec: EncoderSpec, dtype, folded: bool, sd, device,
@@ -132,6 +123,8 @@ class FrozenEncoder:
             conv = self.module(x)
             return {"imagenet_conv": conv, "imagenet_avgpool": _avgpool(conv)}
         feats = self.module(x)
+        if "conv" not in feats:  # a ViT
+            return {"clip_embed": feats["embed"]}
         return {"clip_conv": feats["conv"], "clip_avgpool": feats["avgpool"],
                 "clip_attnpool": feats["embed"]}
 
@@ -140,7 +133,10 @@ class FrozenEncoder:
         the serving configuration, conv+bias+relu in the compute dtype. In bf16 its
         bottleneck trunk runs stage 1 through kernel K7 and the stride-1 identity blocks
         through K6; `fused_bottlenecks=False` keeps every block on the cuDNN route (the
-        yardstick). f32 encoders always take the cuDNN route."""
+        yardstick). f32 encoders always take the cuDNN route. A ViT has no BN: its
+        encoder is returned as it is."""
+        if isinstance(self.module, CLIPViTVisual):
+            return self
         if self.module.folded:
             if self.module.fused_bottlenecks == fused_bottlenecks:
                 return self
@@ -159,7 +155,9 @@ class FrozenEncoder:
 
         A torchvision-family encoder gets `_QuantizedResNetEncoder`: the same scheme on
         its 7×7 stem (bf16, requantized before an int8 max pool) and its stride-2 convs;
-        no kernel runs on that trunk, as in the JAX package.
+        no kernel runs on that trunk, as in the JAX package. A ViT gets
+        `_QuantizedViTEncoder` (ops/quantize_vit.py): its blocks' four denses s8, the
+        rest in the compute dtype and f32; no kernel but K1 runs on it.
 
         `calibration_frames` must be representative uint8 frames (real observations,
         or parity.golden_frames), never noise: the activation scales are maxima over
@@ -169,10 +167,15 @@ class FrozenEncoder:
         from embodied_clip_tpu_torch.models.clip_resnet import CLIP_RESNET_CONFIGS
         from embodied_clip_tpu_torch.ops.quantize import quantize_resnet_trunk, quantize_trunk
 
-        if self.spec.family == "clip" and self.spec.arch not in CLIP_RESNET_CONFIGS:
-            raise NotImplementedError(
-                f"no int8 path for {self.spec.arch} in the port (the ViT int8 trunk is "
-                "not ported); see ROADMAP.md, queue 1, M8")
+        if self.spec.arch in CLIP_VIT_CONFIGS:
+            from embodied_clip_tpu_torch.ops.quantize_vit import quantize_vit
+
+            cfg = CLIP_VIT_CONFIGS[self.spec.arch]
+            with torch.inference_mode():
+                x = self.preprocess(_frames(calibration_frames).to(self.device))
+                qtower = quantize_vit(self.module.state_dict(), x, cfg["num_heads"],
+                                      cfg["layers"])
+            return _QuantizedViTEncoder(self, qtower, cfg["num_heads"], cfg["layers"])
         folded = self.fold_bn()
         sd = {k: v.float() for k, v in folded.module.state_dict().items()
               if not k.startswith("attnpool.")}
@@ -189,8 +192,8 @@ class FrozenEncoder:
 
     def load_torch_state_dict(self, sd) -> "FrozenEncoder":
         """Replace the weights with a reference state_dict: openai/CLIP's (full or
-        `visual.*`) for the CLIP family, torchvision's (its `fc.*` head dropped, as the
-        reference truncates the model) for the ImageNet family."""
+        `visual.*`, ResNet or ViT) for the CLIP family, torchvision's (its `fc.*` head
+        dropped, as the reference truncates the model) for the ImageNet family."""
         self.module.load_state_dict(_module_state_dict(self.spec, sd))
         return self
 
@@ -241,6 +244,22 @@ class _QuantizedCLIPEncoder(_QuantizedEncoder):
                                      out_dtype=self.dtype, **self.kernels)
         return {"clip_conv": conv, "clip_avgpool": _avgpool(conv),
                 "clip_attnpool": self.module.attnpool(conv)}
+
+
+class _QuantizedViTEncoder(_QuantizedEncoder):
+    """CLIP ViT encoder with s8 transformer-block denses (ops/quantize_vit.py)."""
+
+    def __init__(self, folded: FrozenEncoder, qtower, num_heads: int, layers: int):
+        super().__init__(folded, qtower, ())
+        self.num_heads, self.layers = num_heads, layers
+
+    @torch.inference_mode()
+    def encode(self, frames) -> Dict[str, torch.Tensor]:
+        from embodied_clip_tpu_torch.ops.quantize_vit import quantized_vit_apply
+
+        x = self.preprocess(_frames(frames).to(self.device))
+        return {"clip_embed": quantized_vit_apply(self.qtrunk, x, self.num_heads,
+                                                  self.layers, out_dtype=self.dtype)}
 
 
 class _QuantizedResNetEncoder(_QuantizedEncoder):

@@ -1,0 +1,104 @@
+"""CLIP transformer blocks, shared by the ViT visual tower and the text tower (port of
+`embodied_clip_tpu/models/transformer.py`).
+
+Pre-LN residual attention blocks with QuickGELU (x·σ(1.702x)) and a fused-QKV
+projection, with openai/CLIP's state_dict names (`resblocks.{i}.ln_1`,
+`.attn.in_proj_weight` / `.attn.in_proj_bias` (3C, C) in q-k-v order, `.attn.out_proj`,
+`.ln_2`, `.mlp.c_fc`, `.mlp.c_proj`), so a release checkpoint loads with
+`load_state_dict`. Tokens are (N, T, C), batch first.
+
+The precision policy is the JAX package's, spelled out (`nn.MultiheadAttention` and
+`scaled_dot_product_attention` would hide it): LayerNorm in f32, cast to the compute
+dtype; the attention logits are the f32-accumulated product of the compute-dtype q·k
+(the operands upcast to f32: a product of two bf16 values is exact in f32, in TF32
+too), scaled, masked and softmaxed in f32, cast to the dtype, then multiplied by v with
+f32 accumulation and cast; the dense layers and QuickGELU run in the compute dtype.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+__all__ = ["quick_gelu", "attention_core", "MultiHeadAttention", "ResidualAttentionBlock",
+           "Transformer", "layer_norm_f32"]
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+def layer_norm_f32(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """LayerNorm over the last axis in f32 (its parameters are f32); the result is
+    f32."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+                   dtype, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(N, T, C) q, k, v in `dtype` → (N, T, C) in `dtype`: f32-accumulated logits,
+    scaled by 1/√head_dim, plus the f32 `mask`, f32 softmax cast to `dtype`, then the
+    f32-accumulated product with v, cast (`transformer.py:37-49`)."""
+    n, t, c = q.shape
+    d = c // num_heads
+
+    def heads(x):
+        return x.reshape(n, t, num_heads, d).transpose(1, 2).float()
+
+    logits = torch.matmul(heads(q), heads(k).transpose(-1, -2)) / (d ** 0.5)
+    if mask is not None:
+        logits = logits + mask.float()
+    attn = logits.softmax(dim=-1).to(dtype)
+    out = torch.matmul(attn.float(), heads(v))
+    return out.to(dtype).transpose(1, 2).reshape(n, t, c)
+
+
+class MultiHeadAttention(nn.Module):
+    """`torch.nn.MultiheadAttention`'s parameters (fused in-proj, out-proj), with the
+    JAX package's precision policy."""
+
+    def __init__(self, width: int, num_heads: int, dtype=torch.float32):
+        super().__init__()
+        self.num_heads, self.dtype = num_heads, dtype
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width, dtype=dtype))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * width, dtype=dtype))
+        self.out_proj = nn.Linear(width, width, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        q, k, v = qkv.chunk(3, dim=-1)
+        return self.out_proj(attention_core(q, k, v, self.num_heads, self.dtype, mask))
+
+
+class ResidualAttentionBlock(nn.Module):
+    def __init__(self, width: int, num_heads: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.ln_1 = nn.LayerNorm(width)  # f32
+        self.attn = MultiHeadAttention(width, num_heads, dtype)
+        self.ln_2 = nn.LayerNorm(width)
+        self.mlp = nn.Sequential(OrderedDict([
+            ("c_fc", nn.Linear(width, 4 * width, dtype=dtype)),
+            ("c_proj", nn.Linear(4 * width, width, dtype=dtype)),
+        ]))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(layer_norm_f32(x, self.ln_1).to(self.dtype), mask)
+        y = self.mlp.c_fc(layer_norm_f32(x, self.ln_2).to(self.dtype))
+        return x + self.mlp.c_proj(quick_gelu(y))
+
+
+class Transformer(nn.Module):
+    def __init__(self, width: int, layers: int, num_heads: int, dtype=torch.float32):
+        super().__init__()
+        self.resblocks = nn.Sequential(*[ResidualAttentionBlock(width, num_heads, dtype)
+                                         for _ in range(layers)])
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for block in self.resblocks:
+            x = block(x, mask)
+        return x

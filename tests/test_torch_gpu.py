@@ -642,3 +642,32 @@ def test_host_ppo_in_two_nccl_processes_equals_one(cuda):
         RC.assert_adam_close(got_sd, want_sd, grads, cfg.ppo.lr, 2 * 3)
         for k in want_m:
             assert abs(got_m[k] - want_m[k]) <= 1e-6, k
+
+
+@pytest.mark.parametrize("m", [50, 6400])
+def test_qmm_at_the_vit_b32_shapes_equals_the_cpu(cuda, m):
+    """`qmm` on the card at ViT-B/32's dense shapes (batch 1: 50 tokens; batch 128: 6400)
+    is bit-equal to `torch._int_mm` on the CPU: s8 × s8 → s32 is exact."""
+    gen = torch.Generator().manual_seed(m)
+    for k, n in ((768, 2304), (768, 768), (768, 3072), (3072, 768)):
+        a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8)
+        got = qmm(a.to(cuda), w.to(cuda).t())  # the weight as the int8 ViT stores it
+        assert torch.equal(got.cpu(), torch._int_mm(a, w.t().contiguous())), (m, k, n)
+
+
+def test_int8_vit_encode_on_the_card_matches_the_cpu(cuda):
+    """The int8 `clip_vit_b32` (bf16, the serving configuration) quantized and run on the
+    card lies within 1e-3 cosine of the same encoder (same seed, same calibration frames)
+    quantized and run on the CPU: K1 against its plain version, cuBLAS's bf16 and s8
+    products against the CPU's."""
+    calib, frames = golden_frames(8), golden_frames(4, seed=1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        enc = build_encoder("clip_vit_b32", dtype=torch.bfloat16, device=dev)
+        before = K.fused_preprocess.launches
+        out[dev] = enc.quantize(calib).encode(frames)["clip_embed"]
+        launched = K.fused_preprocess.launches - before
+        assert launched == (2 if dev == "cuda" else 0)  # calibration and the encode
+    assert out["cuda"].shape == (4, 512) and bool(torch.isfinite(out["cuda"].float()).all())
+    assert cosine_distance(out["cuda"], out["cpu"]) <= 1e-3
