@@ -122,7 +122,27 @@ Phases:
      K7 1 over the 6-block stage 1, K6 31) within 1e-3 cosine of f32, every K6/K7 call
      held with phase 7's contract; then int8 path A (K1 1, K2 1, K5 3), every K2/K5 call
      held with phase 5's contracts, its distance to f32 printed;
- 12. check that no process the script started is left, then print {"kernels": [...]}
+ 12. the RL experiment registry (`config.experiments.get_experiment`) at full width, each
+     experiment as registered but for the overrides named: (a)
+     `objectnav_robothor_rgb_clipresnet50gru_ddppo` (fake backend, bf16 folded
+     `clip_rn50` in the rollout, 32 envs × 64 steps, hidden 512, 4 epochs; only
+     `total_env_steps` and `ckpt_every_steps` overridden) with deterministic algorithms:
+     3 iterations uninterrupted, and 2 iterations then a resume to 3 from the step
+     checkpoint in a fresh output dir, the resumed weights bit-equal to the
+     uninterrupted run's; launches per iteration K1 = K7 = 65, K6 = 650; env-steps/s
+     and the checkpoint's size; (b) the same with `encoder_dtype=int8`, 1 iteration (K1,
+     K2, K3 65, K5 195), calibrated on golden_frames(16) and 8 frames of the env, every
+     K2/K3/K5 call of one rollout encode held with phase 5's contracts; (c)
+     `zeroshot_objectnav_robothor_rgb_clipresnet50gru_ddppo` trains 2 iterations, then
+     `zeroshot_…_ddppo_eval` evaluates its checkpoint (`evaluate(ckpt=…)`) on 64 episodes
+     over all 12 classes, metrics.json written and scored, seen and unseen success and
+     SPL printed; (d) `ddppo_pointnav_rgb_clip` (2 epochs × 2 minibatches, linear LR
+     decay) trains 2 iterations, its LR after the last update the schedule's; (e) the
+     first experiment on the `thor` backend over the scripted controller (8 workers,
+     horizon 40): 2 iterations, a resume to 3 that restores the optimizer state, then
+     `evaluate` on the val scenes (16 episodes); every pool closed and the fork server
+     stopped; (f) `one_phase_rgb_clipresnet50_dagger` trains 2 iterations;
+ 13. check that no process the script started is left, then print {"kernels": [...]}
      and the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero. It exits non-zero at once, and
@@ -138,6 +158,10 @@ import shutil
 import subprocess
 import sys
 import time
+
+# Phase 12 (a) runs with deterministic algorithms, for which cuBLAS needs a fixed
+# workspace configuration before its first call.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # Card → (device-memory bytes/s, f32 CUDA-core, dense bf16 and dense int8 tensor-core
 # operations/s), NVIDIA data sheets. Matched by substring of the name, most specific
@@ -1702,6 +1726,239 @@ def check_rn50x16(card, smi):
     return out
 
 
+def registry_state(exp):
+    """The policy's weights after `exp.train` (copies)."""
+    return {k: v.detach().clone() for k, v in exp._last_policy.state_dict().items()}
+
+
+def state_distance(a, b) -> float:
+    """The largest |difference| over two state_dicts' tensors (0.0: bit-equal)."""
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def latest_checkpoint(directory):
+    names = sorted(n for n in os.listdir(directory) if "__steps_" in n)
+    check(bool(names), f"a step checkpoint in {directory}")
+    return os.path.join(directory, names[-1])
+
+
+def check_registry(card, smi):
+    """Phase 12: the RL experiment registry at full width on the card, through
+    `get_experiment`: (a) DD-PPO trained 3 iterations, and 2 then resumed to 3 from the
+    step checkpoint, bit-equal; (b) int8 path A, 1 iteration, calibrated on the golden
+    frames and the env's; (c) zero-shot training, then `evaluate(ckpt=…)` over the 12
+    classes; (d) the habitat knobs (2 epochs × 2 minibatches, linear LR decay); (e) the
+    host path over the scripted THOR controller: train, resume, evaluate on the val
+    scenes; (f) DAgger on the fake rearrangement."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from embodied_clip_tpu_torch import constants
+    from embodied_clip_tpu_torch.config.experiments import get_experiment, list_experiments
+    from embodied_clip_tpu_torch.envs.vector import stop_fork_server
+    from embodied_clip_tpu_torch.models import encoders
+    from embodied_clip_tpu_torch.parity import golden_frames
+    from embodied_clip_tpu_torch.training.evaluate import compute_scores
+    from embodied_clip_tpu_torch.utils.checkpoint import restore_pytree
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from fake_thor import FakeController
+
+    check(len(list_experiments()) == 18, "the registry holds the 18 RL experiments")
+    name = "objectnav_robothor_rgb_clipresnet50gru_ddppo"
+    per_iter = 32 * 64
+    encodes = 64 + 1
+    bf16_want = {"fused_preprocess": encodes, "fused_stage1": encodes,
+                 "fused_bottleneck": 10 * encodes}
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="registry_")
+
+    def experiment(exp_name, iters, *more, steps=per_iter):
+        return get_experiment(exp_name, [f"total_env_steps={iters * steps}",
+                                         f"ckpt_every_steps={steps}", *more])
+
+    def train(exp, directory, iters, label, want=None):
+        """exp.train(directory) with the launches counted (its encoder built first, so
+        that the counts are the training's alone)."""
+        exp._encode_fn()
+        t0 = time.perf_counter()
+        res, got = launches_of(lambda: exp.train(directory))
+        wall = time.perf_counter() - t0
+        check(np.isfinite(res.get("loss", np.nan)), f"({label}) loss finite")
+        if want is not None:
+            per = {k: v // iters for k, v in got.items()}
+            check(per == want and all(v % iters == 0 for v in got.values()),
+                  f"({label}) launches per iteration {got} over {iters}, expected {want}")
+        print(f"[12{label[0]}] {exp.name} ({label}): {iters} iteration(s) to env step "
+              f"{res['env_steps']} in {wall:.2f} s, {res['env_steps_per_s']:.0f} "
+              f"env-steps/s (train's own metric), loss {res['loss']:.4f}; launches {got}; "
+              f"{smi}")
+        return res, got
+
+    try:
+        # -- (a) DD-PPO, and the same run stopped at iteration 2 and resumed -------------
+        torch.use_deterministic_algorithms(True)
+        try:
+            full = experiment(name, 3)
+            check(full.backend == "fake" and full.encoder == "clip_rn50"
+                  and full.env_batch == 32 and full.rollout_len == 64
+                  and full.hidden == 512 and full.ppo_epochs == 4
+                  and full.encoder_dtype == "bfloat16", f"(a) {name} as registered")
+            res, got = train(full, os.path.join(tmp, "full"), 3, "a uninterrupted",
+                             bf16_want)
+            want_state = registry_state(full)
+            ckpt = latest_checkpoint(os.path.join(tmp, "full", name))
+            ckpt_mb = os.path.getsize(ckpt) / 2 ** 20
+            half = experiment(name, 2)
+            train(half, os.path.join(tmp, "split"), 2, "a stopped at iteration 2",
+                  bf16_want)
+            resumed = experiment(name, 3)
+            res_r, got_r = train(resumed, os.path.join(tmp, "split"), 1,
+                                 "a resumed to iteration 3", bf16_want)
+            check(res_r["env_steps"] == 3 * per_iter, "(a) resumed at env step 4096")
+            got_state = registry_state(resumed)
+            dist_resumed = state_distance(got_state, want_state)
+            bit_equal = all(torch.equal(got_state[k], want_state[k]) for k in want_state)
+            opt = restore_pytree(ckpt)["opt_state"]
+            check(int(opt["count"]) == 12, "(a) 12 optimizer updates in the checkpoint")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        print(f"[12a] resumed vs uninterrupted policy weights: max |diff| "
+              f"{dist_resumed:.3e} (deterministic algorithms on); checkpoint "
+              f"{os.path.basename(ckpt)} {ckpt_mb:.2f} MiB on disk; {smi}")
+        check(bit_equal, "(a) the resumed run's weights bit-equal to the uninterrupted "
+                         "run's")
+        out["a"] = {"env_steps_per_s": res["env_steps_per_s"],
+                    "iteration_time_s": res["iteration_time_s"],
+                    "resumed_env_steps_per_s": res_r["env_steps_per_s"],
+                    "launches_per_iteration": {k: v // 3 for k, v in got.items()},
+                    "resumed_vs_uninterrupted_max_abs": dist_resumed,
+                    "checkpoint_mib": ckpt_mb}
+
+        # -- (b) int8 path A, 1 iteration ----------------------------------------------
+        q = experiment(name, 1, "encoder_dtype=int8")
+        seen = []
+        quantize = encoders.FrozenEncoder.quantize
+
+        def spy(self, frames):
+            seen.append(np.array(frames))
+            return quantize(self, frames)
+
+        encoders.FrozenEncoder.quantize = spy
+        try:
+            fe = q._encode_fn()
+        finally:
+            encoders.FrozenEncoder.quantize = quantize
+        calib = q._calibration_frames()
+        check(len(seen) == 1 and np.array_equal(seen[0], calib)
+              and calib.shape == (24, 300, 300, 3)
+              and np.array_equal(calib[:16], golden_frames(16)),
+              "(b) calibrated on golden_frames(16) and 8 frames of the env")
+        int8_want = {k: v * encodes for k, v in PER_REQUEST["A"].items() if v}
+        res_q, got_q = train(q, os.path.join(tmp, "int8"), 1, "b int8 path A", int8_want)
+        frames = q._last_env.reset(torch.Generator(device="cuda").manual_seed(0), 32)[1]
+        frames = frames["visual"]
+        check(tuple(frames.shape) == (32, 56, 56, 3), "(b) the rollout's frames")
+        held = hold_rollout_calls(fe, frames, "int8", phase="12b")
+        out["b"] = {"env_steps_per_s": res_q["env_steps_per_s"],
+                    "launches_per_iteration": got_q, "rollout_calls_held": held}
+
+        # -- (c) zero-shot: train, then evaluate the checkpoint on the 12 classes --------
+        zs = experiment("zeroshot_objectnav_robothor_rgb_clipresnet50gru_ddppo", 2)
+        res_z, _ = train(zs, os.path.join(tmp, "zs"), 2, "c zero-shot", bf16_want)
+        zckpt = latest_checkpoint(os.path.join(tmp, "zs", zs.name))
+        ev = get_experiment("zeroshot_objectnav_robothor_rgb_clipresnet50gru_ddppo_eval",
+                            ["eval_episodes=64"])
+        t0 = time.perf_counter()
+        overall = ev.evaluate(os.path.join(tmp, "zs_eval"), ckpt=zckpt)
+        eval_s = time.perf_counter() - t0
+        path = os.path.join(tmp, "zs_eval", ev.name, "metrics.json")
+        check(overall["episodes"] == 64 and overall["metrics_file"] == path
+              and os.path.exists(path), "(c) metrics.json of 64 episodes")
+        names = constants.ROBOTHOR_OBJECT_TYPES
+        split = {}
+        for label, group in (("seen", constants.ZEROSHOT_SEEN_OBJECTS),
+                             ("unseen", constants.ZEROSHOT_UNSEEN_OBJECTS)):
+            scores = [compute_scores(path, t) for t in group
+                      if t in overall["per_object_type"]]
+            n = sum(1 for t in overall["per_object_type"] if t in group)
+            split[label] = {"classes": n,
+                            "success": float(np.mean([s for s, _ in scores])) if scores else None,
+                            "spl": float(np.mean([p for _, p in scores])) if scores else None}
+        check(set(overall["per_object_type"]) <= set(names) and split["unseen"]["classes"],
+              "(c) the evaluation covers unseen classes, under their names")
+        print(f"[12c] zero-shot evaluation from {os.path.basename(zckpt)}: 64 episodes in "
+              f"{eval_s:.2f} s over {len(overall['per_object_type'])} of the 12 classes "
+              f"(random weights: no limit): " + "; ".join(
+                  f"{k} {v['classes']} classes, success {v['success']}, SPL {v['spl']}"
+                  for k, v in split.items()) + f"; {smi}")
+        out["c"] = {"env_steps_per_s": res_z["env_steps_per_s"], "eval_seconds": eval_s,
+                    **split}
+
+        # -- (d) the habitat DD-PPO knobs --------------------------------------------
+        hb = experiment("ddppo_pointnav_rgb_clip", 2)
+        check(hb.ppo_epochs == 2 and hb.num_minibatches == 2 and hb.lr_decay_updates == -1,
+              "(d) 2 epochs × 2 minibatches, linear decay to 0")
+        res_h, _ = train(hb, os.path.join(tmp, "habitat"), 2, "d habitat knobs", bf16_want)
+        tx = hb._last_learner.tx
+        horizon = hb._lr_decay_updates()
+        lr_now = hb.lr * (1.0 - min(tx.count, horizon) / horizon)
+        check(horizon == 8 and tx.decay_updates == horizon and tx.count == 8
+              and tx.learning_rate() == lr_now == 0.0,
+              f"(d) the LR after {tx.count} updates is the linear schedule's over {horizon}")
+        print(f"[12d] {hb.name}: {tx.count} optimizer updates over a horizon of {horizon}; "
+              f"the next LR {tx.learning_rate()} (the schedule's: {lr_now})")
+        out["d"] = {"env_steps_per_s": res_h["env_steps_per_s"], "updates": tx.count,
+                    "lr_horizon": horizon}
+
+        # -- (e) the host path: train, resume, evaluate on the simulator ----------------
+        host_steps = 64 * 8
+        host = ["backend=thor", "max_episode_steps=40"]
+
+        def host_experiment(iters, *more):
+            exp = experiment(name, iters, *host, *more, steps=host_steps)
+            exp.controller_factory = FakeController
+            return exp
+
+        ht = host_experiment(2)
+        check(ht.num_workers == 8, "(e) 8 workers")
+        res_t, _ = train(ht, os.path.join(tmp, "thor"), 2, "e host PPO", bf16_want)
+        hr = host_experiment(3)
+        res_r, _ = train(hr, os.path.join(tmp, "thor"), 1, "e host resumed to 3",
+                         bf16_want)
+        hckpt = latest_checkpoint(os.path.join(tmp, "thor", name))
+        check(int(restore_pytree(hckpt)["opt_state"]["count"]) == 12,
+              "(e) the resumed run restored the optimizer state (12 updates)")
+        he = host_experiment(3, "eval_episodes=16")
+        t0 = time.perf_counter()
+        overall_h = he.evaluate(os.path.join(tmp, "thor_eval"), ckpt=hckpt)
+        eval_h = time.perf_counter() - t0
+        check(overall_h["episodes"] == 16 and os.path.exists(overall_h["metrics_file"]),
+              "(e) 16 evaluation episodes on the val scenes, metrics.json written")
+        print(f"[12e] host evaluation (val scenes, horizon 40) from "
+              f"{os.path.basename(hckpt)}: 16 episodes in {eval_h:.2f} s, success "
+              f"{overall_h['success']}, SPL {overall_h['spl']}; {smi}")
+        out["e"] = {"env_steps_per_s": res_t["env_steps_per_s"],
+                    "resumed_env_steps_per_s": res_r["env_steps_per_s"],
+                    "eval_seconds": eval_h}
+
+        # -- (f) DAgger on the fake rearrangement ---------------------------------------
+        dg = experiment("one_phase_rgb_clipresnet50_dagger", 2)
+        res_d, got_d = train(dg, os.path.join(tmp, "dagger"), 2, "f DAgger")
+        check(not got_d, "(f) the fake rearrangement's symbolic maps launch no kernel")
+        out["f"] = {"env_steps_per_s": res_d["env_steps_per_s"], "loss": res_d["loss"]}
+    finally:
+        stop_fork_server()
+        shutil.rmtree(tmp, ignore_errors=True)
+    left = descendants()
+    check(not left, f"(e) every worker, the fork server and its tracker have ended, "
+                    f"left: {left}")
+    out["card"] = smi
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -2009,7 +2266,10 @@ def main(argv) -> int:
     zeroshot = check_zeroshot(card, smi, rn50_table)
     rn50x16 = check_rn50x16(card, smi)
 
-    # -- 12. results ---------------------------------------------------------------------
+    # -- 12. the RL experiment registry: train, resume and evaluate through get_experiment
+    registry = check_registry(card, smi)
+
+    # -- 13. results ---------------------------------------------------------------------
     src = "embodied_clip_tpu_torch/csrc/"
     pallas = "embodied_clip_tpu/ops/pallas/"
     rows = [{
@@ -2076,6 +2336,13 @@ def main(argv) -> int:
         for label in ("bf16", "int8"):
             if name in rn50x16[label]["calls_held"]:
                 row["rn50x16_calls_held"] = rn50x16[label]["calls_held"][name]
+    for row in rows:
+        name = row["name"]
+        row["launches_registry_iteration"] = registry["a"]["launches_per_iteration"].get(name, 0)
+        row["launches_registry_int8_iteration"] = \
+            registry["b"]["launches_per_iteration"].get(name, 0)
+        if name in registry["b"]["rollout_calls_held"]:
+            row["registry_rollout_calls_held"] = registry["b"]["rollout_calls_held"][name]
     rows[0]["host_act_step_shape"] = host["k1_act_step_shape"]  # K1
     rows[0]["host_habitat_shape"] = host["k1_habitat_shape"]
     rows[0]["zeroshot_rollout_shape"] = zeroshot["k1_rollout_shape"]
@@ -2088,6 +2355,7 @@ def main(argv) -> int:
         "vit_b32": vit, "towers": towers,
         "zeroshot": {k: v for k, v in zeroshot.items() if k != "k1_rollout_shape"},
         "rn50x16": rn50x16}, "card": smi}))
+    print(json.dumps({"registry": registry}))
     check(not descendants(), f"every process the script started has ended, left: "
                              f"{descendants()}")
     print(json.dumps({"kernels": rows}))

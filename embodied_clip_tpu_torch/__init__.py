@@ -15,7 +15,10 @@ with the frozen encoder inside the rollout (`examples/train_objectnav.py --frame
 the host-simulator path: pools of THOR/Habitat-style simulator processes
 (`envs/vector.py`, `native/frame_ring.py`) feeding the encoder on the card, with host PPO,
 evaluation and DAgger (`training/host_rollout.py`, `host_ppo.py`, `evaluate.py`,
-`dagger.py`) and allenact's released policy (`models/allenact_policy.py`).
+`dagger.py`) and allenact's released policy (`models/allenact_policy.py`). The RL
+experiments run by name (`config/experiments.get_experiment`, `config/rl_experiments.py`:
+train with step checkpoints and resume, evaluate into metrics.json), with seeding, the
+checkpoints and TensorBoard events in `utils/`.
 
 The package imports torch and numpy only — never jax, flax or `embodied_clip_tpu`.
 Entry points run on the GPU (`device="cuda"`) unless the caller asks for the CPU.

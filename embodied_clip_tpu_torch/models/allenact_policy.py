@@ -31,6 +31,8 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from embodied_clip_tpu_torch.models.clip import _device
+
 __all__ = ["AllenActResnetPolicy", "allenact_config", "load_allenact_checkpoint"]
 
 _PRE = "goal_visual_encoder."
@@ -187,11 +189,12 @@ def allenact_config(state_dict: Mapping, grid: int = 7) -> Dict:
     return cfg
 
 
-def load_allenact_checkpoint(path: str, grid: int = 7, device="cpu") -> AllenActResnetPolicy:
+def load_allenact_checkpoint(path: str, grid: int = 7, device="cuda") -> AllenActResnetPolicy:
     """A released allenact `.pt` (`{"model_state_dict": ..., ...}` or a bare state_dict)
-    as an `AllenActResnetPolicy` on `device`."""
+    as an `AllenActResnetPolicy` on `device` (the card unless the caller asks for the
+    CPU)."""
     raw = torch.load(path, map_location="cpu", weights_only=False)
     sd = _state_dict(raw)
     policy = AllenActResnetPolicy(**allenact_config(sd, grid))
     policy.load_state_dict(sd)
-    return policy.to(device)
+    return policy.to(_device(device))

@@ -54,8 +54,10 @@ def run_ranks(n: int, fn: Callable, *args, timeout: float = 300.0,
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=_rank_main, args=(fn, r, n, port, args, results, device),
-                         daemon=True) for r in range(n)]
+    # Not daemonic: a rank may start processes of its own (a host backend's VectorEnv
+    # workers). The finally clause below ends every rank.
+    procs = [ctx.Process(target=_rank_main, args=(fn, r, n, port, args, results, device))
+             for r in range(n)]
     for p in procs:
         p.start()
     out, errors = {}, []

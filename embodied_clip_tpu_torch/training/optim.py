@@ -11,11 +11,15 @@ ddppo.py:86-94`), in optax's formulas:
 
 `torch.nn.utils.clip_grad_norm_` adds 1e-6 to the norm and `torch.optim.Adam` puts ε
 elsewhere in the bias correction, so neither is used.
+
+`state_dict()` holds what optax's state holds: the update count (the schedule's
+position and the bias correction's n) and the moments μ and ν, in parameter order, so
+that a resumed run takes the updates an uninterrupted one would.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
 import torch
 
@@ -35,6 +39,27 @@ class ClippedAdam:
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def state_dict(self) -> Dict[str, Any]:
+        """{"count": 0-dim int64 tensor, "mu": [tensors], "nu": [tensors]}, the moments
+        in the order of the parameters (copies)."""
+        return {"count": torch.tensor(self.count, dtype=torch.int64),
+                "mu": [m.detach().clone() for m in self.mu],
+                "nu": [v.detach().clone() for v in self.nu]}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore `state_dict()`'s output (moments copied onto the parameters'
+        devices, in place)."""
+        if len(state["mu"]) != len(self.mu) or len(state["nu"]) != len(self.nu):
+            raise ValueError(f"optimizer state holds {len(state['mu'])} moments, this "
+                             f"optimizer has {len(self.mu)} parameters")
+        for dst, src in zip(self.mu + self.nu, list(state["mu"]) + list(state["nu"])):
+            if dst.shape != src.shape:
+                raise ValueError(f"optimizer moment of shape {tuple(src.shape)}, "
+                                 f"expected {tuple(dst.shape)}")
+            dst.copy_(src)
+        self.count = int(state["count"])
 
     def learning_rate(self) -> float:
         """The rate of the next update (optax reads the count before incrementing)."""

@@ -162,7 +162,7 @@ def test_load_allenact_checkpoint_and_unroll(tmp_path):
     oracle = _make_oracle(seed=3)
     path = str(tmp_path / "released.pt")
     torch.save({"model_state_dict": oracle.state_dict(), "total_steps": 130_091_717}, path)
-    policy = load_allenact_checkpoint(path, grid=G)
+    policy = load_allenact_checkpoint(path, grid=G, device="cpu")
     for k, v in oracle.state_dict().items():
         assert torch.equal(policy.state_dict()[k], v), k
     vis, goal, actions, dones = _sequence(1)

@@ -671,3 +671,40 @@ def test_int8_vit_encode_on_the_card_matches_the_cpu(cuda):
         assert launched == (2 if dev == "cuda" else 0)  # calibration and the encode
     assert out["cuda"].shape == (4, 512) and bool(torch.isfinite(out["cuda"].float()).all())
     assert cosine_distance(out["cuda"], out["cpu"]) <= 1e-3
+
+
+def test_step_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A train state saved from the card (a policy's state_dict, `ClippedAdam`'s state
+    and a CUDA generator's state) restores onto the card: the tensors come back on the
+    card, equal, and the generator draws what it would have drawn."""
+    from embodied_clip_tpu_torch.training.optim import ClippedAdam
+    from embodied_clip_tpu_torch.utils.checkpoint import StepCheckpointer, restore_params
+
+    pol = torch.nn.Linear(8, 4).to(cuda)
+    tx = ClippedAdam(pol.parameters(), lr=1e-3, max_grad_norm=0.5, decay_updates=10)
+    tx.step([torch.randn_like(p) for p in tx.params])
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    torch.rand(16, generator=gen, device=cuda)
+    state = {"params": pol.state_dict(), "opt_state": tx.state_dict(),
+             "generator": [gen.get_state()]}
+    ck = StepCheckpointer(str(tmp_path), prefix="exp")
+    path = ck.save(64, state)
+    want = torch.rand(16, generator=gen, device=cuda)
+
+    pol2 = torch.nn.Linear(8, 4).to(cuda)
+    tx2 = ClippedAdam(pol2.parameters(), lr=1e-3, max_grad_norm=0.5, decay_updates=10)
+    gen2 = torch.Generator(device=cuda).manual_seed(0)
+    template = {"params": pol2.state_dict(), "opt_state": tx2.state_dict(),
+                "generator": [gen2.get_state()]}
+    step, got = ck.restore_latest(template)
+    assert step == 64
+    pol2.load_state_dict(got["params"])
+    tx2.load_state_dict(got["opt_state"])
+    gen2.set_state(got["generator"][0])
+    for k, v in pol2.state_dict().items():
+        assert v.is_cuda and torch.equal(v, pol.state_dict()[k]), k
+    assert tx2.count == 1 and all(m.is_cuda for m in tx2.mu)
+    assert all(torch.equal(a, b) for a, b in zip(tx2.nu, tx.nu))
+    assert torch.equal(torch.rand(16, generator=gen2, device=cuda), want)
+    restored = restore_params(path, pol2.state_dict())
+    assert all(v.is_cuda for v in restored.values())
