@@ -87,7 +87,8 @@ Phases:
      features' distance to f32 printed beside the plain int8 graph's (the scripted
      controller's flat frames put both far from f32), and held within 1e-3 cosine
      (`INT8_PLAIN_GRAPH_LIMIT`) of the plain int8 graph fed by the same stem (K2) on the
-     same frames, the distance to the plain graph with its own stem printed beside it;
+     same frames, and of the plain graph with its own stem (whose stem convs keep their
+     f32 outputs, as K2 and the JAX XLA graph do);
      every K2/K3/K5 call of one act-step encode held with phase 5's contracts; (d) a
      worker SIGKILLed at act step 20: respawned, its step and the respawned worker's
      first step masked invalid (the latter done), the update runs; (e)
@@ -142,7 +143,26 @@ Phases:
      horizon 40): 2 iterations, a resume to 3 that restores the optimizer state, then
      `evaluate` on the val scenes (16 episodes); every pool closed and the fork server
      stopped; (f) `one_phase_rgb_clipresnet50_dagger` trains 2 iterations;
- 13. check that no process the script started is left, then print {"kernels": [...]}
+ 13. the probing stack (`check_probing`; cut to 600 frames of 4/2/2 scenes, see its
+     docstring): (a) scene files in thor_frames.py's format (golden-frame textures at
+     300×300, planted semantic patches, free space 0-13); (b) `extract-features` of
+     imagenet_rn50 + clip_rn50 at batch 256 in f32, bf16 and int8 (`cli.main` in this
+     process): keys, shapes, the planted labels, bf16 within 1e-3 cosine of f32, int8
+     within `INT8_COSINE_LIMITS` / `IMAGENET_INT8_COSINE_LIMITS`, launches per batch (bf16
+     K1 2; int8 K1 2, K2 1, K3 1, K5 3), every K2/K3/K5 call of one int8 batch held with
+     phase 5's contracts, encode frames/s and the splits' encode / labels / npz-write
+     seconds; (c) a 256-image reachability store read back by `load_probe_split`; (d)
+     `probe-sweep --max-epochs 2` over the 11 probes (steps/s, epoch ms) and one probe
+     per prediction type on the card against the CPU (val loss and test metric within
+     1e-4); (e) `probe-train --eval --ckpt` reproduces the trained test metric, `train
+     --config probe_… --eval` scores without training; (f) one probe at the reference's
+     split sizes (6,000/750/750 frames), 5 epochs: ms a step, host ms a step, epoch ms
+     (`--profile`: the device-busy share); (g) `verify-parity` on oracle checkpoints
+     (clip_rn50, imagenet_rn18; f32, bf16, int8) with activations captured here, a
+     subprocess run, a wrong checkpoint exiting 1, `convert-weights` feeding
+     `--variables`; (h) `list-configs` in a subprocess; (i) with 2 cards, the
+     data-parallel probe trainer in 2 NCCL processes against one;
+ 14. check that no process the script started is left, then print {"kernels": [...]}
      and the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero. It exits non-zero at once, and
@@ -1208,9 +1228,9 @@ def check_host_path(card, smi, profile):
               f"(c) int8 encoder at batch 8 within {INT8_COSINE_LIMITS}")
         # The whole encode on the act step's frames: path A against the plain graph fed
         # by the same stem (K2, whose call is held below), so a fault of K3 or K5 or of
-        # their chaining fails the run. The plain graph with its own stem is reported
-        # beside it: it rounds the stem3 conv to bf16 before the requant, which K2 does
-        # not, and on flat frames a flipped requant flips whole regions.
+        # their chaining fails the run; and against the plain graph with its own stem,
+        # whose stem convs keep their f32 outputs unrounded, as K2 and the JAX XLA graph
+        # do (on flat frames a requant flipped by a rounding flips whole regions).
         ref8 = f32.encode(frames8)["clip_conv"]
         plain = fe8.encoder.with_kernels(**KERNELS_OFF).encode(frames8)["clip_conv"]
         zero_counts()
@@ -1237,6 +1257,9 @@ def check_host_path(card, smi, profile):
         check(cos_env["path_a_vs_plain_graph_after_k2"] <= INT8_PLAIN_GRAPH_LIMIT,
               f"(c) the stored features within {INT8_PLAIN_GRAPH_LIMIT:g} of the plain int8 "
               "graph fed by K2 on the act step's frames")
+        check(cos_env["path_a_vs_plain_graph"] <= INT8_PLAIN_GRAPH_LIMIT,
+              f"(c) the stored features within {INT8_PLAIN_GRAPH_LIMIT:g} of the plain int8 "
+              "graph with its own stem on the act step's frames")
         out["ppo_int8"] = row8 | {"cosine_vs_f32_golden8": cos8,
                                   "cosine_vs_f32_rollout_frames": cos_env, "launches": got8}
         out["env_steps_per_s"]["c_int8_1_group"] = [m["env_steps_per_s"]]
@@ -1766,7 +1789,8 @@ def check_registry(card, smi):
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     from fake_thor import FakeController
 
-    check(len(list_experiments()) == 18, "the registry holds the 18 RL experiments")
+    check(len([n for n in list_experiments() if not n.startswith("probe_")]) == 18,
+          "the registry holds the 18 RL experiments")
     name = "objectnav_robothor_rgb_clipresnet50gru_ddppo"
     per_iter = 32 * 64
     encodes = 64 + 1
@@ -1957,6 +1981,608 @@ def check_registry(card, smi):
                     f"left: {left}")
     out["card"] = smi
     return out
+
+
+# -- phase 13: the probing stack ------------------------------------------------------
+
+# The reference's split (thor_frames.py:44-52,58) cut to 4 train, 2 val and 2 test scenes
+# at its frames per scene.
+PROBE_SCENES = {"train": ("FloorPlan1", "FloorPlan2", "FloorPlan3", "FloorPlan4"),
+                "val": ("FloorPlan21", "FloorPlan22"), "test": ("FloorPlan26", "FloorPlan27")}
+# Launches per 256-frame extraction batch of imagenet_rn50 + clip_rn50 (bf16 unfolded:
+# K1 per encoder; int8: K1 per encoder, clip_rn50's path A, imagenet_rn50's plain graph).
+EXTRACTION_PER_BATCH = {"bfloat16": {"fused_preprocess": 2},
+                        "int8": {"fused_preprocess": 2, "stem3_requant_pool_int8": 1,
+                                 "fused_stage1_int8": 1, "fused_resblocks_int8": 3}}
+STORE_SHAPES = {"imagenet_conv": (7, 7, 2048), "imagenet_avgpool": (2048,),
+                "clip_conv": (7, 7, 2048), "clip_avgpool": (2048,), "clip_attnpool": (1024,),
+                "object_presence": (52,), "object_localization": (9, 52), "free_space": ()}
+FEATURE_KEYS = tuple(STORE_SHAPES)[:5]
+# One probe per prediction type, held on the card against the CPU.
+PROBE_PAIRS = (("object_presence", "clip_avgpool"), ("object_localization", "clip_avgpool"),
+               ("reachability", "clip_attnpool"), ("free_space", "imagenet_avgpool"))
+CARD_VS_CPU_LIMIT = 1e-4
+# verify-parity thresholds of phase 13 (g): the north star in f32 and bf16; in int8 the
+# conv-map limit would be 2e-3, but on the seed-7 oracle checkpoint (torch's default
+# init) the JAX package's own int8 graph is at 2.124e-3 on clip_conv (the port 2.093e-3,
+# both on the CPU), so clip_rn50 is held to that, rounded up; imagenet_rn18 to the JAX
+# package's own int8 parity threshold (tests/test_verify_parity.py:64).
+VERIFY_THRESHOLDS = {"clip_rn50": {"float32": 1e-3, "bfloat16": 1e-3, "int8": 2.5e-3},
+                     "imagenet_rn18": {"float32": 1e-3, "bfloat16": 1e-3, "int8": 2e-2}}
+FULL_SPLIT = {"train": 6000, "val": 750, "test": 750}  # 7,500 frames: 60/15/15 scenes
+
+
+def run_cli(argv):
+    """(exit code, captured stdout) of `embodied_clip_tpu_torch.cli.main(argv)` in this
+    process, so that the kernels' launches are counted."""
+    import contextlib
+    import io
+
+    from embodied_clip_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            code = cli.main(argv)
+        except SystemExit as e:
+            code = e.code
+    return code, buf.getvalue()
+
+
+def probe_scene_files(root):
+    """Phase 13 (a): scene files in thor_frames.py's format under root/{split}, and per
+    split the frames and the labels the planting implies: (frames, presence (n, 52),
+    localization (n, 9, 52), free space (n,)). Frame k is a golden-frame texture (rolled
+    by k), with TARGET_OBJECTS[k % 52] planted in grid cell k % 9 and a second object in
+    cell (k + 4) % 9 (a 60×60 patch inside the cell); valid_moves_forward = k % 14."""
+    import numpy as np
+
+    from embodied_clip_tpu_torch.constants import TARGET_OBJECTS
+    from embodied_clip_tpu_torch.generate_data.thor_frames import (
+        FRAMES_PER_SCENE,
+        split_of_scene,
+    )
+    from embodied_clip_tpu_torch.parity import golden_frames
+
+    colors = {o: (20 + 4 * i, 255 - 4 * i, (37 * i) % 256) for i, o in enumerate(TARGET_OBJECTS)}
+    colors["Floor|+00.00|+00.00"] = (3, 3, 3)  # an id that is no target class
+    base = golden_frames(60)
+    out, k = {}, 0
+    for split, scenes in PROBE_SCENES.items():
+        frames, pres, loc, free = [], [], [], []
+        os.makedirs(os.path.join(root, split))
+        for scene in scenes:
+            check(split_of_scene(scene) == split, f"{scene} is a {split} scene")
+            records = []
+            for _ in range(FRAMES_PER_SCENE[split]):
+                frame = np.ascontiguousarray(np.roll(base[k % 60], (7 * (k // 60), 13 * (k // 60)),
+                                                     axis=(0, 1)))
+                sem = np.zeros((300, 300, 3), np.uint8)
+                sem[:, :10] = colors["Floor|+00.00|+00.00"]
+                p, g = np.zeros(52, np.int64), np.zeros((9, 52), np.int64)
+                a, b = k % 52, (7 * k + 3) % 52
+                for obj, cell in ((a, k % 9), (b, (k + 4) % 9)):
+                    r, c = divmod(cell, 3)
+                    sem[100 * r + 20:100 * r + 80, 100 * c + 20:100 * c + 80] = \
+                        colors[TARGET_OBJECTS[obj]]
+                    p[obj], g[cell, obj] = 1, 1
+                records.append({"frame": frame, "semantic_frame": sem,
+                                "object_id_to_color": colors, "valid_moves_forward": k % 14})
+                frames.append(frame)
+                pres.append(p)
+                loc.append(g)
+                free.append(k % 14)
+                k += 1
+            np.save(os.path.join(root, split, f"{scene}.npy"), records)
+        out[split] = (np.stack(frames), np.stack(pres), np.stack(loc), np.asarray(free))
+    return out
+
+
+def check_probing(card, smi, profile):
+    """Phase 13: the probing stack on the card, through the CLI's subcommands in this
+    process (`cli.main`) where the step names one: (a) scene files; (b)
+    `extract-features` of imagenet_rn50 + clip_rn50 at batch 256 in f32, bf16 and int8;
+    (c) a reachability store; (d) `probe-sweep` over the 11 probes, and one probe per
+    prediction type on the card against the CPU; (e) `probe-train --eval --ckpt` and
+    `train --config probe_* [--eval]`; (f) one probe at the reference's full split
+    sizes; (g) `verify-parity` on oracle checkpoints; (h) `list-configs`; (i) the
+    data-parallel probe trainer in 2 NCCL processes where 2 cards are present.
+
+    Cuts, for the run's time: the reference's 60/15/15 scenes (7,500 frames) become
+    4/2/2 (600 frames at its 100/50/50 frames a scene); the synthetic frames are
+    golden-frame textures with planted semantic patches; the reachability store is 256
+    synthetic images; (d) and (e) train 2 epochs and (f) 5 of the reference's 250. The
+    models run at full width."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from embodied_clip_tpu_torch.config.experiments import list_experiments
+    from embodied_clip_tpu_torch.constants import TARGET_OBJECTS
+    from embodied_clip_tpu_torch.data import feature_store as FS
+    from embodied_clip_tpu_torch.data.probing import ProbeDataModule, load_probe_split
+    from embodied_clip_tpu_torch.generate_data.reachable_metadata import build_split_triples
+    from embodied_clip_tpu_torch.ops.preprocess import make_preprocessor
+    from embodied_clip_tpu_torch.parity import cosine_distance, golden_frames
+    from embodied_clip_tpu_torch.training import supervised as SUP
+
+    tests_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests_dir not in sys.path:
+        sys.path.insert(0, tests_dir)
+    import torch_oracle as O
+
+    out = {"card": smi, "cards": torch.cuda.device_count()}
+    tmp = tempfile.mkdtemp(prefix="probing_")
+    try:
+        # -- (a) scene files ------------------------------------------------------------
+        t0 = time.perf_counter()
+        scenes = os.path.join(tmp, "scenes")
+        truth = probe_scene_files(scenes)
+        n_frames = sum(len(v[0]) for v in truth.values())
+        check(n_frames == 600, f"(a) 600 frames, got {n_frames}")
+        print(f"[13a] {n_frames} scene frames (300×300, train/val/test "
+              f"{', '.join(str(len(v[0])) for v in truth.values())}) written in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        # -- (b) extract-features in f32, bf16 and int8 --------------------------------
+        stores, ext = {}, {}
+        write_split = FS.FeatureStoreWriter.write_thor_split
+        for dtype in ("float32", "bfloat16", "int8"):
+            splits, encoders = [], {}
+
+            def timed(self, out_dir, split, _splits=splits, _encs=encoders, **kw):
+                path = write_split(self, out_dir, split, **kw)
+                _splits.append((split, len(kw["frames"]), dict(self.last_split_s)))
+                _encs.update(self.encoders)
+                return path
+
+            FS.FeatureStoreWriter.write_thor_split = timed
+            try:
+                t0 = time.perf_counter()
+                (code, _), got = launches_of(lambda: run_cli([
+                    "extract-features", "--data-dir", scenes, "--output-dir",
+                    os.path.join(tmp, dtype), "--encoders", "imagenet_rn50,clip_rn50",
+                    "--batch-size", "256", "--dtype", dtype]))
+                wall = time.perf_counter() - t0
+            finally:
+                FS.FeatureStoreWriter.write_thor_split = write_split
+            check(code == 0, f"(b) extract-features --dtype {dtype} exits 0")
+            batches = sum(-(-n // 256) for _, n, _ in splits)
+            calib = {"fused_preprocess": 2} if dtype == "int8" else {}  # one a encoder
+            want = {k: v * batches + calib.get(k, 0)
+                    for k, v in EXTRACTION_PER_BATCH.get(dtype, {}).items()}
+            check(got == want, f"(b) {dtype} launches {got}, expected {want} ({batches} "
+                               f"batches)")
+            enc_s = sum(s["encode"] for _, _, s in splits)
+            split_s = {k: sum(s[k] for _, _, s in splits) for k in ("encode", "labels", "write")}
+            stores[dtype] = {}
+            for split, (frames, pres, loc, free) in truth.items():
+                with np.load(os.path.join(tmp, dtype, f"thor_{split}.npz")) as z:
+                    stores[dtype][split] = {k: z[k] for k in z.files}
+                s = stores[dtype][split]
+                n = len(frames)
+                check(set(s) == set(STORE_SHAPES) | {"scene"}, f"(b) {dtype} keys {sorted(s)}")
+                for key, shape in STORE_SHAPES.items():
+                    check(s[key].shape == (n, *shape), f"(b) {dtype} {split} {key} "
+                                                       f"{s[key].shape}")
+                check(all(np.isfinite(s[k]).all() for k in FEATURE_KEYS),
+                      f"(b) {dtype} {split}: finite features")
+                check(np.array_equal(s["object_presence"], pres)
+                      and np.array_equal(s["object_localization"], loc)
+                      and np.array_equal(s["free_space"], free),
+                      f"(b) {dtype} {split}: the planted objects present in their cells "
+                      f"and in no other, free space as planted")
+            ext[dtype] = {"launches": got, "batches": batches, "wall_s": wall,
+                          "encode_frames_per_s": n_frames / enc_s, "split_s": split_s,
+                          "per_split_s": {sp: s for sp, _, s in splits}}
+            print(f"[13b] extract-features --dtype {dtype}: {n_frames} frames in "
+                  f"{wall:.2f} s (the command, encoders built and int8 calibrated "
+                  f"included); encode {n_frames / enc_s:.1f} frames/s (imagenet_rn50 + "
+                  f"clip_rn50, batch 256, the copies to and from the card included); the "
+                  f"splits' seconds: encode {split_s['encode']:.3f}, labels "
+                  f"{split_s['labels']:.3f}, npz write {split_s['write']:.3f}; launches "
+                  f"{got}; {smi}")
+            # the steady state: one warm 256-frame batch of both encoders, copies included
+            batch = truth["train"][0][:256]
+            probe = FS.FeatureStoreWriter(encoders, batch_size=256)
+            probe.encode_frames(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            probe.encode_frames(batch)
+            batch_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for enc in encoders.values():  # the features left on the card
+                enc.encode(batch)
+            torch.cuda.synchronize()
+            on_card_s = time.perf_counter() - t0
+            ext[dtype].update(steady_frames_per_s=256 / batch_s, steady_batch_ms=batch_s * 1e3,
+                              steady_on_card_ms=on_card_s * 1e3)
+            print(f"[13b] {dtype}: a warm 256-frame batch through both encoders, the copies "
+                  f"included: {256 / batch_s:.1f} frames/s ({batch_s * 1e3:.1f} ms, of which "
+                  f"{on_card_s * 1e3:.1f} ms the frames' copy in and the encodes, the rest "
+                  f"the features' f32 casts and copies back); {smi}")
+            if dtype == "int8":
+                x = torch.from_numpy(truth["train"][0][:256]).to("cuda")
+                ext[dtype]["calls_held"] = hold_rollout_calls(
+                    encoders["clip_rn50"].encode, x, "int8", phase="13b")
+            if dtype == "bfloat16":
+                bf16_encoders = dict(encoders)
+        feat_keys = FEATURE_KEYS
+        cos = {}
+        for dtype, limits in (("bfloat16", dict.fromkeys(feat_keys, COSINE_LIMIT)),
+                              ("int8", {**INT8_COSINE_LIMITS, **IMAGENET_INT8_COSINE_LIMITS})):
+            cos[dtype] = {k: max(cosine_distance(stores[dtype][sp][k], stores["float32"][sp][k])
+                                 for sp in truth) for k in feat_keys}
+            print(f"[13b] {dtype} store vs the f32 store, worst split, cosine: " + ", ".join(
+                f"{k} {v:.3e} (limit {limits[k]:g})" for k, v in cos[dtype].items()))
+            check(all(v <= limits[k] for k, v in cos[dtype].items()),
+                  f"(b) {dtype} features within {limits}")
+        out["extract"] = {**ext, "cosine_vs_f32": cos}
+
+        # -- (c) the reachability store --------------------------------------------------
+        import random as _random
+
+        store = os.path.join(tmp, "bfloat16")
+        base = golden_frames(32)
+        names = [f"edge_{i:03d}" for i in range(256)]
+        images = {n: np.ascontiguousarray(np.roll(base[i % 32], 11 * (i // 32), axis=1))
+                  for i, n in enumerate(names)}
+        t0 = time.perf_counter()
+        writer = FS.FeatureStoreWriter(bf16_encoders, batch_size=256)
+        writer.write_reachable_features(store, images)
+        superset = sorted(TARGET_OBJECTS[:20])
+        rng = _random.Random(0)
+        triples = {}
+        for split, (lo, hi) in (("train", (0, 160)), ("val", (160, 208)), ("test", (208, 256))):
+            boxes = {n: {f"{superset[(i + j) % 20]}_{j}": [0, 0, 1, 1] for j in range(3)}
+                     for i, n in enumerate(names[lo:hi], lo)}
+            pick = {n: [o for j, o in enumerate(objs) if (7 * i + 3 * j) % 5 < 2]
+                    for i, (n, objs) in enumerate(boxes.items(), lo)}
+            triples[split] = build_split_triples(boxes, pick, superset, rng)
+            FS.FeatureStoreWriter.write_reachable_split(store, split, triples[split])
+        reach_s = time.perf_counter() - t0
+        with np.load(os.path.join(store, "reachable_image_features.npz")) as z:
+            feats = dict(zip(z["image_names"], z["clip_attnpool"]))
+            check(set(z.files) == {"image_names", "imagenet_avgpool", "clip_avgpool",
+                                   "clip_attnpool"}, "(c) pooled keys only")
+        for split, tr in triples.items():
+            x, (obj, reach) = load_probe_split(store, split, "clip_attnpool", "reachability")
+            check(len(x) == len(tr) > 0 and all(np.array_equal(r, feats[t[0]])
+                                                for r, t in zip(x, tr))
+                  and obj.tolist() == [t[1] for t in tr]
+                  and reach.tolist() == [int(t[2]) for t in tr],
+                  f"(c) load_probe_split reads the {split} reachability store back")
+        out["reachability"] = {"images": 256, "triples": {k: len(v) for k, v in triples.items()},
+                               "seconds": reach_s}
+        print(f"[13c] reachability store: 256 images (300×300) encoded and written in "
+              f"{reach_s:.2f} s, triples {out['reachability']['triples']}, read back by "
+              f"load_probe_split")
+
+        # -- (d) probe-sweep, and the card against the CPU -------------------------------
+        fits = []
+        fit = SUP.ProbeTrainer.fit
+
+        def timed_fit(self, dm):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fit(self, dm)
+            torch.cuda.synchronize()
+            fits.append({"entry": f"{self.cfg.prediction_type}/{self.cfg.embedding_type}",
+                         "steps": self.global_step, "epochs": self.cfg.max_epochs,
+                         "s": time.perf_counter() - t0})
+            return res
+
+        SUP.ProbeTrainer.fit = timed_fit
+        try:
+            code, text = run_cli(["probe-sweep", "--data-dir", store, "--max-epochs", "2",
+                                  "--log-dir", os.path.join(tmp, "logs"),
+                                  "--output", os.path.join(tmp, "sweep.json")])
+            sweep = json.loads(text)
+            check(code == 0 and len(sweep) == 11 and len(fits) == 11,
+                  f"(d) probe-sweep ran the 11 probes ({len(sweep)})")
+            check(all(np.isfinite(v["loss"]) for v in sweep.values()),
+                  "(d) every test loss finite")
+            sweep_rows = {}
+            for f in fits:
+                r = {"steps_per_s": f["steps"] / f["s"], "epoch_ms": f["s"] / f["epochs"] * 1e3,
+                     "steps": f["steps"], "test": sweep[f["entry"]]}
+                sweep_rows[f["entry"]] = r
+                print(f"[13d] {f['entry']}: {f['steps']} steps in {f['s']:.3f} s, "
+                      f"{r['steps_per_s']:.1f} steps/s, epoch {r['epoch_ms']:.1f} ms (2 "
+                      f"validations included), test {r['test']}; {smi}")
+            out["sweep"] = sweep_rows
+
+            card_cpu = {}
+            for pred, emb in PROBE_PAIRS:
+                res = {}
+                for device in ("cuda", "cpu"):
+                    dm = ProbeDataModule(store, emb, pred).setup()
+                    tr = SUP.ProbeTrainer(SUP.ProbeTrainConfig(
+                        embedding_type=emb, prediction_type=pred, max_epochs=2,
+                        device=device))
+                    res[device] = (tr.fit(dm), tr.test(dm))
+                dv = abs(res["cuda"][0]["loss"] - res["cpu"][0]["loss"])
+                dt = abs(res["cuda"][1]["accuracy"] - res["cpu"][1]["accuracy"])
+                card_cpu[f"{pred}/{emb}"] = {"val_loss_diff": dv, "test_metric_diff": dt}
+                print(f"[13d] {pred}/{emb} after 2 epochs, card vs CPU (same initial "
+                      f"params, TF32 off): |val loss diff| {dv:.3e}, |test metric diff| "
+                      f"{dt:.3e} (limit {CARD_VS_CPU_LIMIT:g})")
+                check(dv <= CARD_VS_CPU_LIMIT and dt <= CARD_VS_CPU_LIMIT,
+                      f"(d) {pred}/{emb} on the card equals the CPU")
+            out["card_vs_cpu"] = card_cpu
+
+            # -- (e) the evaluation paths ------------------------------------------------
+            common = ["--data-dir", store, "--embedding-type", "clip_avgpool",
+                      "--prediction-type", "object_presence"]
+            ck = os.path.join(tmp, "probe_ckpt")
+            code, text = run_cli(["probe-train", *common, "--max-epochs", "2",
+                                  "--log-dir", os.path.join(tmp, "logs"), "--ckpt-dir", ck])
+            trained = json.loads(text)["test"]
+            n_fits = len(fits)
+            code_e, text = run_cli(["probe-train", *common, "--eval", "--ckpt",
+                                    os.path.join(ck, "best.pt")])
+            evaluated = json.loads(text)["test"]
+            diff_e = max(abs(evaluated[k] - trained[k]) for k in ("loss", "accuracy"))
+            check(code == code_e == 0 and len(fits) == n_fits and diff_e <= 1e-6,
+                  f"(e) probe-train --eval --ckpt reproduces the test loss and metric "
+                  f"({diff_e:.2e})")
+            argv = ["train", "--config", "probe_object_presence_clip_avgpool", "--output-dir",
+                    os.path.join(tmp, "exp"), "--override", f"data_dir={store}",
+                    "max_epochs=2", f"log_dir={os.path.join(tmp, 'logs')}"]
+            code, text = run_cli(argv)
+            exp_trained = json.loads(text)["test"]
+            n_fits = len(fits)
+            code_e, text = run_cli(argv[:5] + ["--eval"] + argv[5:])
+            exp_eval = json.loads(text)["test"]
+            diff_x = abs(exp_eval["loss"] - exp_trained["loss"])
+            check(code == code_e == 0 and len(fits) == n_fits and diff_x <= 1e-5,
+                  f"(e) train --config probe_* --eval does not train and scores the best "
+                  f"checkpoint ({diff_x:.2e})")
+            out["eval_paths"] = {"probe_train_eval_diff": diff_e, "train_eval_loss_diff": diff_x}
+            print(f"[13e] probe-train --eval --ckpt best.pt: test loss {evaluated['loss']:.6f}, "
+                  f"metric {evaluated['accuracy']:.6f} vs the trained run's "
+                  f"{trained['loss']:.6f}, {trained['accuracy']:.6f}; train --config "
+                  f"probe_object_presence_clip_avgpool --eval: no fit, test loss "
+                  f"{exp_eval['loss']:.6f} vs {exp_trained['loss']:.6f}")
+        finally:
+            SUP.ProbeTrainer.fit = fit
+
+        # -- (f) one probe at the reference's full split sizes ---------------------------
+        full = full_split_store(os.path.join(tmp, "full"))
+        out["full_split"] = probe_full_split(full, smi, profile)
+
+        # -- (g) verify-parity ----------------------------------------------------------
+        out["verify_parity"] = check_verify_parity(tmp, smi, O, make_preprocessor)
+
+        # -- (h) list-configs -----------------------------------------------------------
+        res = subprocess.run([sys.executable, "-m", "embodied_clip_tpu_torch", "list-configs"],
+                             capture_output=True, text=True, timeout=300,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(res.returncode == 0 and res.stdout.split() == list_experiments()
+              and len(list_experiments()) == 29,
+              f"(h) list-configs prints the 29 names ({len(res.stdout.split())})")
+        print(f"[13h] python -m embodied_clip_tpu_torch list-configs: "
+              f"{len(res.stdout.split())} names, those of list_experiments()")
+
+        # -- (i) the data-parallel probe trainer -----------------------------------------
+        out["data_parallel"] = check_probe_data_parallel(full)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def check_probe_data_parallel(full):
+    """Phase 13 (i): where 2 cards are present, the data-parallel probe trainer in 2 NCCL
+    processes (one card each) against one process on the `full` store: params within
+    1e-6. Returns the distance, or None with one card."""
+    import numpy as np
+    import torch
+
+    if torch.cuda.device_count() < 2:
+        print(f"[13i] {torch.cuda.device_count()} card(s): the 2-process data-parallel "
+              "probe trainer needs 2, not run")
+        return None
+    from embodied_clip_tpu_torch.parallel.dryrun import run_ranks
+
+    single = probe_dp_rank(full, False)
+    ranks = run_ranks(2, probe_dp_rank, full, True, device="cuda", timeout=600)
+    dist = max(float(np.abs(p[k] - single[k]).max()) for p in ranks for k in single)
+    check(dist <= 1e-6, f"(i) 2 NCCL processes equal one within 1e-6 ({dist:.2e})")
+    print(f"[13i] data-parallel probe trainer on {torch.cuda.device_count()} cards, 2 NCCL "
+          f"processes (one card each) vs one: params max |diff| {dist:.3e}")
+    return {"processes": 2, "max_param_diff": dist}
+
+
+def probe_dp_rank(data_dir, data_parallel):
+    """Phase 13 (i): 2 epochs of the object-presence probe on the full-size store, the
+    params as numpy arrays."""
+    from embodied_clip_tpu_torch.data.probing import ProbeDataModule
+    from embodied_clip_tpu_torch.training.supervised import ProbeTrainConfig, ProbeTrainer
+
+    dm = ProbeDataModule(data_dir, "clip_avgpool", "object_presence").setup()
+    tr = ProbeTrainer(ProbeTrainConfig(max_epochs=2, data_parallel=data_parallel))
+    tr.fit(dm)
+    return {k: v.cpu().numpy() for k, v in tr.params.items()}
+
+
+def full_split_store(full):
+    """A clip_avgpool / object_presence store at the reference's split sizes
+    (`FULL_SPLIT`), its labels a fixed linear function of the features; returns `full`."""
+    import numpy as np
+
+    os.makedirs(full)
+    rng = np.random.RandomState(0)
+    w = rng.randn(2048, 52).astype(np.float32) / 2048 ** 0.5
+    for split, n in FULL_SPLIT.items():
+        x = np.abs(rng.randn(n, 2048)).astype(np.float32)
+        np.savez(os.path.join(full, f"thor_{split}.npz"), clip_avgpool=x,
+                 object_presence=(x @ w > 0.3).astype(np.int64))
+    return full
+
+
+def probe_full_split(full, smi, profile):
+    """Phase 13 (f): 5 epochs of the object-presence probe on a 6,000/750/750-frame
+    clip_avgpool store. Each step is timed by host clock and by CUDA events around the
+    `probe_train_step` call; an epoch by host clock with the card synchronized."""
+    import numpy as np
+    import torch
+
+    from embodied_clip_tpu_torch.data.probing import ProbeDataModule
+    from embodied_clip_tpu_torch.training import supervised as SUP
+
+    step = SUP.probe_train_step
+    host, spans = [], []
+
+    def timed_step(*args, **kw):
+        t0 = time.perf_counter()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = step(*args, **kw)
+        b.record()
+        host.append(time.perf_counter() - t0)
+        spans.append((a, b))
+        return loss
+
+    dm = ProbeDataModule(full, "clip_avgpool", "object_presence").setup()
+    epochs = 5
+    tr = SUP.ProbeTrainer(SUP.ProbeTrainConfig(max_epochs=1))
+    SUP.probe_train_step = timed_step
+    epoch_ms = []
+    try:
+        for _ in range(epochs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.fit(dm)
+            torch.cuda.synchronize()
+            epoch_ms.append((time.perf_counter() - t0) * 1e3)
+        busy = None
+        if profile:
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as torch_profile
+
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                tr.fit(dm)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            busy = busy_ms(prof) / wall
+    finally:
+        SUP.probe_train_step = step
+    steps = dm.steps_per_epoch("train")
+    check(steps == 47 and tr.global_step >= epochs * steps, f"(f) {steps} steps an epoch")
+    test = tr.test(dm)
+    check(np.isfinite(test["loss"]), "(f) test loss finite")
+    n = epochs * steps
+    step_ms = sum(a.elapsed_time(b) for a, b in spans[:n]) / n
+    host_ms = sum(host[:n]) / n * 1e3
+    res = {"steps_per_epoch": steps, "epochs": epochs, "step_ms_events": step_ms,
+           "host_ms_per_step": host_ms, "epoch_ms": epoch_ms,
+           "epoch_ms_min": min(epoch_ms), "device_busy_share": busy, "test": test,
+           "train_mb": 6000 * 2048 * 4 / 2 ** 20}
+    print(f"[13f] object_presence/clip_avgpool at the reference's split sizes (6000/750/750, "
+          f"{res['train_mb']:.0f} MiB of train features), batch 128, {steps} steps an epoch: "
+          f"{step_ms:.4f} ms a step (CUDA events around the step call), host "
+          f"{host_ms:.4f} ms a step, epoch {min(epoch_ms):.1f} ms (best of {epochs}; 2 "
+          f"validations included), test {test}"
+          + (f", device busy {busy:.1%} of an epoch (profiled)" if busy is not None else "")
+          + f"; the reference trains 250 epochs; {smi}")
+    return res
+
+
+def check_verify_parity(tmp, smi, O, make_preprocessor):
+    """Phase 13 (g): `verify-parity` against activations of oracle checkpoints (the
+    reference's state_dict layouts, torch seed 7) captured here in the `.npz` layout of
+    tools/capture_reference_activations.py (`__frames__`, conv maps NCHW) from the port's
+    plain f32 preprocess and the oracle in f32 on the card."""
+    import numpy as np
+    import torch
+
+    from embodied_clip_tpu_torch.parity import golden_frames
+
+    frames = golden_frames(8)
+    paths = {}
+    for name, family, make in (
+            ("clip_rn50", "clip", lambda: O.ModifiedResNetOracle((3, 4, 6, 3), 64, 32, 1024, 224)),
+            ("imagenet_rn18", "imagenet", lambda: O.TVResNetTrunk((2, 2, 2, 2), block="basic"))):
+        for seed in (7, 8):
+            torch.manual_seed(seed)
+            model = make().eval()
+            ck = os.path.join(tmp, f"{name}_seed{seed}.pt")
+            torch.save(model.state_dict(), ck)
+            paths[name, seed] = ck
+        torch.manual_seed(7)
+        model = make().eval().to("cuda")
+        x = make_preprocessor(family, 224, torch.float32)(
+            torch.from_numpy(frames).to("cuda")).permute(0, 3, 1, 2).contiguous()
+        with torch.no_grad():
+            if family == "clip":
+                conv = model.trunk(x).float()
+                acts = {"clip_conv": conv, "clip_avgpool": conv.mean(dim=(2, 3)),
+                        "clip_attnpool": model.attnpool(conv).float()}
+            else:
+                conv = model(x).float()
+                acts = {"imagenet_conv": conv, "imagenet_avgpool": conv.mean(dim=(2, 3))}
+        path = os.path.join(tmp, f"{name}_acts.npz")
+        np.savez_compressed(path, __frames__=frames,
+                            **{k: v.cpu().numpy() for k, v in acts.items()})
+        paths[name, "acts"] = path
+
+    def verify(name, *more):
+        code, text = run_cli(["verify-parity", "--encoder", name, "--activations",
+                              paths[name, "acts"], *more])
+        return code, json.loads(text)
+
+    res = {}
+    for name, runs in VERIFY_THRESHOLDS.items():
+        for dtype, threshold in runs.items():
+            (code, r), got = launches_of(lambda: verify(
+                name, "--torch-checkpoint", paths[name, 7], "--dtype", dtype,
+                "--threshold", str(threshold)))
+            res[f"{name}/{dtype}"] = {"per_key": r["per_key_cosine_distance"],
+                                      "threshold": threshold, "launches": got}
+            print(f"[13g] verify-parity {name} --dtype {dtype}: worst {r['worst']:.3e} "
+                  f"(threshold {threshold:g}), per key " + ", ".join(
+                      f"{k} {v:.3e}" for k, v in r["per_key_cosine_distance"].items())
+                  + f"; launches {got}")
+            check(code == 0 and r["pass"], f"(g) verify-parity {name} {dtype} passes")
+    sub = subprocess.run([sys.executable, "-m", "embodied_clip_tpu_torch", "verify-parity",
+                          "--encoder", "clip_rn50", "--activations", paths["clip_rn50", "acts"],
+                          "--torch-checkpoint", paths["clip_rn50", 7], "--dtype", "bfloat16"],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(sub.returncode == 0, f"(g) python -m embodied_clip_tpu_torch verify-parity exits 0: "
+                               f"{sub.stderr[-2000:]}")
+    code, bad = verify("clip_rn50", "--torch-checkpoint", paths["clip_rn50", 8])
+    check(code == 1 and not bad["pass"], f"(g) another seed's checkpoint fails, exit {code}")
+    print(f"[13g] python -m embodied_clip_tpu_torch verify-parity (bf16) in a subprocess: "
+          f"exit 0; against seed 8's checkpoint: exit {code}, worst {bad['worst']:.3e}")
+    conv_res = {}
+    for fold in (False, True):
+        sd = os.path.join(tmp, f"clip_rn50_converted_{fold}.pt")
+        code, _ = run_cli(["convert-weights", "--torch-checkpoint", paths["clip_rn50", 7],
+                           "--encoder", "clip_rn50", "--output", sd]
+                          + (["--fold-bn"] if fold else []))
+        check(code == 0, "(g) convert-weights exits 0")
+        code, r = verify("clip_rn50", "--variables", sd)
+        want = res["clip_rn50/float32"]["per_key"]
+        got = r["per_key_cosine_distance"]
+        diff = max(abs(got[k] - want[k]) for k in want)
+        if fold:  # BN folded in f32: the same distances up to the fold's rounding
+            ok = all(abs(got[k] - want[k]) <= 1e-9 + 1e-2 * want[k] for k in want)
+        else:
+            ok = got == want
+        check(code == 0 and r["pass"] and ok,
+              f"(g) verify-parity --variables of convert-weights{' --fold-bn' * fold}: "
+              f"distances {got} vs {want}")
+        conv_res["folded" if fold else "plain"] = {"per_key": got, "max_diff": diff}
+        print(f"[13g] convert-weights{' --fold-bn' if fold else ''} → verify-parity "
+              f"--variables (f32): worst {r['worst']:.3e}, max |distance diff| vs "
+              f"--torch-checkpoint {diff:.3e}")
+    res["converted"] = conv_res
+    res["wrong_checkpoint_worst"] = bad["worst"]
+    return res
 
 
 def main(argv) -> int:
@@ -2269,7 +2895,10 @@ def main(argv) -> int:
     # -- 12. the RL experiment registry: train, resume and evaluate through get_experiment
     registry = check_registry(card, smi)
 
-    # -- 13. results ---------------------------------------------------------------------
+    # -- 13. the probing stack: extraction, the probe trainer and its grid, verify-parity
+    probing = check_probing(card, smi, profile)
+
+    # -- 14. results ---------------------------------------------------------------------
     src = "embodied_clip_tpu_torch/csrc/"
     pallas = "embodied_clip_tpu/ops/pallas/"
     rows = [{
@@ -2343,6 +2972,15 @@ def main(argv) -> int:
             registry["b"]["launches_per_iteration"].get(name, 0)
         if name in registry["b"]["rollout_calls_held"]:
             row["registry_rollout_calls_held"] = registry["b"]["rollout_calls_held"][name]
+    for row in rows:
+        row["launches_extraction_batch"] = {}
+        for dtype in ("bfloat16", "int8"):
+            e = probing["extract"][dtype]
+            calib = 2 if dtype == "int8" and row["name"] == "fused_preprocess" else 0
+            row["launches_extraction_batch"][dtype] = \
+                (e["launches"].get(row["name"], 0) - calib) // e["batches"]
+        if row["name"] in probing["extract"]["int8"]["calls_held"]:
+            row["extraction_calls_held"] = probing["extract"]["int8"]["calls_held"][row["name"]]
     rows[0]["host_act_step_shape"] = host["k1_act_step_shape"]  # K1
     rows[0]["host_habitat_shape"] = host["k1_habitat_shape"]
     rows[0]["zeroshot_rollout_shape"] = zeroshot["k1_rollout_shape"]
@@ -2356,6 +2994,7 @@ def main(argv) -> int:
         "zeroshot": {k: v for k, v in zeroshot.items() if k != "k1_rollout_shape"},
         "rn50x16": rn50x16}, "card": smi}))
     print(json.dumps({"registry": registry}))
+    print(json.dumps({"probing": probing}))
     check(not descendants(), f"every process the script started has ended, left: "
                              f"{descendants()}")
     print(json.dumps({"kernels": rows}))

@@ -18,7 +18,12 @@ evaluation and DAgger (`training/host_rollout.py`, `host_ppo.py`, `evaluate.py`,
 `dagger.py`) and allenact's released policy (`models/allenact_policy.py`). The RL
 experiments run by name (`config/experiments.get_experiment`, `config/rl_experiments.py`:
 train with step checkpoints and resume, evaluate into metrics.json), with seeding, the
-checkpoints and TensorBoard events in `utils/`.
+checkpoints and TensorBoard events in `utils/`. The primitive-probing stack extracts
+feature stores of simulator frames through the encoders (`generate_data/`,
+`data/feature_store.py`) and trains the reference's linear probes on them
+(`models/probes.py`, `data/probing.py`, `training/supervised.py`, the `probe_*`
+experiments); `parity.verify_encoder_parity` holds an encoder to a reference capture, and
+`python -m embodied_clip_tpu_torch` (`cli.py`) runs all of it from the command line.
 
 The package imports torch and numpy only — never jax, flax or `embodied_clip_tpu`.
 Entry points run on the GPU (`device="cuda"`) unless the caller asks for the CPU.

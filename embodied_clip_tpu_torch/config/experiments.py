@@ -4,8 +4,8 @@
 Replaces the reference's three config idioms (SURVEY.md §5): argparse probing flags
 (train.py:119-134), allenact experiment-classes-by-module-tag
 (baselines_robothor_objectnav.md:48-51), habitat YAML grids (baselines_habitat.md:63-75).
-So far the port registers the RL experiments (`config/rl_experiments.py`) under the JAX
-package's names; the probing grid (`probe_*`) is still to be ported.
+The port registers the JAX package's 29 names: the probing grid (`probe_{prediction}_
+{embedding}`, `ProbeExperiment`) and the RL experiments (`config/rl_experiments.py`).
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Optional
 
-__all__ = ["Experiment", "register", "list_experiments", "get_experiment"]
+__all__ = ["Experiment", "ProbeExperiment", "register", "list_experiments", "get_experiment"]
 
 _REGISTRY: Dict[str, Callable[[], "Experiment"]] = {}
 
@@ -71,6 +71,81 @@ class Experiment:
 
     def evaluate(self, output_dir: str, ckpt: Optional[str] = None) -> dict:
         raise NotImplementedError
+
+
+# ------------------------------------------------------------------------- probing
+
+@dataclasses.dataclass
+class ProbeExperiment(Experiment):
+    """Probing grid: 3 embeddings × 4 predictions (reference train.py choices).
+    `device` is the port's own field: the card unless the caller asks for the CPU."""
+
+    embedding_type: str = "clip_avgpool"
+    prediction_type: str = "object_presence"
+    data_dir: str = "data"
+    log_dir: str = "logs/"
+    max_epochs: int = 250
+    batch_size: int = 128
+    lr: float = 1e-3
+    device: str = "cuda"
+
+    def _setup(self, log_dir, ckpt_dir):
+        from embodied_clip_tpu_torch.data.probing import ProbeDataModule
+        from embodied_clip_tpu_torch.training.supervised import ProbeTrainConfig, ProbeTrainer
+
+        dm = ProbeDataModule(
+            self.data_dir, self.embedding_type, self.prediction_type, self.batch_size
+        ).setup()
+        trainer = ProbeTrainer(ProbeTrainConfig(
+            embedding_type=self.embedding_type, prediction_type=self.prediction_type,
+            lr=self.lr, batch_size=self.batch_size, max_epochs=self.max_epochs,
+            log_dir=log_dir, ckpt_dir=ckpt_dir, device=self.device,
+        ))
+        return dm, trainer
+
+    def train(self, output_dir: str, ckpt: Optional[str] = None) -> dict:
+        """Fit, then test with the best-val params; the best params go to
+        `{output_dir}/best.pt`."""
+        dm, trainer = self._setup(self.log_dir, output_dir)
+        val = trainer.fit(dm)
+        test = trainer.test(dm)
+        return {"val": val, "test": test}
+
+    def evaluate(self, output_dir: str, ckpt: Optional[str] = None) -> dict:
+        """Eval-only pass: restore a checkpoint and score the test split. No training
+        step runs (reference eval flow: restore + trainer.test, train.py:170-174).
+        `ckpt` defaults to the best-val checkpoint that `train` wrote under
+        `output_dir`."""
+        import os
+
+        if ckpt is None:
+            best = os.path.join(output_dir, "best.pt")
+            if not os.path.isfile(best):
+                raise FileNotFoundError(
+                    f"--eval needs a checkpoint: none given and {best!r} absent")
+            ckpt = best
+        dm, trainer = self._setup(None, None)
+        x0, _ = next(dm.batches("test", shuffle=False))
+        trainer.load(ckpt, x0)
+        return {"test": trainer.test(dm, use_best=False)}
+
+
+def _register_probe_grid():
+    from embodied_clip_tpu_torch.models.probes import EMBEDDING_TYPES, PREDICTION_TYPES
+
+    for pred in PREDICTION_TYPES:
+        embs = ("imagenet_avgpool", "clip_avgpool") if pred == "object_localization" \
+            else EMBEDDING_TYPES
+        for emb in embs:
+            name = f"probe_{pred}_{emb}"
+
+            def factory(e=emb, p=pred, n=name):
+                return ProbeExperiment(name=n, embedding_type=e, prediction_type=p)
+
+            _REGISTRY[name] = factory
+
+
+_register_probe_grid()
 
 
 # ------------------------------------------------------------------------------ RL

@@ -1,9 +1,25 @@
-"""Task and preprocessing constants; a copy of `embodied_clip_tpu/constants.py:21-39` and
-of `embodied_clip_tpu/envs/thor.py:25`.
+"""Task and preprocessing constants; a copy of `embodied_clip_tpu/constants.py` and of
+`embodied_clip_tpu/envs/thor.py:25`.
 
+The probing vocabulary follows reference primitive_probing/constants.py:1-3 (52-object
+iTHOR target vocabulary; the free-space probe head has max_forward_steps + 1 outputs).
 The preprocessing sets follow reference thor_image_features.py:36-44 and the pinned
 openai/CLIP preprocess.
 """
+
+TARGET_OBJECTS = [
+    'AlarmClock', 'Apple', 'ArmChair', 'Bathtub', 'Bed', 'Bowl', 'Box', 'Bread',
+    'Cabinet', 'Chair', 'CoffeeMachine', 'CoffeeTable', 'Cup', 'DeskLamp',
+    'DiningTable', 'Egg', 'Faucet', 'FloorLamp', 'Fridge', 'GarbageCan',
+    'HandTowel', 'HousePlant', 'Laptop', 'Lettuce', 'Microwave', 'Mug',
+    'Painting', 'Pan', 'Pillow', 'Plate', 'Plunger', 'Pot', 'Potato',
+    'RemoteControl', 'ScrubBrush', 'SideTable', 'Sink', 'SinkBasin', 'SoapBar',
+    'SoapBottle', 'Sofa', 'Spatula', 'Spoon', 'SprayBottle', 'Statue',
+    'StoveBurner', 'Television', 'Toaster', 'Toilet', 'ToiletPaper', 'Tomato',
+    'Towel',
+]
+
+MAX_FORWARD_STEPS = 10
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)

@@ -23,6 +23,8 @@ as it is, in HWIO; `from_flax_qvit` a JAX quantized ViT tower into the tree of
 the same shape) into the port's `models/policy.ActorCritic` state_dict, and
 `from_flax_allenact_params` the JAX `AllenActResnetPolicy` params into the allenact
 state_dict that the port's `models/allenact_policy.AllenActResnetPolicy` loads.
+`from_flax_probe_params` carries a JAX probe's params (`models/probes.py`) into the port's
+probe state_dict.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import torch
 __all__ = ["from_flax_variables", "from_flax_resnet_variables", "from_flax_vit_params",
            "from_flax_text_params", "from_flax_clip_variables", "from_flax_qtrunk",
            "from_flax_qvit", "from_flax_policy_params", "from_flax_allenact_params",
-           "load_torch_checkpoint", "visual_state_dict"]
+           "from_flax_probe_params", "load_torch_checkpoint", "visual_state_dict"]
 
 
 def _t(v) -> torch.Tensor:
@@ -305,6 +307,16 @@ def from_flax_allenact_params(params: Mapping[str, Any], grid: int = 7
         sd[f"{mod}.bias"] = _t(params[name]["bias"])
     if "embed_prev_action" in params:
         sd["prev_action_embedder.fc.weight"] = _t(params["embed_prev_action"]["embedding"])
+    return sd
+
+
+def from_flax_probe_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX probe params ({"linear"|"cell_linear": {kernel (in, out), bias}}, or a
+    gradient tree of the same shape) → the port's probe state_dict
+    ({name}.weight (out, in), {name}.bias)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        _dense(sd, name, p)
     return sd
 
 

@@ -6,7 +6,8 @@ Scheme (symmetric PTQ, as in the JAX package):
   weights      s8 per output channel, scale = max|w| / 127
   activations  s8 per tensor, scale = max / 127, calibrated on sample frames; every
                conv input is post-ReLU, the conv shortcut's output is signed
-  stem convs and the 1×1 shortcut convs stay bf16 with f32 accumulation.
+  stem convs and the 1×1 shortcut convs stay bf16 with f32 accumulation; the CLIP
+               stem convs' outputs stay f32, unrounded, as XLA leaves them.
 
 The quantized trunk is a dict shaped like the JAX package's `qtrunk`:
   {"act_scales": {name: 0-dim f32}, "fp": {"stem1"|…|"layerS_B/down": {"kernel" HWIO
@@ -26,8 +27,8 @@ JAX keyword arguments under the port's names:
 
 With all of them off it is the plain graph. `PATH_A` (K2 + K3 + K5) is what a
 quantized encoder runs; `PATH_B` swaps K5 for K4. What the kernels do not cover (the
-bf16 stem1/stem2 convs, and each later stage's stride block 0) runs as plain torch:
-cuDNN for the bf16 convs, `torch._int_mm` (+ im2col) for the s8 ones.
+stem1/stem2 convs, and each later stage's stride block 0) runs as plain torch:
+cuDNN for the convs of bf16 operands, `torch._int_mm` (+ im2col) for the s8 ones.
 
 The torchvision trunk (`calibrate_resnet_trunk`, `quantize_resnet_trunk`,
 `quantized_resnet_apply`) has the same scheme and tree, with the 7×7/2 stem ("stem")
@@ -320,16 +321,23 @@ def _cached(q: Dict[str, Any], key: tuple, build: Callable[[], Any]):
 # --------------------------------------------------------------------------- apply
 
 
-def _fp_conv(q, name, t, stride=1, relu=True, f32_pointwise=True):
+def _fp_conv(q, name, t, stride=1, relu=True, f32_pointwise=True, f32_out=False):
     """bf16 conv (its output rounded to bf16) with f32 bias; with `f32_pointwise`, the
     CLIP graph's 1×1 stride-1 shortcut as an f32-accumulating product of bf16 operands
-    (the JAX graph's einsum with preferred_element_type=f32)."""
+    (the JAX graph's einsum with preferred_element_type=f32). With `f32_out`, the conv
+    of the bf16 operands upcast, run in full f32 with no rounding of its output: the
+    CLIP graph's stem convs, whose bf16 output rounding XLA elides (its optimized HLO
+    holds f32 convolutions there, and each stem conv's output equals the unrounded f32
+    conv on every element)."""
     sub = q["fp"][name]
     k = sub["kernel"].to(torch.bfloat16)
     tb = t.to(torch.bfloat16)
     if f32_pointwise and k.shape[0] == 1 and k.shape[1] == 1 and stride == 1:
         with full_f32():
             out = torch.matmul(tb.float(), k[0, 0].float())
+    elif f32_out:
+        with full_f32():
+            out = _nhwc_conv(tb.float(), k.permute(3, 2, 0, 1).float(), stride)
     else:
         out = _nhwc_conv(tb, k.permute(3, 2, 0, 1), stride).float()
     out = out + sub["bias"]
@@ -355,15 +363,16 @@ def quantized_trunk_apply(q: Dict[str, Any], x: torch.Tensor, stage_sizes: Seque
     fuse_pointwise = 0 if kernel_resblocks else fuse_pointwise
 
     s_in = a["stem.out"]
-    t = _fp_conv(q, "stem1", x, 2)
-    t = _fp_conv(q, "stem2", t)
+    t = _fp_conv(q, "stem1", x, 2, f32_out=True)
+    t = _fp_conv(q, "stem2", t, f32_out=True)
     if kernel_stem and t.shape[1] % 2 == 0 and t.shape[2] % 2 == 0:
         sub = q["fp"]["stem3"]
         t8 = SK.stem3_requant_pool_int8(
             t.to(torch.bfloat16).contiguous(), sub["kernel"], sub["bias"], s_in,
             wmat=_cached(q, ("stem3",), lambda: SK.stem3_weight_matrix(sub["kernel"])))
     else:
-        t8 = avg_pool_int8(requant(_fp_conv(q, "stem3", t, relu=False), s_in), 2)
+        t8 = avg_pool_int8(requant(_fp_conv(q, "stem3", t, relu=False, f32_out=True),
+                                   s_in), 2)
 
     blocks = list(_block_names(stage_sizes))
     if kernel_stage1 and stage_sizes[0] == 3:

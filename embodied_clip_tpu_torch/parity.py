@@ -1,15 +1,25 @@
-"""Shared parity helpers (copy of `embodied_clip_tpu/parity.py:33-63`): the golden
-frames both packages encode, and the per-sample cosine distance the north star
-(features within 1e-3 of the f32 reference, BASELINE.json) is stated in. Also the
-contract the bf16 kernels K6/K7 are held to against their plain versions on the card."""
+"""Shared parity helpers (port of `embodied_clip_tpu/parity.py`): the golden frames
+both packages encode, the per-sample cosine distance the north star (features within
+1e-3 of the f32 reference, BASELINE.json) is stated in, and the real-weight parity check
+`verify_encoder_parity`. Also the contract the bf16 kernels K6/K7 are held to against
+their plain versions on the card.
+
+The parity check's two halves: tools/capture_reference_activations.py runs wherever the
+reference stack lives and saves the golden frames' activations to an .npz; then
+`python -m embodied_clip_tpu_torch verify-parity --encoder clip_rn50 --torch-checkpoint
+RN50_state_dict.pt --activations ref_acts.npz` loads the same weights into the port,
+encodes the same frames on the card and holds each key's cosine distance to the
+threshold."""
 
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 import numpy as np
 
-__all__ = ["golden_frames", "cosine_distance", "bf16_disagreement", "bf16_share_limit",
-           "stage1_block_disagreements", "BF16_KERNEL_RTOL", "BF16_KERNEL_SHARE",
-           "BF16_SHARE_REF_TERMS"]
+__all__ = ["golden_frames", "cosine_distance", "verify_encoder_parity", "bf16_disagreement",
+           "bf16_share_limit", "stage1_block_disagreements", "BF16_KERNEL_RTOL",
+           "BF16_KERNEL_SHARE", "BF16_SHARE_REF_TERMS"]
 
 # K6/K7 vs their plain versions, both bf16 with f32 accumulation: at most 1% of output
 # elements differ, each by at most two bf16 steps (rtol 2⁻⁶) with atol 2⁻⁶ × the
@@ -63,6 +73,81 @@ def cosine_distance(a, b) -> float:
     num = (a * b).sum(-1)
     den = np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1) + 1e-30
     return float((1.0 - num / den).max())
+
+
+def _to_nhwc(x: np.ndarray) -> np.ndarray:
+    """Accept reference conv maps in either NCHW (torch-native) or NHWC."""
+    if x.ndim == 4 and x.shape[1] > x.shape[-1]:
+        return np.transpose(x, (0, 2, 3, 1))
+    return x
+
+
+def _with_state_dict(enc, sd):
+    """`enc`'s spec and dtype on `sd`, the state dict `convert-weights` wrote: folded
+    (no BN statistics, where the encoder has them) or not."""
+    from embodied_clip_tpu_torch.models.encoders import FrozenEncoder, _make_module
+
+    has_bn = any(k.endswith("running_mean") for k in enc.module.state_dict())
+    folded = has_bn and not any(k.endswith("running_mean") for k in sd)
+    module = _make_module(enc.spec, enc.dtype, folded, sd, enc.device)
+    return FrozenEncoder(enc.spec, module, enc.image_size, enc.dtype, enc.device)
+
+
+def verify_encoder_parity(
+    encoder_name: str,
+    activations_path: str,
+    torch_checkpoint: Optional[str] = None,
+    variables: Optional[str] = None,
+    dtype: str = "float32",
+    threshold: float = 1e-3,
+    device="cuda",
+) -> Dict[str, object]:
+    """Encode the captured frames with the port's encoder on `device`; compare per key.
+
+    The weights come from `torch_checkpoint` (a reference state_dict or jit archive) or
+    `variables` (the state-dict file `convert-weights` writes, folded or not), else the
+    seed-0 random init. `int8` runs the serving graph: bf16, BN folded, int8 PTQ
+    calibrated on the capture's own frames. Returns {"pass": bool,
+    "per_key_cosine_distance": {key: distance}, "worst", ...}. Keys compared are the
+    intersection of the capture's keys and ours (conv maps accepted NCHW or NHWC)."""
+    import torch
+
+    from embodied_clip_tpu_torch.models.encoders import build_encoder
+
+    with np.load(activations_path) as z:
+        frames = z["__frames__"]
+        ref = {k: z[k] for k in z.files if not k.startswith("__")}
+
+    if dtype not in ("float32", "bfloat16", "int8"):
+        raise ValueError(f"unsupported parity dtype {dtype!r}")
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    enc = build_encoder(encoder_name, dtype=tdt, torch_checkpoint=torch_checkpoint,
+                        device=device)
+    if variables is not None:
+        from embodied_clip_tpu_torch.utils.checkpoint import restore_pytree
+
+        enc = _with_state_dict(enc, restore_pytree(variables))
+    if dtype == "int8":
+        enc = enc.fold_bn().quantize(frames)
+    ours = {k: v.float().cpu().numpy() for k, v in enc.encode(frames).items()}
+
+    per_key = {}
+    for k in sorted(set(ref) & set(ours)):
+        per_key[k] = cosine_distance(_to_nhwc(ref[k]), _to_nhwc(ours[k]))
+    if not per_key:
+        raise ValueError(
+            f"no comparable keys: capture has {sorted(ref)}, encoder emits {sorted(ours)}"
+        )
+    worst = max(per_key.values())
+    return {
+        "encoder": encoder_name,
+        "dtype": dtype,
+        "threshold": threshold,
+        "per_key_cosine_distance": per_key,
+        "worst": worst,
+        "pass": bool(worst <= threshold),
+        "frames": int(frames.shape[0]),
+    }
 
 
 def bf16_disagreement(got, want):

@@ -1,6 +1,7 @@
-"""The DD-PPO optimizer: optax's `chain(clip_by_global_norm(max_norm), adam(lr))` with
-its optional `linear_schedule(lr, 0, decay_updates)` (`embodied_clip_tpu/training/
-ddppo.py:86-94`), in optax's formulas:
+"""The port's optimizers in optax's formulas: `Adam`, optax's `adam(lr)` (the probe
+trainer's, `embodied_clip_tpu/training/supervised.py:63`), and `ClippedAdam`, the DD-PPO
+optimizer, optax's `chain(clip_by_global_norm(max_norm), adam(lr))` with its optional
+`linear_schedule(lr, 0, decay_updates)` (`embodied_clip_tpu/training/ddppo.py:86-94`):
 
   clip   g ← g                      if ‖g‖ < max_norm
          g ← (g / ‖g‖) · max_norm    otherwise (‖g‖ over every parameter at once)
@@ -23,19 +24,18 @@ from typing import Any, Dict, Iterable, List, Optional
 
 import torch
 
-__all__ = ["ClippedAdam"]
+__all__ = ["Adam", "ClippedAdam"]
 
 
-class ClippedAdam:
-    """Global-norm clipping, then Adam, over a fixed list of parameters; the moments
-    and the update count live here."""
+class Adam:
+    """Adam over a fixed list of parameters, updated in place; the moments and the
+    update count live here."""
 
-    b1, b2, eps = 0.9, 0.999, 1e-8  # optax.adam's defaults, which the JAX learner uses
+    b1, b2, eps = 0.9, 0.999, 1e-8  # optax.adam's defaults, which the JAX learners use
 
-    def __init__(self, params: Iterable[torch.Tensor], lr: float, max_grad_norm: float,
-                 decay_updates: int = 0):
+    def __init__(self, params: Iterable[torch.Tensor], lr: float, decay_updates: int = 0):
         self.params: List[torch.Tensor] = list(params)
-        self.lr, self.max_grad_norm, self.decay_updates = lr, max_grad_norm, decay_updates
+        self.lr, self.decay_updates = lr, decay_updates
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
@@ -67,15 +67,18 @@ class ClippedAdam:
             return self.lr
         return self.lr * (1.0 - min(self.count, self.decay_updates) / self.decay_updates)
 
-    @torch.no_grad()
-    def step(self, grads: Optional[List[torch.Tensor]] = None) -> None:
-        """One update from `grads` (the parameters' `.grad` if None), in place."""
+    def _grads(self, grads: Optional[List[torch.Tensor]]) -> List[torch.Tensor]:
         if grads is None:
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in self.params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        scale = torch.where(norm < self.max_grad_norm, 1.0, self.max_grad_norm / norm)
-        g = torch._foreach_mul(grads, scale)
+        return list(grads)
+
+    @torch.no_grad()
+    def step(self, grads: Optional[List[torch.Tensor]] = None) -> None:
+        """One update from `grads` (the parameters' `.grad` if None), in place."""
+        self._adam(self._grads(grads))
+
+    def _adam(self, g: List[torch.Tensor]) -> None:
         torch._foreach_mul_(self.mu, self.b1)
         torch._foreach_add_(self.mu, g, alpha=1.0 - self.b1)
         torch._foreach_mul_(self.nu, self.b2)
@@ -90,3 +93,20 @@ class ClippedAdam:
         upd = torch._foreach_div(self.mu, bc1)
         torch._foreach_div_(upd, denom)
         torch._foreach_add_(self.params, upd, alpha=-lr)
+
+
+class ClippedAdam(Adam):
+    """Global-norm clipping, then Adam."""
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: float, max_grad_norm: float,
+                 decay_updates: int = 0):
+        super().__init__(params, lr, decay_updates)
+        self.max_grad_norm = max_grad_norm
+
+    @torch.no_grad()
+    def step(self, grads: Optional[List[torch.Tensor]] = None) -> None:
+        """One update from `grads` (the parameters' `.grad` if None), in place."""
+        grads = self._grads(grads)
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        scale = torch.where(norm < self.max_grad_norm, 1.0, self.max_grad_norm / norm)
+        self._adam(torch._foreach_mul(grads, scale))

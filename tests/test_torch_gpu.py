@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1–K7) on the card, each held to its plain PyTorch
 version at small shapes and at the main path's widths, with the JAX package's contracts
 (K6/K7: `parity.bf16_disagreement`); the DD-PPO iteration and the host act steps with
-the encoder on the card.
+the encoder on the card; a batch-8 `clip_rn50` extraction in bf16 and int8 against f32,
+and a probe-trainer epoch on the card against the CPU.
 
 Marked `gpu`: each test skips where no CUDA device is present (decided inside the
 test). This file imports no JAX, so it runs on a machine without it:
@@ -708,3 +709,59 @@ def test_step_checkpoint_round_trip_on_the_card(cuda, tmp_path):
     assert torch.equal(torch.rand(16, generator=gen2, device=cuda), want)
     restored = restore_params(path, pol2.state_dict())
     assert all(v.is_cuda for v in restored.values())
+
+
+@pytest.mark.parametrize("dtype,limits", [
+    ("bfloat16", {"clip_conv": 1e-3, "clip_avgpool": 1e-3, "clip_attnpool": 1e-3}),
+    # chip_smoke.py's INT8_COSINE_LIMITS
+    ("int8", {"clip_conv": 2e-3, "clip_avgpool": 1e-3, "clip_attnpool": 1e-3})])
+def test_extract_clip_rn50_on_the_card(cuda, tmp_path, dtype, limits):
+    """A batch-8 extraction of `clip_rn50` (golden-frame textures, a planted object) on
+    the card in bf16 (unfolded: K1) and int8 (K1-K3, K5), held to the f32 store."""
+    from embodied_clip_tpu_torch.generate_data.extract import extract_thor_features
+
+    d = tmp_path / "scenes" / "train"
+    d.mkdir(parents=True)
+    sem = np.zeros((300, 300, 3), np.uint8)
+    sem[:100, :100] = (10, 20, 30)
+    np.save(str(d / "FloorPlan1.npy"), [
+        {"frame": f, "semantic_frame": sem, "object_id_to_color": {"Mug": (10, 20, 30)},
+         "valid_moves_forward": 11} for f in golden_frames(8)])
+    stores = {}
+    for dt in ("float32", dtype):
+        extract_thor_features(str(tmp_path / "scenes"), str(tmp_path / dt),
+                              encoder_names=["clip_rn50"], batch_size=8, dtype=dt,
+                              splits=("train",), device="cuda")
+        with np.load(str(tmp_path / dt / "thor_train.npz")) as z:
+            stores[dt] = {k: z[k] for k in z.files}
+    got, ref = stores[dtype], stores["float32"]
+    assert got["clip_conv"].shape == (8, 7, 7, 2048) and got["clip_attnpool"].shape == (8, 1024)
+    for k, limit in limits.items():
+        assert cosine_distance(got[k], ref[k]) <= limit, k
+    assert got["object_localization"][:, 0].sum() == 8 and got["free_space"].tolist() == [11] * 8
+
+
+def test_probe_fit_epoch_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """One `ProbeTrainer.fit` epoch on the card from the CPU run's initial params (TF32
+    off): params and val/test metrics within 1e-4."""
+    from embodied_clip_tpu_torch.data.probing import ProbeDataModule
+    from embodied_clip_tpu_torch.training.supervised import ProbeTrainConfig, ProbeTrainer
+
+    rng = np.random.RandomState(0)
+    w = rng.randn(64, 52)
+    for split, n in (("train", 512), ("val", 128), ("test", 128)):
+        x = rng.randn(n, 64).astype(np.float32)
+        np.savez(str(tmp_path / f"thor_{split}.npz"), clip_avgpool=x,
+                 object_presence=(x @ w > 0).astype(np.int64))
+    runs = {}
+    for device in ("cpu", "cuda"):
+        dm = ProbeDataModule(str(tmp_path), "clip_avgpool", "object_presence").setup()
+        tr = ProbeTrainer(ProbeTrainConfig(max_epochs=1, device=device))
+        val = tr.fit(dm)
+        runs[device] = ({k: v.cpu() for k, v in tr.params.items()}, val, tr.test(dm))
+    (pc, vc, tc), (pg, vg, tg) = runs["cpu"], runs["cuda"]
+    for k in pc:
+        assert (pc[k] - pg[k]).abs().max() <= 1e-4, k
+    for a, b in ((vc, vg), (tc, tg)):
+        for k in a:
+            assert abs(a[k] - b[k]) <= 1e-4, (k, a[k], b[k])

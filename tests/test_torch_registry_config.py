@@ -2,7 +2,7 @@
 (`embodied_clip_tpu_torch/utils/{seeding,tensorboard,checkpoint}.py`,
 `config/{experiments,rl_experiments}.py`) against the JAX package's: the same seeds, the
 same event bytes, JAX's checkpoint contracts and error messages, the same 18 RL names
-with the same fields, overrides and derived settings.
+(and the 11 probing names) with the same fields, overrides and derived settings.
 """
 
 import dataclasses
@@ -207,8 +207,10 @@ def test_clipped_adam_state_round_trip():
 # ------------------------------------------------------------------------- registry
 
 def test_list_experiments_matches_jax_rl_names():
-    assert pexp.list_experiments() == JAX_RL_NAMES
+    names = pexp.list_experiments()
+    assert [n for n in names if not n.startswith("probe_")] == JAX_RL_NAMES
     assert len(JAX_RL_NAMES) == 18
+    assert names == jexp.list_experiments() and len(names) == 29  # with the probing grid
 
 
 @pytest.mark.parametrize("name", JAX_RL_NAMES)

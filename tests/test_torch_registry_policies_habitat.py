@@ -14,7 +14,8 @@ from torch_registry_cases import check_policy_agrees, one_thread
 def _one_thread():
     yield from one_thread()
 
-NAMES = [n for n in pexp.list_experiments() if "robothor" not in n]
+NAMES = [n for n in pexp.list_experiments()
+         if "robothor" not in n and not n.startswith("probe_")]
 
 
 @pytest.mark.parametrize("name", NAMES)

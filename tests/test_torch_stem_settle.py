@@ -16,10 +16,18 @@ stride 2, stem2, as the default `int8_stem="off"` branch runs them). Three stems
   (c) the port's K2 plain version, with the same weights, bias and scale.
 The test holds (c) no farther from (b) than (a) is, with a margin of a tenth of (a)'s
 share. It also prints the distance of the same conv rounded to bf16 before its requant
-(the port's plain int8 graph's stem) from (b). Run with -s to see the numbers.
+from (b). Run with -s to see the numbers.
+
+The JAX package's XLA graph leaves all three stem convs unrounded on the CPU: its
+optimized HLO holds f32 convolutions of the bf16 operands there, with no bf16 convert
+after them. The port's plain int8 graph runs its stem convs in that form
+(`ops/quantize._fp_conv(..., f32_out=True)`): each stem conv's output equals JAX's in f32
+up to the sum order, and the graph's s8 stem output equals the JAX XLA graph's on every
+element of the settle frames.
 """
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -32,6 +40,9 @@ from embodied_clip_tpu.ops.quantize import _avg_pool_int8, _conv, _requant
 from embodied_clip_tpu.parity import golden_frames
 
 from embodied_clip_tpu_torch.envs.thor import THORObjectNavEnv
+from embodied_clip_tpu_torch.models.convert import from_flax_qtrunk
+from embodied_clip_tpu_torch.ops import quantize as Q
+from embodied_clip_tpu_torch.ops.int8 import avg_pool_int8
 from embodied_clip_tpu_torch.ops.kernels.stem_kernel import (
     stem3_requant_pool_int8_reference,
 )
@@ -86,10 +97,16 @@ def _steps(got, want):
     return int(d.max()), float((d != 0).mean())
 
 
-def test_k2_plain_no_farther_from_xla_stem_than_jax_kernel():
+@pytest.fixture(scope="module")
+def settle():
+    """(the scripted frames, JAX's int8 `clip_rn50` calibrated on golden frames)."""
     frames = _scripted_frames()
     assert frames.shape == (2, 300, 300, 3) and frames.dtype == np.uint8
-    qenc = build_encoder("clip_rn50").fold_bn().quantize(golden_frames(32))
+    return frames, build_encoder("clip_rn50").fold_bn().quantize(golden_frames(32))
+
+
+def test_k2_plain_no_farther_from_xla_stem_than_jax_kernel(settle):
+    frames, qenc = settle
     x = _stem3_input(qenc, frames).astype(jnp.bfloat16)
     assert x.shape == (2, 112, 112, 32)
     sub = qenc.qtrunk["fp"]["stem3"]["conv"]
@@ -111,3 +128,74 @@ def test_k2_plain_no_farther_from_xla_stem_than_jax_kernel():
           f"the requant {r[0]}, {r[1]:.3e}")
     assert a[0] <= 1 and a[1] <= 0.005, a  # the JAX package's own contract
     assert c[0] <= a[0] and c[1] <= 1.1 * a[1], (c, a)
+
+
+def _jax_stem_s8(q, x):
+    """The JAX XLA graph's s8 stem output: the default branch of `quantized_trunk_apply`
+    (`embodied_clip_tpu/ops/quantize.py:413-430,487-493`) in one jit."""
+    def fp_conv(name, t, stride=1, relu=True):
+        sub = q["fp"][name]["conv"]
+        out = _conv(t.astype(jnp.bfloat16), jnp.asarray(sub["kernel"], jnp.bfloat16),
+                    stride).astype(jnp.float32)
+        out = out + jnp.asarray(sub["bias"], jnp.float32)
+        return jax.nn.relu(out) if relu else out
+
+    def stem(x):
+        t = fp_conv("stem2", fp_conv("stem1", x, 2))
+        t = fp_conv("stem3", t, relu=False)
+        return _avg_pool_int8(_requant(t, q["act_scales"]["stem.out"]), 2)
+
+    return np.asarray(jax.jit(stem)(x))
+
+
+def test_plain_int8_graph_stem_equals_jax_xla_stem(settle, monkeypatch):
+    """The port's plain int8 graph (every kernel off), its s8 stem output captured at
+    its first requant, against the JAX XLA graph's: 0 steps on every element."""
+    frames, qenc = settle
+    x = np.asarray(qenc.preprocess(jnp.asarray(frames)))
+    q = from_flax_qtrunk(qenc.qtrunk)
+    seen = []
+    requant = Q.requant
+    monkeypatch.setattr(Q, "requant", lambda *a: seen.append(requant(*a)) or seen[-1])
+    Q.quantized_trunk_apply(q, torch.from_numpy(x), (3, 4, 6, 3),
+                            out_dtype=torch.float32, **Q.KERNELS_OFF)
+    got = avg_pool_int8(seen[0], 2).numpy()
+    want = _jax_stem_s8(qenc.qtrunk, x)
+    assert got.shape == want.shape == (2, 56, 56, 64)
+    print(f"\nport plain int8 graph vs JAX XLA stem (max steps, share): "
+          f"{_steps(got, want)}")
+    assert _steps(got, want) == (0, 0.0)
+
+
+@pytest.mark.parametrize("name,stride", [("stem1", 2), ("stem2", 1), ("stem3", 1)])
+def test_repaired_stem_conv_equals_jax_f32(settle, name, stride):
+    """Each stem conv of the port's plain int8 graph (`_fp_conv(..., f32_out=True)`, bias
+    in, no relu) against JAX's (`_conv` of bf16 operands, `.astype(f32)`, bias) on the
+    same bf16 input: equal in f32 up to the sum order (within 2⁻²⁰ of the output's
+    largest magnitude), where the bf16-rounded conv is a bf16 step away."""
+    frames, qenc = settle
+    q = qenc.qtrunk
+    x = qenc.preprocess(jnp.asarray(frames))
+    chain = {"stem1": [], "stem2": [("stem1", 2)], "stem3": [("stem1", 2), ("stem2", 1)]}
+
+    def fp_conv(n, t, s, relu):
+        sub = q["fp"][n]["conv"]
+        out = _conv(t.astype(jnp.bfloat16), jnp.asarray(sub["kernel"], jnp.bfloat16),
+                    s).astype(jnp.float32) + jnp.asarray(sub["bias"], jnp.float32)
+        return jax.nn.relu(out) if relu else out
+
+    t = x
+    for n, s in chain[name]:
+        t = jax.jit(lambda t, n=n, s=s: fp_conv(n, t, s, True))(t)
+    t = jnp.asarray(t).astype(jnp.bfloat16)
+    want = np.asarray(jax.jit(lambda t: fp_conv(name, t, stride, False))(t))
+    qp = from_flax_qtrunk(q)
+    tin = torch.from_numpy(np.asarray(t.astype(jnp.float32))).to(torch.bfloat16)
+    got = Q._fp_conv(qp, name, tin, stride, relu=False, f32_out=True).numpy()
+    rounded = Q._fp_conv(qp, name, tin, stride, relu=False).numpy()
+    tol = 2.0 ** -20 * np.abs(want).max()
+    err, err_rounded = np.abs(got - want).max(), np.abs(rounded - want).max()
+    print(f"\n{name}: |f32 form - JAX| {err:.3e}, |bf16-rounded - JAX| {err_rounded:.3e}"
+          f" (tolerance {tol:.3e})")
+    assert err <= tol
+    assert err_rounded > 100 * tol
