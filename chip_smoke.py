@@ -162,8 +162,23 @@ Phases:
      subprocess run, a wrong checkpoint exiting 1, `convert-weights` feeding
      `--variables`; (h) `list-configs` in a subprocess; (i) with 2 cards, the
      data-parallel probe trainer in 2 NCCL processes against one;
- 14. check that no process the script started is left, then print {"kernels": [...]}
-     and the last line {"ok": true, "device": {...}}.
+ 14. the JAX package's int8 graph options at full width (`bench.py:57-81`'s recipe:
+     `clip_rn50` folded, `quantize(golden_frames(32))`, batch 128): (a) every K2-K5 call
+     of a path A and a path B encode in the reciprocal requant, held to its plain
+     version in that form with phase 5's contracts and timed in both forms (ms and
+     device_ms), the two forms' s8 outputs apart on ≤0.5% of elements (≤1 step where one
+     requant makes the output), each kernel in that form where its TPU kernel calls
+     `_unscale`; (b) batch-128 encodes in turns: path A, path A reciprocal, `int8_stem`
+     "stem3" and "full", path B reciprocal, the plain graph alone and with
+     `int4_stage1` 1 and 2: ms, launches per encode (K2 none under an int8 stem), cosine
+     to f32 per key (INT8_COSINE_LIMITS; int4 INT4_COSINE_LIMIT); (c) ViT-B/32 int8:
+     `quant_attn=False` (no farther from f32 than all-s8) and the reciprocal form, each
+     timed and within VIT_INT8_COSINE_LIMIT; (d) `imagenet_rn50` int8 in both forms
+     within IMAGENET_INT8_COSINE_LIMITS, beside its graph with bf16-rounded stem and
+     shortcut convs (before they were repaired);
+ 15. check that no process the script started is left, then print {"kernels": [...]}
+     (each K2-K5 row with its reciprocal form's numbers and every kernel's launches per
+     phase-14 encode) and the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero. It exits non-zero at once, and
 prints no result, where no CUDA device is available.
@@ -2585,6 +2600,197 @@ def check_verify_parity(tmp, smi, O, make_preprocessor):
     return res
 
 
+# -- phase 14: the JAX package's int8 graph options -------------------------------------
+
+# int4 stage 1 vs f32, every key: the JAX package's own envelope (tests/test_quantize.py:121).
+# The reciprocal requant and the int8 stems keep INT8_COSINE_LIMITS: on the seed-0
+# clip_rn50 weights the JAX package's own distances under them are ≤1.842e-3 (conv map)
+# and ≤1.14e-4 (pooled), inside those limits, and int4's ≤2.35e-2
+# (tests/test_torch_quant_variants.py::test_rn50_int8_option_fidelity_matches_jax).
+INT4_COSINE_LIMIT = 5e-2
+# Launches per batch-128 encode of each option (phase 14 (b)); the int8 stems leave K2 out.
+OPTION_LAUNCHES = {
+    "A": {"fused_preprocess": 1, "stem3_requant_pool_int8": 1, "fused_stage1_int8": 1,
+          "fused_resblocks_int8": 3},
+    "A recip": {"fused_preprocess": 1, "stem3_requant_pool_int8": 1,
+                "fused_stage1_int8": 1, "fused_resblocks_int8": 3},
+    "stem3": {"fused_preprocess": 1, "fused_stage1_int8": 1, "fused_resblocks_int8": 3},
+    "full": {"fused_preprocess": 1, "fused_stage1_int8": 1, "fused_resblocks_int8": 3},
+    "B recip": {"fused_preprocess": 1, "stem3_requant_pool_int8": 1, "fused_stage1_int8": 1,
+                "fused_cb3_cb1_int8": 12},
+    "plain": {"fused_preprocess": 1},
+    "int4 1": {"fused_preprocess": 1},
+    "int4 2": {"fused_preprocess": 1}}
+
+
+def check_recip_kernels(qenc, frames, card):
+    """Phase 14 (a): every K2-K5 call of a batch-128 encode on paths A and B in the
+    reciprocal form, held to its plain version in that form with phase 5's contracts;
+    each call timed in both forms (in turns: reciprocal, division, division,
+    reciprocal) by phase 5's method, and the s8 difference of the two forms (≤0.5% of
+    elements; ≤1 step where one requant makes the output). Each kernel takes the
+    reciprocal form where its TPU kernel calls `_unscale` (ops/kernels/bottleneck_kernel.py)."""
+    import torch
+
+    from embodied_clip_tpu_torch.ops import quantize as Q
+    from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
+    from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
+
+    kernels = [(SK, "stem3_requant_pool_int8"), (BK, "fused_stage1_int8"),
+               (BK, "fused_resblocks_int8"), (BK, "fused_cb3_cb1_int8")]
+    recs = {}
+    for enc in (qenc.with_kernels(recip_requant=True),
+                qenc.with_kernels(**Q.PATH_B, recip_requant=True)):
+        with Recorder(SK, "stem3_requant_pool_int8") as r2, \
+                Recorder(BK, "fused_stage1_int8") as r3, \
+                Recorder(BK, "fused_resblocks_int8") as r5, \
+                Recorder(BK, "fused_cb3_cb1_int8") as r4:
+            enc.encode(frames)
+            torch.cuda.synchronize()
+        for r in (r2, r3, r4, r5):
+            if r.calls:
+                recs.setdefault(r.name, r.calls)
+    results = {}
+    for mod, name in kernels:
+        fn = getattr(mod, name)
+        calls = recs.get(name, [])
+        check(len(calls) > 0 and all(kw.get("recip") is True for _, kw, _ in calls),
+              f"{name} ran in the reciprocal form")
+        t = dict.fromkeys(("ms", "device_ms", "division_ms", "division_device_ms",
+                           "bound_ms"), 0.0)
+        worst_step, worst_share, form_step, form_share = 0, 0.0, 0, 0.0
+        for args, kw, _ in calls:
+            step, share = hold_int8_call(mod, name, args, kw)
+            worst_step, worst_share = max(worst_step, step), max(worst_share, share)
+            div = {**kw, "recip": False}
+            got, want = fn(*args, **kw), fn(*args, **div)
+            pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+            for i, (g, w) in enumerate(pairs):
+                d = (g.int() - w.int()).abs()
+                step, share = int(d.max()), float((d != 0).float().mean())
+                # One requant in that form (K2's before its pool, K4's block output, K5's
+                # s8 output) moves ≤1 step; the outputs of chained ones (K4's next cb1,
+                # K3's third block output) carry a flipped step through later convs.
+                single = name in ("stem3_requant_pool_int8", "fused_resblocks_int8") or (
+                    name == "fused_cb3_cb1_int8" and i == 0)
+                check(share <= STEP_SHARE_LIMIT and (step <= 1 or not single),
+                      f"{name}: the two requant forms {step} steps apart on {share:.2e}")
+                form_step, form_share = max(form_step, step), max(form_share, share)
+            ms = {True: [], False: []}
+            for recip in (True, False, False, True):
+                kwf = kw if recip else div
+                ms[recip].append(cuda_ms(lambda: fn(*args, **kwf), 10))
+            t["ms"] += min(ms[True])
+            t["division_ms"] += min(ms[False])
+            t["device_ms"] += graph_ms(lambda: fn(*args, **kw))
+            t["division_device_ms"] += graph_ms(lambda: fn(*args, **div))
+            t["bound_ms"] += bound(int8_work(name, args, kw, got), card)[0]
+        contract = (f"≤{STEP_LIMIT} step on ≤{STEP_SHARE_LIMIT:g}: worst {worst_step} step on "
+                    f"{worst_share:.2e}" if name in ("stem3_requant_pool_int8",
+                                                     "fused_stage1_int8") else "bit-exact")
+        print(f"[14a] {name}, reciprocal requant: {len(calls)} call(s) per batch-128 encode; "
+              f"vs its plain version in that form {contract}; kernel {t['ms']:.4f} ms "
+              f"({t['device_ms']:.4f} on the device) against the division's "
+              f"{t['division_ms']:.4f} ({t['division_device_ms']:.4f}), bound "
+              f"{t['bound_ms']:.4f} ms; the two forms' s8 outputs {form_step} step apart on "
+              f"{form_share:.2e} of elements")
+        results[name] = {**t, "max_abs_err": float(worst_step), "share_differing": worst_share,
+                         "vs_division": {"max_step": form_step, "share": form_share},
+                         "calls": len(calls)}
+    return results
+
+
+def check_int8_options(qenc, iqenc, iref, f32_ref, g8, g128, x128, card, smi):
+    """Phase 14: the JAX package's int8 graph options at full width (see main's docstring)."""
+    import torch
+
+    from embodied_clip_tpu_torch.models.encoders import build_encoder
+    from embodied_clip_tpu_torch.ops import quantize as Q
+    from embodied_clip_tpu_torch.ops.int8 import full_f32
+    from embodied_clip_tpu_torch.parity import cosine_distance, golden_frames
+
+    tests_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests_dir not in sys.path:
+        sys.path.insert(0, tests_dir)
+    import torch_int8_cases as C8
+
+    out = {"kernels": check_recip_kernels(qenc, g128, card)}
+
+    # (b) batch-128 encodes of clip_rn50 under each option, in turns.
+    variants = {"A": qenc, "A recip": qenc.with_kernels(recip_requant=True),
+                "stem3": qenc.with_kernels(int8_stem="stem3"),
+                "full": qenc.with_kernels(int8_stem="full"),
+                "B recip": qenc.with_kernels(**Q.PATH_B, recip_requant=True),
+                "plain": qenc.with_kernels(**Q.KERNELS_OFF),
+                "int4 1": qenc.with_kernels(**Q.KERNELS_OFF, int4_stage1=1),
+                "int4 2": qenc.with_kernels(**Q.KERNELS_OFF, int4_stage1=2)}
+    rows = {}
+    for label, enc in variants.items():
+        _, got = launches_of(lambda: enc.encode(x128))
+        check(got == OPTION_LAUNCHES[label], f"{label}: launches {got}, expected "
+                                            f"{OPTION_LAUNCHES[label]}")
+        feats = enc.encode(g8)
+        cos = {k: cosine_distance(feats[k], f32_ref[k]) for k in f32_ref}
+        limits = (dict.fromkeys(f32_ref, INT4_COSINE_LIMIT) if label.startswith("int4")
+                  else INT8_COSINE_LIMITS)
+        check(all(v <= limits[k] for k, v in cos.items()), f"{label}: cosine {cos} within "
+                                                            f"{limits}")
+        rows[label] = {"launches": got, "cosine_vs_f32": cos, "ms": []}
+    for label in list(variants) + list(reversed(variants)):
+        rows[label]["ms"].append(cuda_ms(lambda: variants[label].encode(x128), 5))
+    for label, r in rows.items():
+        ms = ", ".join(f"{m:.3f}" for m in r["ms"])
+        print(f"[14b] clip_rn50 int8 {label}: batch-128 encode {ms} ms; launches "
+              f"{r['launches']}; vs f32 (TF32 off) on golden_frames(8): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in r["cosine_vs_f32"].items()) + f"; {smi}")
+    out["clip_rn50"] = rows
+
+    # (c) ViT-B/32 int8: bf16 attention denses, the reciprocal form.
+    vit = build_encoder("clip_vit_b32", dtype=torch.bfloat16, device="cuda")
+    with full_f32():
+        vref = build_encoder("clip_vit_b32", dtype=torch.float32,
+                             device="cuda").encode(g8)["clip_embed"]
+    qv = vit.quantize(golden_frames(32))
+    vforms = {"s8": qv, "quant_attn=False": qv.with_kernels(quant_attn=False),
+              "recip": qv.with_kernels(recip_requant=True)}
+    vrows = {label: {"cosine_vs_f32": cosine_distance(e.encode(g8)["clip_embed"], vref),
+                     "ms": []} for label, e in vforms.items()}
+    for label in list(vforms) + list(reversed(vforms)):
+        vrows[label]["ms"].append(cuda_ms(lambda: vforms[label].encode(x128), 5))
+    for label, r in vrows.items():
+        print(f"[14c] clip_vit_b32 int8 {label}: batch-128 encode "
+              f"{', '.join(f'{m:.3f}' for m in r['ms'])} ms; clip_embed vs f32 (TF32 off) "
+              f"{r['cosine_vs_f32']:.3e} (limit {VIT_INT8_COSINE_LIMIT:g}); {smi}")
+        check(r["cosine_vs_f32"] <= VIT_INT8_COSINE_LIMIT, f"ViT {label} within the limit")
+    check(vrows["quant_attn=False"]["cosine_vs_f32"] <= vrows["s8"]["cosine_vs_f32"] + 1e-6,
+          "the bf16 attention denses no farther from f32 than all-s8")
+    out["clip_vit_b32"] = vrows
+
+    # (d) imagenet_rn50 int8 with the repaired stem and shortcut convs, in both forms; the
+    # graph they replace (bf16-rounded stem and `down` outputs) beside it.
+    fp_conv = Q._fp_conv
+    irows = {}
+    for label, enc in (("repaired", iqenc), ("repaired, recip", iqenc.with_kernels(
+            recip_requant=True)), ("bf16-rounded stem and down (before)", iqenc)):
+        if label.endswith("(before)"):
+            Q._fp_conv = C8.bf16_rounded_conv
+        try:
+            feats = enc.encode(g8)
+            ms = cuda_ms(lambda: enc.encode(x128), 5)
+        finally:
+            Q._fp_conv = fp_conv
+        cos = {k: cosine_distance(feats[k], iref[k]) for k in iref}
+        irows[label] = {"cosine_vs_f32": cos, "ms": ms}
+        print(f"[14d] imagenet_rn50 int8, {label}: vs f32 " + ", ".join(
+            f"{k} {v:.3e} (limit {IMAGENET_INT8_COSINE_LIMITS[k]:g})" for k, v in cos.items())
+            + f"; batch-128 encode {ms:.3f} ms; {smi}")
+        if not label.endswith("(before)"):
+            check(all(v <= IMAGENET_INT8_COSINE_LIMITS[k] for k, v in cos.items()),
+                  f"imagenet_rn50 int8 {label} within {IMAGENET_INT8_COSINE_LIMITS}")
+    out["imagenet_rn50"] = irows
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -2898,7 +3104,12 @@ def main(argv) -> int:
     # -- 13. the probing stack: extraction, the probe trainer and its grid, verify-parity
     probing = check_probing(card, smi, profile)
 
-    # -- 14. results ---------------------------------------------------------------------
+    # -- 14. the JAX package's int8 graph options ------------------------------------------
+    t0 = time.perf_counter()
+    options = check_int8_options(qenc, iqenc, iref, f32_ref, g8, g128, x128, card, smi)
+    print(f"[14] phase 14 took {time.perf_counter() - t0:.1f} s")
+
+    # -- 15. results ---------------------------------------------------------------------
     src = "embodied_clip_tpu_torch/csrc/"
     pallas = "embodied_clip_tpu/ops/pallas/"
     rows = [{
@@ -2935,6 +3146,12 @@ def main(argv) -> int:
                      "cudnn_route_ms": r["cudnn_route_ms"], "library_ms": None,
                      "ms_unit": "per batch-128 clip_rn50 encode (all calls)",
                      "calls": r["calls"]})
+    for row in rows:
+        name = row["name"]
+        row["launches_option_encode"] = {label: r["launches"].get(name, 0)
+                                         for label, r in options["clip_rn50"].items()}
+        if name in options["kernels"]:
+            row["recip"] = options["kernels"][name]
     print(json.dumps({"encode_ms_batch128": {"clip_rn50": {**clip_times, "int8_path_a": ms_a,
                                                            "int8_path_a_again": ms_a2,
                                                            "int8_path_b": ms_b},
@@ -2995,6 +3212,8 @@ def main(argv) -> int:
         "rn50x16": rn50x16}, "card": smi}))
     print(json.dumps({"registry": registry}))
     print(json.dumps({"probing": probing}))
+    print(json.dumps({"int8_options": {k: v for k, v in options.items() if k != "kernels"},
+                      "card": smi}))
     check(not descendants(), f"every process the script started has ended, left: "
                              f"{descendants()}")
     print(json.dumps({"kernels": rows}))

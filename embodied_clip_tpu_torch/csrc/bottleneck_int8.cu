@@ -32,6 +32,14 @@
 //   0, 127)); signed: y = v / r, y ± 0.5 by sign, clip ±127, trunc.
 // __int2float_rn/__fmul_rn/__fadd_rn/__fdiv_rn keep nvcc from contracting them into
 // FMAs, so the result equals PyTorch's elementwise ops on the same values bit for bit.
+// The reciprocal requant (the JAX package's ECT_RECIP_REQUANT=1, ops/int8.py) is a
+// template parameter RECIP of the requants where the TPU kernels take it (their
+// `_unscale`): K4's two, K3's three block outputs ((c)'s out8 and the last (a)), and K5's
+// s8 output (its last (a)). Every other requant divides under either setting, as theirs
+// do: the (b) launches, K3's entry, K5's inner (a)/(c). There each thread takes 1 / r of
+// the scale once (__frcp_rn, the correctly rounded reciprocal, the value of torch's and
+// XLA's f32 1.0 / r), and v / r becomes __fmul_rn(v, 1 / r). The host picks the form per
+// call.
 //
 // Bound on an H100: at batch 128 the (a)/(b) launches of stages 2-4 do 17-30 GOP each
 // against 1,979 TOP/s of int8 tensor cores (operations); K4's calls move x8, the
@@ -84,9 +92,9 @@
 //
 // What holds it back now (tools/bench_int8_gemm.py on NVIDIA H100 80GB HBM3 at 700 W):
 // the epilogues' per-element arithmetic. K4's launches and the residual (a) run at
-// 15-30% of their bound; a build whose requant multiplies by the scale's reciprocal
-// (not exact, a diagnostic only) takes 21-28% less time on them, and the (b) launches
-// (K = 1152-4608 per output) reach 46-49% of the int8 peak. Measured and not kept: the
+// 15-30% of their bound, and the (b) launches (K = 1152-4608 per output) reach 46-49% of
+// the int8 peak. PERF.md §6 has the RECIP forms' times (chip_smoke.py phase 14 (a)).
+// Measured and not kept: the
 // requant as a product with the reciprocal plus one correction, the exact division
 // deciding within 2^-14 of an integer (per thread: K5 1.657 against 1.442 ms an encode;
 // as a warp-uniform branch: 1.909 against 1.458); 128-row (c) tiles at RN50 stage 3,
@@ -108,6 +116,7 @@ constexpr int kBK = 128;       // k per staged chunk: one 128-byte swizzle row o
 constexpr int kSmemLimit = 232448;  // bytes of shared memory one H100 block may use
 constexpr int kTooWide = kEncodeFailed - 1;  // K4: no tile of the block output fits
 constexpr int kBadWidth = kEncodeFailed - 2;  // K3's entry: widths it does not take
+constexpr int kBadForm = kEncodeFailed - 3;   // a requant form no launch takes
 
 enum Out { kS8 = 0, kS8Res = 1, kBf16ResRelu = 2, kF32ResRelu = 3 };
 
@@ -146,8 +155,21 @@ struct GemmParams {
 // adds). Two conversions are done exactly with adds instead: an s8 to float, and the
 // truncation of a float in [0, 127].
 
+// A requant scale as the epilogue uses it: r, or with RECIP its reciprocal.
+template <bool RECIP>
+__device__ __forceinline__ float requant_scale(const float* r) {
+  return RECIP ? __frcp_rn(__ldg(r)) : __ldg(r);
+}
+
+// v / r, or with RECIP v · r for r the reciprocal (requant_scale).
+template <bool RECIP>
+__device__ __forceinline__ float unscale(float v, float r) {
+  return RECIP ? __fmul_rn(v, r) : __fdiv_rn(v, r);
+}
+
+template <bool RECIP>
 __device__ __forceinline__ int8_t requant_u8(float v, float r) {
-  float y = __fadd_rn(__fdiv_rn(v, r), 0.5f);
+  float y = __fadd_rn(unscale<RECIP>(v, r), 0.5f);
   y = fminf(fmaxf(y, 0.0f), 127.0f);
   // Truncating convert, y in [0, 127]: 2^23 + y rounded toward zero is 2^23 + trunc(y),
   // and its low mantissa bits are trunc(y).
@@ -279,8 +301,9 @@ __device__ __forceinline__ float2 epilogue_pair(int a0, int a1, float2 s, float2
   return make_float2(v0, v1);
 }
 
+template <bool RECIP>
 __device__ __forceinline__ uint16_t requant_pair(float2 v, float r) {
-  return pack2(requant_u8(v.x, r), requant_u8(v.y, r));
+  return pack2(requant_u8<RECIP>(v.x, r), requant_u8<RECIP>(v.y, r));
 }
 
 // The S, b pair of the column pair 4j + lane % 4 of a 64-column group: lane l holds
@@ -297,7 +320,7 @@ __device__ __forceinline__ float2 load_pair(const float* p, int col, int n) {
 // (a)/(b): out = epilogue(A · B) over 128 × BN tiles, A the pixel rows of x (CONV3 false:
 // (M, K) s8) or the 3×3 im2col of an NHWC (M = n·H·W, C) s8 tensor (K = 9·C, zero halo),
 // B the (N, K) K-major weights.
-template <bool CONV3, int BN, int OUT>
+template <bool CONV3, int BN, int OUT, bool RECIP>
 __global__ void __launch_bounds__(kThreads, 1) gemm_s8_kernel(const __grid_constant__ GemmParams p) {
   constexpr bool RES = OUT != kS8;
   // s8 outputs of 128-column tiles leave through shared memory and TMA stores (whole
@@ -381,7 +404,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_s8_kernel(const __grid_const
     // ---- consumer warpgroups 0 and 1: rows 64·wg … 64·wg + 63 of each tile ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int wg = tid >> 7, lt = tid & 127, warp = lt >> 5, lane = lt & 31;
-    const float r_out = p.r_out ? __ldg(p.r_out) : 1.0f;
+    const float r_out = p.r_out ? requant_scale<RECIP>(p.r_out) : 1.0f;
     const float r_res = p.r_res ? __ldg(p.r_res) : 0.0f;
     // Thread (warp, lane) holds, for each 8-column group j, columns 8j + 2·(lane%4) +
     // {0, 1} of tile rows rt and rt + 8.
@@ -451,12 +474,12 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_s8_kernel(const __grid_const
                                               s, b, rp, r_res);
           const int m = m0 + r, n = n0 + c;
           if constexpr (STAGED) {
-            *reinterpret_cast<uint16_t*>(out_tile + sw128(r, c)) = requant_pair(v, r_out);
+            *reinterpret_cast<uint16_t*>(out_tile + sw128(r, c)) = requant_pair<RECIP>(v, r_out);
           } else if (m < p.M && n < p.N) {
             const size_t off = (size_t)m * p.N + n;
             if constexpr (OUT == kS8)
               *reinterpret_cast<uint16_t*>(static_cast<int8_t*>(p.out) + off) =
-                  requant_pair(v, r_out);
+                  requant_pair<RECIP>(v, r_out);
             else if constexpr (OUT == kBf16ResRelu)
               *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + off) =
                   __floats2bfloat162_rn(fmaxf(v.x, 0.0f), fmaxf(v.y, 0.0f));
@@ -517,7 +540,8 @@ struct Cb3Cb1Params {
 // b1, r_next) for BM-row tiles, out8 kept in shared memory between the two products.
 // ONE_STAGE: the ring has one stage (C = 3072), so a chunk is released as soon as its
 // products are done, not after the next chunk's are issued.
-template <int BM, bool ONE_STAGE>
+// RECIP: bit 0 takes out8's requant in the reciprocal form, bit 1 y8's.
+template <int BM, bool ONE_STAGE, int RECIP>
 __global__ void __launch_bounds__(kThreads, 1) cb3_cb1_kernel(const __grid_constant__ Cb3Cb1Params p) {
   constexpr bool SPLIT_N = BM == 64;      // the warpgroups split a step's columns
   constexpr int NB = SPLIT_N ? 64 : 128;  // columns of a step per warpgroup
@@ -587,7 +611,9 @@ __global__ void __launch_bounds__(kThreads, 1) cb3_cb1_kernel(const __grid_const
     // ---- consumers: rows (a_row …) and columns (b_row …) of each step ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int wg = tid >> 7, lt = tid & 127, warp = lt >> 5, lane = lt & 31;
-    const float r_res = __ldg(p.r_res), r_out = __ldg(p.r_out), r_next = __ldg(p.r_next);
+    constexpr bool RECIP_OUT = RECIP & 1, RECIP_NEXT = RECIP & 2;
+    const float r_res = __ldg(p.r_res), r_out = requant_scale<RECIP_OUT>(p.r_out),
+                r_next = requant_scale<RECIP_NEXT>(p.r_next);
     const int a_row = SPLIT_N ? 0 : 64 * wg;  // this warpgroup's first row of the tile
     const int b_row = SPLIT_N ? 64 * wg : 0;  // its first column of a step
     const int rt = a_row + 16 * warp + (lane >> 2);  // rows rt and rt + 8 of the tile
@@ -668,7 +694,7 @@ __global__ void __launch_bounds__(kThreads, 1) cb3_cb1_kernel(const __grid_const
           for (int half = 0; half < 2; ++half) {
             const int r = rt + 8 * half;
             const uint32_t rp = *reinterpret_cast<const uint16_t*>(res_tile + sw128(r, c));
-            *reinterpret_cast<uint16_t*>(t_chunk + sw128(r, c)) = requant_pair(
+            *reinterpret_cast<uint16_t*>(t_chunk + sw128(r, c)) = requant_pair<RECIP_OUT>(
                 epilogue_pair<true>(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1], s, b, rp,
                                     r_res),
                 r_out);
@@ -696,7 +722,7 @@ __global__ void __launch_bounds__(kThreads, 1) cb3_cb1_kernel(const __grid_const
           for (int half = 0; half < 2; ++half) {
             const int m = m0 + rt + 8 * half;
             if (m < p.M && n < p.C1)
-              *reinterpret_cast<uint16_t*>(p.y8 + (size_t)m * p.C1 + n) = requant_pair(
+              *reinterpret_cast<uint16_t*>(p.y8 + (size_t)m * p.C1 + n) = requant_pair<RECIP_NEXT>(
                   epilogue_pair<false>(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1], s, b,
                                        0u, 0.0f),
                   r_next);
@@ -1052,7 +1078,7 @@ __global__ void __launch_bounds__(kThreads, 1) entry_kernel(const __grid_constan
             const int c = 8 * j + 2 * t;
 #pragma unroll
             for (int h = 0; h < 2; ++h)
-              *reinterpret_cast<uint16_t*>(slot + sw128(rt + 8 * h, c)) = requant_pair(
+              *reinterpret_cast<uint16_t*>(slot + sw128(rt + 8 * h, c)) = requant_pair<false>(
                   epilogue_pair<false>(acc1[4 * j + 2 * h], acc1[4 * j + 2 * h + 1], sc, b, 0u,
                                        0.0f),
                   r1);
@@ -1109,12 +1135,12 @@ CUresult map_s8(CUtensorMap* map, const void* ptr, int rows, int cols, int box_c
   return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, ptr, rows, cols, box_cols, box_rows);
 }
 
-template <bool CONV3, int BN, int OUT>
+template <bool CONV3, int BN, int OUT, bool RECIP = false>
 cudaError_t launch_gemm(GemmParams& p, int device, int sms, cudaStream_t s) {
   static bool configured[kMaxDevices] = {};  // per instantiation and device
   constexpr int smem = GemmConfig<BN, OUT != kS8>::kSmem;
   if (!configured[device]) {
-    cudaError_t err = cudaFuncSetAttribute(gemm_s8_kernel<CONV3, BN, OUT>,
+    cudaError_t err = cudaFuncSetAttribute(gemm_s8_kernel<CONV3, BN, OUT, RECIP>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     configured[device] = true;
@@ -1122,7 +1148,7 @@ cudaError_t launch_gemm(GemmParams& p, int device, int sms, cudaStream_t s) {
   p.n_tiles = (p.N + BN - 1) / BN;
   p.tiles = ((p.M + kBM - 1) / kBM) * p.n_tiles;
   const int grid = p.tiles < sms ? p.tiles : sms;
-  gemm_s8_kernel<CONV3, BN, OUT><<<grid, kThreads, smem, s>>>(p);
+  gemm_s8_kernel<CONV3, BN, OUT, RECIP><<<grid, kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -1146,20 +1172,30 @@ bool cb3_cb1_ring(const int (&table)[N][2], int C, int bm, int* stages, int* slo
   return false;
 }
 
+// K4's kernel for tile height bm and a ring of `stages`, in the requant form RECIP.
+template <int RECIP>
+auto cb3_cb1_pick(int bm, int stages) {
+  return bm == 128 ? cb3_cb1_kernel<128, false, RECIP>
+                   : stages > 1 ? cb3_cb1_kernel<64, false, RECIP> : cb3_cb1_kernel<64, true, RECIP>;
+}
+
 }  // namespace
 
 // Plain C interface for ctypes. Each returns 0 on a clean launch, a cudaError_t code,
 // kEncodeFailed + a CUresult when a tensor map is refused, or (ect_cb3_cb1_s8) kTooWide
 // when C leaves no room in shared memory; ect_error_string names each. Scales named r_*
 // are device pointers to one float. Weights w8t, k3t, k1t are the K-major (N, K) s8
-// copies.
+// copies. `recip` selects the reciprocal requant where the TPU kernels take it (see the
+// header); ect_error_string names kBadForm, the code of a form no launch takes.
 
 // (a) 1×1 conv: out_kind 0 = s8 requant, 1 = s8 requant with residual,
-// 2 = bf16 relu(v + residual), 3 = f32 relu(v + residual).
+// 2 = bf16 relu(v + residual), 3 = f32 relu(v + residual). recip 1 (only with out_kind
+// 1, the last launch of K3 and of K5) takes the requant in the reciprocal form.
 extern "C" int ect_conv1x1_s8(const void* x8, int M, int K, const void* w8t, int N,
                               const void* S, const void* b, const void* res,
                               const void* r_res, const void* r_out, void* out,
-                              int out_kind, int device, void* stream) {
+                              int out_kind, int recip, int device, void* stream) {
+  if (recip && out_kind != kS8Res) return kBadForm;
   int sms = 0;
   cudaError_t err = prepare_launch(device, &sms);
   if (err != cudaSuccess) return (int)err;
@@ -1188,8 +1224,13 @@ extern "C" int ect_conv1x1_s8(const void* x8, int M, int K, const void* w8t, int
       err = bn == 64 ? launch_gemm<false, 64, kS8>(p, device, sms, s)
                      : launch_gemm<false, 128, kS8>(p, device, sms, s);
       break;
-    case kS8Res: err = launch_gemm<false, 128, kS8Res>(p, device, sms, s); break;
-    case kBf16ResRelu: err = launch_gemm<false, 128, kBf16ResRelu>(p, device, sms, s); break;
+    case kS8Res:
+      err = recip ? launch_gemm<false, 128, kS8Res, true>(p, device, sms, s)
+                  : launch_gemm<false, 128, kS8Res>(p, device, sms, s);
+      break;
+    case kBf16ResRelu:
+      err = launch_gemm<false, 128, kBf16ResRelu>(p, device, sms, s);
+      break;
     default: err = launch_gemm<false, 128, kF32ResRelu>(p, device, sms, s); break;
   }
   return (int)err;
@@ -1228,12 +1269,14 @@ extern "C" int ect_conv3x3_s8(const void* x8, int n, int H, int W, int C, const 
   return (int)err;
 }
 
-// (c) K4: out8 (M, C) and y8 (M, C1) from x8 (M, Cm) and res8 (M, C).
+// (c) K4: out8 (M, C) and y8 (M, C1) from x8 (M, Cm) and res8 (M, C). recip: bit 0 takes
+// out8's requant in the reciprocal form, bit 1 y8's (K4 3, K3 1, K5 0).
 extern "C" int ect_cb3_cb1_s8(const void* x8, const void* res8, int M, int Cm, int C,
                               int C1, const void* k3t, const void* S3, const void* b3,
                               const void* k1t, const void* S1, const void* b1,
                               const void* r_res, const void* r_out, const void* r_next,
-                              void* out8, void* y8, int device, void* stream) {
+                              void* out8, void* y8, int recip, int device, void* stream) {
+  if (recip != 0 && recip != 1 && recip != 3) return kBadForm;
   int sms = 0;
   cudaError_t err = prepare_launch(device, &sms);
   if (err != cudaSuccess) return (int)err;
@@ -1249,8 +1292,11 @@ extern "C" int ect_cb3_cb1_s8(const void* x8, const void* res8, int M, int Cm, i
   }
   static bool configured[kMaxDevices] = {};
   if (!configured[device]) {
-    for (auto kern : {cb3_cb1_kernel<128, false>, cb3_cb1_kernel<64, false>,
-                      cb3_cb1_kernel<64, true>}) {
+    for (auto kern : {cb3_cb1_kernel<128, false, 0>, cb3_cb1_kernel<64, false, 0>,
+                      cb3_cb1_kernel<64, true, 0>, cb3_cb1_kernel<128, false, 1>,
+                      cb3_cb1_kernel<64, false, 1>, cb3_cb1_kernel<64, true, 1>,
+                      cb3_cb1_kernel<128, false, 3>, cb3_cb1_kernel<64, false, 3>,
+                      cb3_cb1_kernel<64, true, 3>}) {
       err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
       if (err != cudaSuccess) return (int)err;
     }
@@ -1283,12 +1329,10 @@ extern "C" int ect_cb3_cb1_s8(const void* x8, const void* res8, int M, int Cm, i
   const int grid = p.tiles < sms ? p.tiles : sms;
   const size_t smem = cb3_cb1_smem(C, bm, stages, slots);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bm == 128)
-    cb3_cb1_kernel<128, false><<<grid, kThreads, smem, s>>>(p);
-  else if (stages > 1)
-    cb3_cb1_kernel<64, false><<<grid, kThreads, smem, s>>>(p);
-  else
-    cb3_cb1_kernel<64, true><<<grid, kThreads, smem, s>>>(p);
+  auto kern = recip == 3   ? cb3_cb1_pick<3>(bm, stages)
+              : recip == 1 ? cb3_cb1_pick<1>(bm, stages)
+                           : cb3_cb1_pick<0>(bm, stages);
+  kern<<<grid, kThreads, smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1360,5 +1404,7 @@ extern "C" const char* ect_error_string(int code) {
            "one-stage ring in shared memory; C is too wide";
   if (code == kBadWidth)
     return "stage-1 entry: (Cin = Cm, Cout) must be (16, 64), (64, 256) or (96, 384)";
+  if (code == kBadForm)
+    return "recip: the 1x1 launch takes 1 only with out_kind 1; cb3-cb1 takes 0, 1 or 3";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

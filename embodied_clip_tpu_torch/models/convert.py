@@ -180,7 +180,8 @@ def from_flax_qvit(qtower: Mapping[str, Any]) -> Dict[str, Any]:
     arrays) → the port's tree (`embodied_clip_tpu_torch/ops/quantize_vit.py`) on the
     CPU: `fp` in openai names, each block's s8 `weight_q` (out, in) with its `w_scale`
     and bias, `act_scales` as 0-dim f32. The bf16 attention kernels JAX keeps for its
-    `ECT_VIT_QUANT_ATTN=0` experiment are left out."""
+    `ECT_VIT_QUANT_ATTN=0` option go to `fp` as the bf16 `attn.in_proj_weight` and
+    `attn.out_proj.weight` (out, in) of each block, for `quant_attn=False`."""
     fp_in = qtower["fp"]
     fp = {"conv1.weight": _t(np.asarray(fp_in["patch_embed"]["kernel"]).transpose(3, 2, 0, 1))}
     for name in ("class_embedding", "positional_embedding", "proj"):
@@ -195,6 +196,10 @@ def from_flax_qvit(qtower: Mapping[str, Any]) -> Dict[str, Any]:
         fb = fp_in["transformer"][f"block{i}"]
         _ln(fp, f"transformer.resblocks.{i}.ln_1", fb["ln_1"])
         _ln(fp, f"transformer.resblocks.{i}.ln_2", fb["ln_2"])
+        for name, key in (("in_proj", "attn.in_proj_weight"),
+                          ("out_proj", "attn.out_proj.weight")):
+            fp[f"transformer.resblocks.{i}.{key}"] = _t(
+                np.asarray(fb["attn"][name]["kernel"], np.float32).T).to(torch.bfloat16)
         qb = qtower["blocks"][f"block{i}"]
         blocks.append({name: {"weight_q": torch.from_numpy(np.ascontiguousarray(
                                   np.asarray(qb[name]["kernel_q"], np.int8).T)),
@@ -209,8 +214,8 @@ def from_flax_qtrunk(qtrunk: Mapping[str, Any]) -> Dict[str, Any]:
     """A JAX quantized trunk (`ops/quantize.py:quantize_trunk`'s or
     `quantize_resnet_trunk`'s tree, as numpy arrays) → the port's quantized trunk
     (`embodied_clip_tpu_torch/ops/quantize.py`) on the CPU, in the same HWIO layout: act_scales (0-dim f32), the fp stem/shortcut convs,
-    and the s8 bottleneck convs with their weight scales and biases. The s8
-    stem2/stem3 copies of the JAX int8-stem experiment are left out."""
+    and the s8 bottleneck convs with their weight scales and biases, and the s8
+    stem2/stem3 copies the int8-stem option reads."""
     def t(v, dtype=np.float32):
         return torch.from_numpy(np.array(v, dtype=dtype))
 
@@ -220,7 +225,7 @@ def from_flax_qtrunk(qtrunk: Mapping[str, Any]) -> Dict[str, Any]:
                for k, v in qtrunk["fp"].items()},
     }
     for key, sub in qtrunk.items():
-        if "/" in key:
+        if "/" in key or key in ("stem2", "stem3"):
             q[key] = {"kernel_q": t(sub["kernel_q"], np.int8), "w_scale": t(sub["w_scale"]),
                       "bias": t(sub["bias"])}
     return q

@@ -17,6 +17,7 @@ K6/K7 (models/stages.py); a ViT has no BN, and `fold_bn()` returns it as it is.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, Optional
 
@@ -200,13 +201,21 @@ class FrozenEncoder:
 
 class _QuantizedEncoder(FrozenEncoder):
     """An encoder whose bottleneck trunk is int8 (see FrozenEncoder.quantize); the
-    module keeps the folded weights of the parts that stay in the compute dtype."""
+    module keeps the folded weights of the parts that stay in the compute dtype.
+    `kernels` holds the keywords its encode passes to the int8 graph;
+    `with_kernels(...)` gives an encoder on the same quantized weights with others."""
 
-    def __init__(self, folded: FrozenEncoder, qtrunk, stage_sizes):
+    def __init__(self, folded: FrozenEncoder, qtrunk, stage_sizes, kernels=None):
         super().__init__(folded.spec, folded.module, folded.image_size, folded.dtype,
                          folded.device)
         self.qtrunk = qtrunk
         self.stage_sizes = tuple(stage_sizes)
+        self.kernels = dict(kernels or {})
+
+    def with_kernels(self, **switches) -> "_QuantizedEncoder":
+        enc = copy.copy(self)
+        enc.kernels = {**self.kernels, **switches}
+        return enc
 
     def fold_bn(self, fused_bottlenecks: bool = True) -> "FrozenEncoder":
         return self  # already folded and quantized
@@ -222,18 +231,14 @@ class _QuantizedEncoder(FrozenEncoder):
 class _QuantizedCLIPEncoder(_QuantizedEncoder):
     """CLIP ResNet encoder with an int8 trunk.
 
-    `kernels` holds `quantized_trunk_apply`'s four switches: `PATH_A` by default;
-    `with_kernels(...)` gives an encoder on the same quantized weights with others."""
+    `kernels` holds `quantized_trunk_apply`'s keywords: its four kernel switches
+    (`PATH_A` by default) and its options (`recip_requant`, `int8_stem`, `int4_stage1`;
+    the JAX package's defaults unless set)."""
 
-    def __init__(self, folded: FrozenEncoder, qtrunk, stage_sizes, kernels=None):
+    def __init__(self, folded: FrozenEncoder, qtrunk, stage_sizes):
         from embodied_clip_tpu_torch.ops.quantize import PATH_A
 
-        super().__init__(folded, qtrunk, stage_sizes)
-        self.kernels = dict(PATH_A if kernels is None else kernels)
-
-    def with_kernels(self, **switches) -> "_QuantizedCLIPEncoder":
-        return _QuantizedCLIPEncoder(self, self.qtrunk, self.stage_sizes,
-                                     {**self.kernels, **switches})
+        super().__init__(folded, qtrunk, stage_sizes, PATH_A)
 
     @torch.inference_mode()
     def encode(self, frames) -> Dict[str, torch.Tensor]:
@@ -247,7 +252,8 @@ class _QuantizedCLIPEncoder(_QuantizedEncoder):
 
 
 class _QuantizedViTEncoder(_QuantizedEncoder):
-    """CLIP ViT encoder with s8 transformer-block denses (ops/quantize_vit.py)."""
+    """CLIP ViT encoder with s8 transformer-block denses (ops/quantize_vit.py); its
+    `kernels` are `quantized_vit_apply`'s options (`quant_attn`, `recip_requant`)."""
 
     def __init__(self, folded: FrozenEncoder, qtower, num_heads: int, layers: int):
         super().__init__(folded, qtower, ())
@@ -259,12 +265,14 @@ class _QuantizedViTEncoder(_QuantizedEncoder):
 
         x = self.preprocess(_frames(frames).to(self.device))
         return {"clip_embed": quantized_vit_apply(self.qtrunk, x, self.num_heads,
-                                                  self.layers, out_dtype=self.dtype)}
+                                                  self.layers, out_dtype=self.dtype,
+                                                  **self.kernels)}
 
 
 class _QuantizedResNetEncoder(_QuantizedEncoder):
     """torchvision-family encoder with an int8 trunk: the plain int8 graph
-    (`ops/quantize.quantized_resnet_apply`), which runs no kernel."""
+    (`ops/quantize.quantized_resnet_apply`), which runs no kernel; its one option is
+    `recip_requant`."""
 
     def __init__(self, folded: FrozenEncoder, qtrunk, stage_sizes, block: str):
         super().__init__(folded, qtrunk, stage_sizes)
@@ -276,7 +284,7 @@ class _QuantizedResNetEncoder(_QuantizedEncoder):
 
         x = self.preprocess(_frames(frames).to(self.device))
         conv = quantized_resnet_apply(self.qtrunk, x, self.stage_sizes, self.block,
-                                      out_dtype=self.dtype)
+                                      out_dtype=self.dtype, **self.kernels)
         return {"imagenet_conv": conv, "imagenet_avgpool": _avgpool(conv)}
 
 

@@ -12,19 +12,34 @@ kernels use (`__fdiv_rn`).
 s8 products go through `torch._int_mm` (s8×s8→s32, exact; cuBLASLt on CUDA), with
 the 3×3 conv (stride 1 or 2, symmetric padding 1) as im2col. No PyTorch CUDA op
 computes an s8 convolution.
+
+The requants take `recip`: the JAX package's `ECT_RECIP_REQUANT=1` form
+(`embodied_clip_tpu/ops/quantize.py:100-113`), x · (1 / scale) in place of x / scale.
+The reciprocal is an f32 division of device tensors (the correctly rounded 1/s, which
+the kernels compute as `__frcp_rn`), and the product is rounded on its own before the
+± 0.5. XLA on the CPU contracts that product and the + 0.5 into one fused multiply-add,
+but the s8 result cannot tell: fl is monotone and k - 0.5 is an f32 value for every k ≤
+127, so trunc(fl(fl(p) + 0.5)) = trunc(fl(p + 0.5)) for every product p ≥ 0, and
+likewise for the signed requant (`tests/test_torch_quant_variants.py` shows both).
 """
 
 from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["QMAX", "qmm", "qconv_acc", "requant", "requant_signed", "avg_pool_int8",
-           "max_pool_int8", "im2col3x3", "full_f32"]
+__all__ = ["QMAX", "QMAX4", "qmm", "qconv_acc", "unscale", "requant", "requant_signed",
+           "requant_u4", "requant_s4", "avg_pool_int8", "max_pool_int8", "im2col3x3",
+           "full_f32"]
 
 QMAX = 127.0
+QMAX4 = 7.0
+# scale8 → scale4 of the 4-bit grid: 127/7 rounded to f32 first, as the JAX package's
+# weak-typed multiply of an f32 scale by the Python float does.
+_WIDEN4 = float(np.float32(QMAX / QMAX4))
 
 
 @contextlib.contextmanager
@@ -85,17 +100,42 @@ def qconv_acc(t8: torch.Tensor, kernel_q: torch.Tensor, stride: int = 1) -> torc
     return out.reshape(n, h, w, cout)
 
 
-def requant(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """f32 → s8 on the per-tensor `scale`: x / scale + 0.5, clip to [0, 127] (the relu
+def unscale(x: torch.Tensor, scale: torch.Tensor, recip: bool = False) -> torch.Tensor:
+    """x / scale; with `recip`, x · (1 / scale), the reciprocal an f32 division of
+    device tensors."""
+    if recip:
+        return x * (torch.ones_like(scale) / scale)
+    return x / scale
+
+
+def requant(x: torch.Tensor, scale: torch.Tensor, recip: bool = False,
+            qmax: float = QMAX) -> torch.Tensor:
+    """f32 → s8 on the per-tensor `scale`: x / scale + 0.5, clip to [0, qmax] (the relu
     folds into the clip at 0), truncating convert — round half up."""
-    return torch.clamp(x / scale + 0.5, 0.0, QMAX).to(torch.int8)
+    return torch.clamp(unscale(x, scale, recip) + 0.5, 0.0, qmax).to(torch.int8)
 
 
-def requant_signed(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def requant_signed(x: torch.Tensor, scale: torch.Tensor, recip: bool = False,
+                   qmax: float = QMAX) -> torch.Tensor:
     """Signed variant for the conv shortcut's output: round half away from zero."""
-    y = x / scale
+    y = unscale(x, scale, recip)
     y = torch.where(y >= 0, y + 0.5, y - 0.5)
-    return torch.clamp(y, -QMAX, QMAX).to(torch.int8)
+    return torch.clamp(y, -qmax, qmax).to(torch.int8)
+
+
+def requant_u4(x: torch.Tensor, scale8: torch.Tensor, recip: bool = False):
+    """f32 (post-relu) → (q, scale4): `requant` on the 4-bit grid of the same calibrated
+    maximum, scale4 = scale8 · 127/7, values clipped to [0, 7] (`quantize.py:128-136`).
+    q is an s8 tensor holding the 4-bit values: torch has no 4-bit type the graph could
+    store, and every consumer widens the JAX package's s4 to s8 anyway."""
+    s4 = scale8 * _WIDEN4
+    return requant(x, s4, recip, QMAX4), s4
+
+
+def requant_s4(x: torch.Tensor, scale8: torch.Tensor, recip: bool = False):
+    """Signed `requant_u4` for the shortcut outputs: values clipped to [-7, 7]."""
+    s4 = scale8 * _WIDEN4
+    return requant_signed(x, s4, recip, QMAX4), s4
 
 
 def avg_pool_int8(x8: torch.Tensor, window: int) -> torch.Tensor:

@@ -32,6 +32,16 @@ a CPU tensor; on a CUDA tensor it launches or raises. Each counts its calls that
 (`.launches`), once per call, whatever the number of launches inside. The int8 plain
 versions use the int8 graph's primitives (`ops/int8.py`) in the TPU kernels' op order;
 the bf16 ones round to bf16 exactly where the TPU kernels do.
+
+The int8 wrappers and plain versions take `recip`, the reciprocal requant (`ops/int8.py`),
+at the requants where the TPU kernels call `_unscale`, which `ECT_RECIP_REQUANT=1` turns
+into a multiply: both of K4's (`bottleneck_kernel.py:518,533`), K3's three block outputs
+(`:290,299,308`), K5's s8 output (`:420`). Their other requants divide under either
+setting (K3's cb1/cb2 requants and its shortcut, `:249,258,285`; K5's cb1, cb2 and
+inter-block ones, `:383,393,400`), and so do these. The plain int8 graph
+(`ops/quantize.py`) takes the reciprocal at every requant, as the JAX XLA graph does, so
+under `recip` a kernel path is not bit-exact against the plain graph, in the JAX package
+as here.
 """
 
 from __future__ import annotations
@@ -78,34 +88,35 @@ def _shortcut_reference(x8, wsc, bsc, s_in, dsc):
     return requant_signed(sc + bsc, dsc)
 
 
-def fused_cb3_cb1_int8_reference(x8, res8, ops):
-    """Plain version of K4: (out8 on r_out, y8 on r_next)."""
+def fused_cb3_cb1_int8_reference(x8, res8, ops, recip=False):
+    """Plain version of K4: (out8 on r_out, y8 on r_next); `recip` takes both requants."""
     scl = ops["scl"]
     out = _affine(_pw(x8, ops["k3"]), ops["s3"], ops["b3"]) + res8.float() * scl[0]
-    out8 = requant(out, scl[1])
-    y8 = requant(_affine(_pw(out8, ops["k1"]), ops["s1"], ops["b1"]), scl[2])
+    out8 = requant(out, scl[1], recip)
+    y8 = requant(_affine(_pw(out8, ops["k1"]), ops["s1"], ops["b1"]), scl[2], recip)
     return out8, y8
 
 
-def fused_resblocks_int8_reference(x8, block_ops, scl, out_dtype=torch.int8):
-    """Plain version of K5: k identity bottlenecks on scl = [r_in, (r2, r3, r_out)×k]."""
+def fused_resblocks_int8_reference(x8, block_ops, scl, out_dtype=torch.int8, recip=False):
+    """Plain version of K5: k identity bottlenecks on scl = [r_in, (r2, r3, r_out)×k];
+    `recip` takes the s8 output's requant only."""
     xq = x8
     for i, blk in enumerate(block_ops):
         r_in = scl[0] if i == 0 else scl[3 * i]
         q1 = requant(_affine(_pw(xq, blk["k1"]), blk["s1"], blk["b1"]), scl[3 * i + 1])
-        q2 = requant(_affine(qconv_acc(q1, blk["k2"]), blk["s2"], blk["b2"]),
-                     scl[3 * i + 2])
+        q2 = requant(_affine(qconv_acc(q1, blk["k2"]), blk["s2"], blk["b2"]), scl[3 * i + 2])
         y3 = _affine(_pw(q2, blk["k3"]), blk["s3"], blk["b3"])
         out = torch.relu(y3 + xq.float() * r_in)
         if i < len(block_ops) - 1:
             xq = requant(out, scl[3 * i + 3])
     if out_dtype == torch.int8:
-        return requant(out, scl[3 * len(block_ops)])
+        return requant(out, scl[3 * len(block_ops)], recip)
     return out.to(out_dtype)
 
 
-def fused_stage1_int8_reference(x8, ops):
-    """Plain version of K3: int8 stage 1, output on stage 2's input scale."""
+def fused_stage1_int8_reference(x8, ops, recip=False):
+    """Plain version of K3: int8 stage 1, output on stage 2's input scale; `recip` takes
+    the three block outputs' requants."""
     scl = ops["scl"]  # [s_in, r2a, r3a, r_outa, r2b, r3b, r_outb, r2c, r3c, r_outc, dsc]
     x = x8
     for b, L in enumerate("abc"):
@@ -114,10 +125,11 @@ def fused_stage1_int8_reference(x8, ops):
         q2 = requant(_affine(qconv_acc(q1, ops[f"k2{L}"]), ops[f"s2{L}"], ops[f"b2{L}"]), r3)
         y = _affine(_pw(q2, ops[f"k3{L}"]), ops[f"s3{L}"], ops[f"b3{L}"])
         if b == 0:
-            res8, r_res = _shortcut_reference(x, ops["wsc"], ops["bsc"], scl[0], scl[10]), scl[10]
+            res8 = _shortcut_reference(x, ops["wsc"], ops["bsc"], scl[0], scl[10])
+            r_res = scl[10]
         else:
             res8, r_res = x, scl[3 * b]
-        x = requant(y + res8.float() * r_res, r_out)
+        x = requant(y + res8.float() * r_res, r_out, recip)
     return x
 
 
@@ -131,9 +143,9 @@ def _lib():
     lib = _build.load("bottleneck_int8")
     p, i = ctypes.c_void_p, ctypes.c_int
     sig = {
-        "ect_conv1x1_s8": [p, i, i, p, i, p, p, p, p, p, p, i, i, p],
+        "ect_conv1x1_s8": [p, i, i, p, i, p, p, p, p, p, p, i, i, i, p],
         "ect_conv3x3_s8": [p, i, i, i, i, p, i, p, p, p, p, i, p],
-        "ect_cb3_cb1_s8": [p, p, i, i, i, i] + [p] * 11 + [i, p],
+        "ect_cb3_cb1_s8": [p, p, i, i, i, i] + [p] * 11 + [i, i, p],
         "ect_stage1_entry": [p, i, i, p, i, p, p, p, p, i, p, p, p, p, p, p, i, p],
     }
     for name, args in sig.items():
@@ -207,9 +219,10 @@ def _check_width(name: str, n: int) -> None:
         raise ValueError(f"{name}: output channels must be a multiple of 16, got {n}")
 
 
-def _conv1x1(x8, kt, s, b, r_out_ptr, out, res=None, r_res_ptr=None):
+def _conv1x1(x8, kt, s, b, r_out_ptr, out, res=None, r_res_ptr=None, recip=False):
     """(a): out = epilogue(x8 · k) for the K-major kt = k.T (Cout, Cin); s8 requant, or
-    the residual epilogues."""
+    the residual epilogues. `recip` (only with the s8 residual epilogue) takes the
+    requant in the reciprocal form."""
     dev = x8.device
     cout, cin = kt.shape
     if (x8.shape[-1] != cin or out.shape != (*x8.shape[:-1], cout)
@@ -227,7 +240,7 @@ def _conv1x1(x8, kt, s, b, r_out_ptr, out, res=None, r_res_ptr=None):
         kind = _OUT_KIND[out.dtype]
     _call(_lib().ect_conv1x1_s8, x8.data_ptr(), x8.numel() // cin, cin, kt.data_ptr(), cout,
           s.data_ptr(), b.data_ptr(), 0 if res is None else res.data_ptr(),
-          r_res_ptr or 0, r_out_ptr, out.data_ptr(), kind, *_stream(x8))
+          r_res_ptr or 0, r_out_ptr, out.data_ptr(), kind, int(recip), *_stream(x8))
 
 
 def _conv3x3(x8, k2t, s, b, r_out_ptr, out):
@@ -278,9 +291,11 @@ def _stage1_entry(x8, ops, r1_ptr, s_in_ptr, dsc_ptr):
     return q1, sc8, ties
 
 
-def _cb3_cb1(x8, res8, k3t, s3, b3, k1t, s1, b1, r_res_ptr, r_out_ptr, r_next_ptr):
+def _cb3_cb1(x8, res8, k3t, s3, b3, k1t, s1, b1, r_res_ptr, r_out_ptr, r_next_ptr,
+             recip_out=False, recip_next=False):
     """(c): one launch for the K-major k3t (C, Cm) and k1t (C1, C); returns (out8 (…, C),
-    y8 (…, C1))."""
+    y8 (…, C1)). `recip_out` and `recip_next` take out8's and y8's requants in the
+    reciprocal form (K4 both, K3 out8's only, K5 neither)."""
     dev = x8.device
     c, cm = k3t.shape
     c1 = k1t.shape[0]
@@ -300,33 +315,36 @@ def _cb3_cb1(x8, res8, k3t, s3, b3, k1t, s1, b1, r_res_ptr, r_out_ptr, r_next_pt
     _call(_lib().ect_cb3_cb1_s8, x8.data_ptr(), res8.data_ptr(), x8.numel() // cm, cm, c, c1,
           k3t.data_ptr(), s3.data_ptr(), b3.data_ptr(), k1t.data_ptr(), s1.data_ptr(),
           b1.data_ptr(), r_res_ptr, r_out_ptr, r_next_ptr, out8.data_ptr(), y8.data_ptr(),
-          *_stream(x8))
+          int(recip_out) | 2 * int(recip_next), *_stream(x8))
     return out8, y8
 
 
 # ------------------------------------------------------------------------ wrappers
 
 
-def fused_cb3_cb1_int8(x8: torch.Tensor, res8: torch.Tensor, ops: Dict[str, torch.Tensor]):
+def fused_cb3_cb1_int8(x8: torch.Tensor, res8: torch.Tensor, ops: Dict[str, torch.Tensor],
+                       recip: bool = False):
     """Block n's cb3 + residual + requant fused with block n+1's cb1 + requant.
 
     x8 (N, H, W, Cm) s8: block n's cb2 output; res8 (N, H, W, C) s8 on scl[0]; ops
     from `ops/quantize.cb3_cb1_operands`: k3 (Cm, C), s3/b3 (C,), k1 (C, C1), s1/b1
     (C1,), the K-major copies k3_t, k1_t, scl = [r_res, r_out, r_next]. Returns (out8
     (N, H, W, C) on r_out, y8 (N, H, W, C1) on r_next). Bit-exact against the plain
-    version."""
+    version, in either requant form (`recip`, both requants)."""
     if _cuda_input("fused_cb3_cb1_int8", x8):
-        return fused_cb3_cb1_int8_reference(x8, res8, ops)
+        return fused_cb3_cb1_int8_reference(x8, res8, ops, recip)
     scl = ops["scl"]
     _check_f32("scl", scl, x8.device, 3)
     out = _cb3_cb1(x8, res8, _kmajor_copy(ops, "k3"), ops["s3"], ops["b3"], _kmajor_copy(ops, "k1"),
-                   ops["s1"], ops["b1"], _ptr(scl, 0), _ptr(scl, 1), _ptr(scl, 2))
+                   ops["s1"], ops["b1"], _ptr(scl, 0), _ptr(scl, 1), _ptr(scl, 2),
+                   recip_out=recip, recip_next=recip)
     fused_cb3_cb1_int8.launches += 1
     return out
 
 
 def fused_resblocks_int8(x8: torch.Tensor, block_ops: Sequence[Dict[str, torch.Tensor]],
-                         scl: torch.Tensor, out_dtype=torch.int8) -> torch.Tensor:
+                         scl: torch.Tensor, out_dtype=torch.int8,
+                         recip: bool = False) -> torch.Tensor:
     """k consecutive stride-1 identity int8 bottlenecks.
 
     x8 (N, H, W, C) s8 on scl[0]; block_ops from `ops/quantize.resblocks_int8_operands`:
@@ -334,9 +352,10 @@ def fused_resblocks_int8(x8: torch.Tensor, block_ops: Sequence[Dict[str, torch.T
     K-major copies k1_t, k2_t, k3_t; scl
     (3k+1,) = [r_in, (r2, r3, r_out) × k]. Returns (N, H, W, C): s8 requantized on the
     last r_out, or, for `out_dtype` bf16/f32, the trunk's final conv map (relu'd, no
-    requant). Bit-exact against the plain version."""
+    requant). Bit-exact against the plain version, in either requant form (`recip`, the s8
+    output's requant only)."""
     if _cuda_input("fused_resblocks_int8", x8):
-        return fused_resblocks_int8_reference(x8, block_ops, scl, out_dtype)
+        return fused_resblocks_int8_reference(x8, block_ops, scl, out_dtype, recip)
     if out_dtype not in _OUT_KIND:
         raise ValueError(f"fused_resblocks_int8 writes int8, bfloat16 or float32, "
                          f"not {out_dtype}")
@@ -360,20 +379,22 @@ def fused_resblocks_int8(x8: torch.Tensor, block_ops: Sequence[Dict[str, torch.T
         else:
             out = torch.empty(x8.shape, dtype=out_dtype, device=dev)
             _conv1x1(q2, _kmajor_copy(blk, "k3"), blk["s3"], blk["b3"], _ptr(scl, 3 * nb), out,
-                     res=xq, r_res_ptr=r_res)
+                     res=xq, r_res_ptr=r_res, recip=recip and out_dtype == torch.int8)
     fused_resblocks_int8.launches += 1
     return out
 
 
-def fused_stage1_int8(x8: torch.Tensor, ops: Dict[str, torch.Tensor]) -> torch.Tensor:
+def fused_stage1_int8(x8: torch.Tensor, ops: Dict[str, torch.Tensor],
+                      recip: bool = False) -> torch.Tensor:
     """The whole int8 CLIP-RN50 stage 1: x8 (N, H, W, Cin) s8 on the stem.out scale,
     ops from `ops/quantize.stage1_int8_operands`. Returns (N, H, W, Cout) s8 already
     requantized to stage 2's input scale. Held to the plain version at ≤1 s8 step on
     ≤0.5% of elements. The bf16 shortcut's f32 sum is the one non-integer reduction: the
     tensor cores sum it in their own order, and every element whose requant that order
-    could change is summed again exactly, as the plain version does."""
+    could change is summed again exactly, as the plain version does. `recip` takes the
+    three block outputs' requants in the reciprocal form."""
     if _cuda_input("fused_stage1_int8", x8):
-        return fused_stage1_int8_reference(x8, ops)
+        return fused_stage1_int8_reference(x8, ops, recip)
     scl = ops["scl"]
     dev = x8.device
     _check_f32("scl", scl, dev, 11)
@@ -395,12 +416,12 @@ def fused_stage1_int8(x8: torch.Tensor, ops: Dict[str, torch.Tensor]) -> torch.T
             res8, q1 = _cb3_cb1(q2, res8, _kmajor_copy(ops, f"k3{L}"), ops[f"s3{L}"],
                                 ops[f"b3{L}"], _kmajor_copy(ops, f"k1{nx}"), ops[f"s1{nx}"],
                                 ops[f"b1{nx}"], r_res, _ptr(scl, 3 * b + 3),
-                                _ptr(scl, 3 * b + 4))
+                                _ptr(scl, 3 * b + 4), recip_out=recip)
             r_res = _ptr(scl, 3 * b + 3)
         else:
             out = s8(cout)
             _conv1x1(q2, _kmajor_copy(ops, "k3c"), ops["s3c"], ops["b3c"], _ptr(scl, 9), out,
-                     res=res8, r_res_ptr=r_res)
+                     res=res8, r_res_ptr=r_res, recip=recip)
     fused_stage1_int8.launches += 1
     return out
 
@@ -558,9 +579,9 @@ def fused_bottleneck(x: torch.Tensor, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     with C and Cm multiples of 8, and raises on anything else; it agrees with the plain
     version up to the bf16 roundings of h1/h2 that the f32 sum order flips on near-ties.
 
-    Not ported from the TPU kernel: `batch_tile` (a VMEM grid knob),
-    `supports_fused_bottleneck` (a TPU VMEM budget) and `_unscale` (the int8
-    `ECT_RECIP_REQUANT` experiment)."""
+    Not ported from the TPU kernel: `batch_tile` (a VMEM grid knob) and
+    `supports_fused_bottleneck` (a TPU VMEM budget); the module's `_unscale` is the int8
+    kernels' `recip`."""
     if _cuda_bf16_input("fused_bottleneck", x):
         return fused_bottleneck_reference(x, w1, b1, w2, b2, w3, b3)
     shape = (*x.shape[:-1], w1.shape[-1])

@@ -12,7 +12,9 @@ bound and the design. This module holds
     `ops/quantize.py` builds once and caches.
 
 The kernel takes Cin 8, 32 or 48 (the width-16 trunk, RN50, RN50x16) and Cout 16, 64
-or 96. `stem3_requant_pool_int8.launches` counts kernel launches.
+or 96. `recip=True` selects the reciprocal requant (`ops/int8.py`), in the plain version
+and in the kernel, whose source instantiates both forms.
+`stem3_requant_pool_int8.launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -51,15 +53,16 @@ def stem3_weight_matrix(kernel: torch.Tensor) -> torch.Tensor:
 
 
 def stem3_requant_pool_int8_reference(x: torch.Tensor, kernel: torch.Tensor,
-                                      bias: torch.Tensor, scale) -> torch.Tensor:
+                                      bias: torch.Tensor, scale,
+                                      recip: bool = False) -> torch.Tensor:
     """Plain version of K2 on any device: x (N, H, W, Cin) bf16, kernel (3, 3, Cin,
     Cout) HWIO, bias (Cout,), scale the stem.out activation scale → (N, H/2, W/2,
-    Cout) s8 = avg_pool_int8(requant(conv(x, bf16(kernel)) + bias, scale), 2)."""
+    Cout) s8 = avg_pool_int8(requant(conv(x, bf16(kernel)) + bias, scale, recip), 2)."""
     w = kernel.to(torch.bfloat16).float().permute(3, 2, 0, 1)
     with full_f32():
         y = torch.nn.functional.conv2d(x.float().permute(0, 3, 1, 2), w, padding=1)
     y = y.permute(0, 2, 3, 1) + bias.float()
-    return avg_pool_int8(requant(y, _scale_tensor(scale, x.device)), 2)
+    return avg_pool_int8(requant(y, _scale_tensor(scale, x.device), recip), 2)
 
 
 @functools.lru_cache(maxsize=1)
@@ -68,7 +71,7 @@ def _lib():
 
     lib = _build.load("stem_int8")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ect_stem3_requant_pool.argtypes = [p] * 5 + [i] * 5 + [i, p]
+    lib.ect_stem3_requant_pool.argtypes = [p] * 5 + [i] * 6 + [i, p]
     lib.ect_stem3_requant_pool.restype = ctypes.c_int
     lib.ect_error_string.argtypes = [ctypes.c_int]
     lib.ect_error_string.restype = ctypes.c_char_p
@@ -76,14 +79,15 @@ def _lib():
 
 
 def stem3_requant_pool_int8(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-                            scale, wmat: torch.Tensor | None = None) -> torch.Tensor:
+                            scale, wmat: torch.Tensor | None = None,
+                            recip: bool = False) -> torch.Tensor:
     """x (N, H, W, Cin) bf16 (stem2's output), kernel (3, 3, Cin, Cout), bias (Cout,),
     scale the stem.out scale → the requantized, 2×2-mean-pooled stem output (N, H/2,
     W/2, Cout) s8, in one launch. `wmat` is `stem3_weight_matrix(kernel)` built once by
-    the caller (ops/quantize.py caches it); without it the wrapper builds it per call. A
-    CPU tensor takes the plain version."""
+    the caller (ops/quantize.py caches it); without it the wrapper builds it per call.
+    `recip` selects the reciprocal requant. A CPU tensor takes the plain version."""
     if x.device.type == "cpu":
-        return stem3_requant_pool_int8_reference(x, kernel, bias, scale)
+        return stem3_requant_pool_int8_reference(x, kernel, bias, scale, recip)
     if x.device.type != "cuda":
         raise ValueError(f"stem3 kernel: no kernel for device {x.device}")
     if x.dtype != torch.bfloat16 or x.ndim != 4 or not x.is_contiguous():
@@ -113,7 +117,7 @@ def stem3_requant_pool_int8(x: torch.Tensor, kernel: torch.Tensor, bias: torch.T
     lib = _lib()
     err = lib.ect_stem3_requant_pool(
         x.data_ptr(), wmat.data_ptr(), b.data_ptr(), s.data_ptr(), out.data_ptr(),
-        n, h, w, cin, cout, x.device.index or 0,
+        n, h, w, cin, cout, int(recip), x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError("stem3 kernel launch failed: " + lib.ect_error_string(err).decode())

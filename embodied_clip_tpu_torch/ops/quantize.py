@@ -11,14 +11,15 @@ Scheme (symmetric PTQ, as in the JAX package):
 
 The quantized trunk is a dict shaped like the JAX package's `qtrunk`:
   {"act_scales": {name: 0-dim f32}, "fp": {"stem1"|…|"layerS_B/down": {"kernel" HWIO
-   f32, "bias"}}, "layerS_B/cbI": {"kernel_q" HWIO s8, "w_scale" (Cout,), "bias"}}
+   f32, "bias"}}, "layerS_B/cbI" and "stem2"/"stem3": {"kernel_q" HWIO s8, "w_scale"
+   (Cout,), "bias"}}
 with every tensor on the trunk's device; `models/convert.py:from_flax_qtrunk` carries a
-JAX `qtrunk` across. The kernels' derived operands are built on first use and kept
-under the key "_operands".
+JAX `qtrunk` across. The s8 stem2/stem3 entries serve the int8-stem option; the fp ones
+the default stem. The kernels' derived operands are built on first use and kept under
+the key "_operands".
 
-`quantized_trunk_apply` is the dispatch of `quantize.py:381-610` without the TPU
-experiments (int8 stem, int4 stage 1, reciprocal requant). Its four switches are the
-JAX keyword arguments under the port's names:
+`quantized_trunk_apply` is the dispatch of `quantize.py:381-610`. Its four kernel
+switches are the JAX keyword arguments under the port's names:
 
   kernel_stem      (pallas_stem)       K2 stem3_requant_pool_int8
   kernel_stage1    (pallas_stage1)     K3 fused_stage1_int8
@@ -29,12 +30,24 @@ With all of them off it is the plain graph. `PATH_A` (K2 + K3 + K5) is what a
 quantized encoder runs; `PATH_B` swaps K5 for K4. What the kernels do not cover (the
 stem1/stem2 convs, and each later stage's stride block 0) runs as plain torch:
 cuDNN for the convs of bf16 operands, `torch._int_mm` (+ im2col) for the s8 ones.
+Three options change what the graph computes, each the JAX package's trace-time
+environment variable as a keyword, defaulting as JAX does:
+
+  recip_requant  (ECT_RECIP_REQUANT=1)  every requant of the graph as a multiply by the
+                                        scale's reciprocal; K2-K5 take that form where
+                                        the TPU kernels do (ops/kernels/bottleneck_kernel.py)
+  int8_stem      (ECT_INT8_STEM)        "stem3": stem3 an s8 conv; "full": stem2 and
+                                        stem3 s8, stem1's output requantized; K2 is
+                                        not called under either
+  int4_stage1    (ECT_INT4_STAGE1)      stage 1's activations on a 4-bit grid (1: all;
+                                        2: the block outputs and the shortcut), plain
+                                        graph only, values held in s8 tensors
 
 The torchvision trunk (`calibrate_resnet_trunk`, `quantize_resnet_trunk`,
 `quantized_resnet_apply`) has the same scheme and tree, with the 7×7/2 stem ("stem")
 requantized before an exact int8 max pool, stride-2 3×3 s8 convs (a strided im2col),
 and bf16 `down` convs whose output makes the signed s8 round trip. Like the JAX
-package's, it runs no kernel.
+package's, it runs no kernel; it takes `recip_requant`.
 """
 
 from __future__ import annotations
@@ -53,7 +66,9 @@ from embodied_clip_tpu_torch.ops.int8 import (
     max_pool_int8,
     qconv_acc,
     requant,
+    requant_s4,
     requant_signed,
+    requant_u4,
 )
 from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
 from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
@@ -61,10 +76,11 @@ from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
 __all__ = ["calibrate_trunk", "quantize_trunk", "quantized_trunk_apply",
            "calibrate_resnet_trunk", "quantize_resnet_trunk", "quantized_resnet_apply",
            "stage1_int8_operands", "cb3_cb1_operands", "resblocks_int8_operands",
-           "PATH_A", "PATH_B", "KERNELS_OFF", "PALLAS_RESBLOCKS_MIN_CM"]
+           "PATH_A", "PATH_B", "KERNELS_OFF", "INT8_STEMS", "PALLAS_RESBLOCKS_MIN_CM"]
 
 KERNELS_OFF = dict(kernel_stem=False, kernel_stage1=False, kernel_resblocks=False,
                    fuse_pointwise=0)
+INT8_STEMS = ("off", "stem3", "full")
 PATH_A = dict(kernel_stem=True, kernel_stage1=True, kernel_resblocks=True,
               fuse_pointwise=0)
 PATH_B = dict(kernel_stem=True, kernel_stage1=True, kernel_resblocks=False,
@@ -198,11 +214,14 @@ def quantize_trunk(folded_sd: Mapping[str, torch.Tensor], stage_sizes: Sequence[
                    calibration_x: torch.Tensor) -> Dict[str, Any]:
     """Folded state_dict → quantized trunk: s8 kernels + per-channel weight scales for
     the bottleneck cb1/cb2/cb3 convs, f32 HWIO kernels for the stem and shortcut
-    convs, and the activation scales calibrated on `calibration_x`."""
+    convs, s8 copies of stem2/stem3 for the int8-stem option (`quantize.py:236-244`),
+    and the activation scales calibrated on `calibration_x`."""
     q: Dict[str, Any] = {"act_scales": calibrate_trunk(folded_sd, stage_sizes,
                                                        calibration_x), "fp": {}}
     for name in ("stem1", "stem2", "stem3"):
         q["fp"][name] = _fp_entry(folded_sd, name)
+    for name in ("stem2", "stem3"):
+        q[name] = _s8_entry(folded_sd, name)
     _quantize_blocks(q, folded_sd, stage_sizes, ("cb1", "cb2", "cb3"))
     return q
 
@@ -321,25 +340,22 @@ def _cached(q: Dict[str, Any], key: tuple, build: Callable[[], Any]):
 # --------------------------------------------------------------------------- apply
 
 
-def _fp_conv(q, name, t, stride=1, relu=True, f32_pointwise=True, f32_out=False):
-    """bf16 conv (its output rounded to bf16) with f32 bias; with `f32_pointwise`, the
-    CLIP graph's 1×1 stride-1 shortcut as an f32-accumulating product of bf16 operands
-    (the JAX graph's einsum with preferred_element_type=f32). With `f32_out`, the conv
-    of the bf16 operands upcast, run in full f32 with no rounding of its output: the
-    CLIP graph's stem convs, whose bf16 output rounding XLA elides (its optimized HLO
-    holds f32 convolutions there, and each stem conv's output equals the unrounded f32
-    conv on every element)."""
+def _fp_conv(q, name, t, stride=1, relu=True, f32_pointwise=True):
+    """The conv of the bf16 operands upcast, run in full f32 with no rounding of its
+    output, plus the f32 bias: the CLIP graph's stem convs and the torchvision graph's
+    stem and `down` convs, whose bf16 output rounding XLA elides (its optimized HLO holds
+    f32 convolutions there, and each such conv's output equals the unrounded f32 conv on
+    every element). With `f32_pointwise`, the CLIP graph's 1×1 stride-1 shortcut as an
+    f32-accumulating product of bf16 operands (the JAX graph's einsum with
+    preferred_element_type=f32)."""
     sub = q["fp"][name]
     k = sub["kernel"].to(torch.bfloat16)
     tb = t.to(torch.bfloat16)
-    if f32_pointwise and k.shape[0] == 1 and k.shape[1] == 1 and stride == 1:
-        with full_f32():
+    with full_f32():
+        if f32_pointwise and k.shape[0] == 1 and k.shape[1] == 1 and stride == 1:
             out = torch.matmul(tb.float(), k[0, 0].float())
-    elif f32_out:
-        with full_f32():
+        else:
             out = _nhwc_conv(tb.float(), k.permute(3, 2, 0, 1).float(), stride)
-    else:
-        out = _nhwc_conv(tb, k.permute(3, 2, 0, 1), stride).float()
     out = out + sub["bias"]
     return torch.relu(out) if relu else out
 
@@ -350,34 +366,60 @@ def _qconv(sub, t8, in_scale, stride=1):
     return acc.float() * (in_scale * sub["w_scale"]) + sub["bias"]
 
 
+def _stem(q, x, s_in, kernel_stem, int8_stem, recip):
+    """The stem's s8 output (N, H/4, W/4, C) on s_in: `quantize.py:445-493`."""
+    a = q["act_scales"]
+    if int8_stem not in INT8_STEMS:
+        raise ValueError(f"int8_stem must be one of {INT8_STEMS}, got {int8_stem!r}")
+    if int8_stem == "full":
+        # stem1 stays a bf16 conv (its output unrounded, as XLA leaves it) whose epilogue
+        # writes s8; stem2 and stem3 are s8 convs.
+        s1, s2 = a["stem1.out"], a["stem2.out"]
+        t8 = requant(_fp_conv(q, "stem1", x, 2, relu=False), s1, recip)
+        t8 = requant(_qconv(q["stem2"], t8, s1), s2, recip)
+        return avg_pool_int8(requant(_qconv(q["stem3"], t8, s2), s_in, recip), 2)
+    t = _fp_conv(q, "stem1", x, 2)
+    t = _fp_conv(q, "stem2", t)
+    if int8_stem == "stem3":
+        s2 = a["stem2.out"]
+        t8 = requant(t, s2, recip)
+        return avg_pool_int8(requant(_qconv(q["stem3"], t8, s2), s_in, recip), 2)
+    if kernel_stem and t.shape[1] % 2 == 0 and t.shape[2] % 2 == 0:
+        sub = q["fp"]["stem3"]
+        return SK.stem3_requant_pool_int8(
+            t.to(torch.bfloat16).contiguous(), sub["kernel"], sub["bias"], s_in,
+            wmat=_cached(q, ("stem3",), lambda: SK.stem3_weight_matrix(sub["kernel"])),
+            recip=recip)
+    return avg_pool_int8(requant(_fp_conv(q, "stem3", t, relu=False), s_in, recip), 2)
+
+
 def quantized_trunk_apply(q: Dict[str, Any], x: torch.Tensor, stage_sizes: Sequence[int],
                           out_dtype=torch.bfloat16, kernel_stem: bool = False,
                           kernel_stage1: bool = False, kernel_resblocks: bool = False,
-                          fuse_pointwise: int = 0) -> torch.Tensor:
+                          fuse_pointwise: int = 0, recip_requant: bool = False,
+                          int8_stem: str = "off", int4_stage1: int = 0) -> torch.Tensor:
     """int8 trunk forward: x is the preprocessed NHWC image batch (f32/bf16). Returns
     the NHWC conv map in `out_dtype`. The switches route the pieces the TPU kernels
     computed through K2–K5 (see the module docstring); `fuse_pointwise` > 0 fuses
     every pair whose block output width is ≥ it, and is off under `kernel_resblocks`,
-    which owns those blocks."""
+    which owns those blocks. `recip_requant`, `int8_stem` and `int4_stage1` are the
+    options of the module docstring; `int4_stage1` is off wherever K3, K5 or K4 runs,
+    as in the JAX package, whose kernels own those tensors."""
     a = q["act_scales"]
+    rq = recip_requant
     fuse_pointwise = 0 if kernel_resblocks else fuse_pointwise
+    if int4_stage1 not in (0, 1, 2):
+        raise ValueError(f"int4_stage1 must be 0, 1 or 2, got {int4_stage1!r}")
+    if kernel_stage1 or kernel_resblocks or fuse_pointwise:
+        int4_stage1 = 0
 
     s_in = a["stem.out"]
-    t = _fp_conv(q, "stem1", x, 2, f32_out=True)
-    t = _fp_conv(q, "stem2", t, f32_out=True)
-    if kernel_stem and t.shape[1] % 2 == 0 and t.shape[2] % 2 == 0:
-        sub = q["fp"]["stem3"]
-        t8 = SK.stem3_requant_pool_int8(
-            t.to(torch.bfloat16).contiguous(), sub["kernel"], sub["bias"], s_in,
-            wmat=_cached(q, ("stem3",), lambda: SK.stem3_weight_matrix(sub["kernel"])))
-    else:
-        t8 = avg_pool_int8(requant(_fp_conv(q, "stem3", t, relu=False, f32_out=True),
-                                   s_in), 2)
+    t8 = _stem(q, x, s_in, kernel_stem, int8_stem, rq)
 
     blocks = list(_block_names(stage_sizes))
     if kernel_stage1 and stage_sizes[0] == 3:
         t8 = BK.fused_stage1_int8(t8, _cached(q, ("stage1",),
-                                              lambda: stage1_int8_operands(q)))
+                                              lambda: stage1_int8_operands(q)), recip=rq)
         s_in = a["layer1_2.out"]
         blocks = blocks[3:]
 
@@ -403,20 +445,33 @@ def quantized_trunk_apply(q: Dict[str, Any], x: torch.Tensor, stage_sizes: Seque
             ops, scl = _cached(q, ("resblocks", tuple(names)),
                                lambda: resblocks_int8_operands(q, names, s_in, s_next))
             if is_final:
-                return BK.fused_resblocks_int8(t8, ops, scl, out_dtype=out_dtype)
-            t8 = BK.fused_resblocks_int8(t8, ops, scl)
+                return BK.fused_resblocks_int8(t8, ops, scl, out_dtype=out_dtype, recip=rq)
+            t8 = BK.fused_resblocks_int8(t8, ops, scl, recip=rq)
             s_in = s_next
             i += run
             continue
 
+        # int4 stage 1: narrow4 the cb2/cb3 inputs, wide4 the block outputs and the
+        # shortcut, on the 4-bit grid of their calibrated scales.
+        in_stage1 = name.startswith("layer1_")
+        narrow4 = int4_stage1 == 1 and in_stage1
+        wide4 = int4_stage1 in (1, 2) and in_stage1
+
         # cb1/cb2 relus fold into the next requant's clip at 0.
-        s2 = a[f"{name}/cb2.in"]
         if q1_carry is not None:
             q18, q1_carry = q1_carry, None
+            s2 = a[f"{name}/cb2.in"]
+        elif narrow4:
+            q18, s2 = requant_u4(_qconv(q[f"{name}/cb1"], t8, s_in), a[f"{name}/cb2.in"], rq)
         else:
-            q18 = requant(_qconv(q[f"{name}/cb1"], t8, s_in), s2)
-        s3 = a[f"{name}/cb3.in"]
-        o8 = requant(_qconv(q[f"{name}/cb2"], q18, s2), s3)  # pre-pool for stride blocks
+            s2 = a[f"{name}/cb2.in"]
+            q18 = requant(_qconv(q[f"{name}/cb1"], t8, s_in), s2, rq)
+        o = _qconv(q[f"{name}/cb2"], q18, s2)
+        if narrow4:
+            o8, s3 = requant_u4(o, a[f"{name}/cb3.in"], rq)
+        else:
+            s3 = a[f"{name}/cb3.in"]
+            o8 = requant(o, s3, rq)  # pre-pool for stride blocks
         if stride > 1:
             o8 = avg_pool_int8(o8, stride)
 
@@ -425,8 +480,11 @@ def quantized_trunk_apply(q: Dict[str, Any], x: torch.Tensor, stage_sizes: Seque
             # 1×1 conv, its output requantized to s8 on a signed per-tensor scale.
             idsrc = avg_pool_int8(t8, stride) if stride > 1 else t8
             down = _fp_conv(q, f"{name}/down", idsrc.float() * s_in, relu=False)
-            r_res = a[f"{name}/down.out"]
-            id8 = requant_signed(down, r_res)
+            if wide4:
+                id8, r_res = requant_s4(down, a[f"{name}/down.out"], rq)
+            else:
+                r_res = a[f"{name}/down.out"]
+                id8 = requant_signed(down, r_res, rq)
         else:
             id8, r_res = t8, s_in
 
@@ -436,7 +494,7 @@ def quantized_trunk_apply(q: Dict[str, Any], x: torch.Tensor, stage_sizes: Seque
             next_name = blocks[i + 1][0]
             ops = _cached(q, ("cb3_cb1", name, next_name),
                           lambda: cb3_cb1_operands(q, name, next_name, r_res))
-            t8, q1_carry = BK.fused_cb3_cb1_int8(o8, id8, ops)
+            t8, q1_carry = BK.fused_cb3_cb1_int8(o8, id8, ops, recip=rq)
             s_in = a[f"{name}.out"]
             i += 1
             continue
@@ -445,8 +503,11 @@ def quantized_trunk_apply(q: Dict[str, Any], x: torch.Tensor, stage_sizes: Seque
         identity = id8.float() * r_res
         if is_last:
             return torch.relu(o + identity).to(out_dtype)
-        s_in = a[f"{name}.out"]
-        t8 = requant(o + identity, s_in)  # the block relu is the clip at 0
+        if wide4:
+            t8, s_in = requant_u4(o + identity, a[f"{name}.out"], rq)
+        else:
+            s_in = a[f"{name}.out"]
+            t8 = requant(o + identity, s_in, rq)  # the block relu is the clip at 0
         i += 1
     raise ValueError(f"stage_sizes {tuple(stage_sizes)} leave no block after stage 1")
 
@@ -505,34 +566,38 @@ def quantize_resnet_trunk(folded_sd: Mapping[str, torch.Tensor], stage_sizes: Se
 
 
 def quantized_resnet_apply(q: Dict[str, Any], x: torch.Tensor, stage_sizes: Sequence[int],
-                           block: str, out_dtype=torch.bfloat16) -> torch.Tensor:
+                           block: str, out_dtype=torch.bfloat16,
+                           recip_requant: bool = False) -> torch.Tensor:
     """int8 torchvision-ResNet forward (`quantize.py:685-738`): x is the preprocessed
     NHWC batch; returns the NHWC conv map in `out_dtype`. The stem and the shortcut
-    convs run in bf16 with bf16 outputs, as the JAX graph's convs without a preferred
-    element type; relus fold into the requants' clip at 0."""
+    convs take bf16 operands and give unrounded f32 outputs: the JAX graph casts their
+    bf16 results to f32, and XLA leaves them unrounded (as the CLIP stems' in
+    `_fp_conv`); relus fold into the requants' clip at 0. `recip_requant` is the
+    reciprocal requant (`ops/int8.py`)."""
     a = q["act_scales"]
+    rq = recip_requant
     s_in = a["stem.out"]
-    t8 = max_pool_int8(requant(_fp_conv(q, "stem", x, 2, relu=False), s_in))
+    t8 = max_pool_int8(requant(_fp_conv(q, "stem", x, 2, relu=False), s_in, rq))
     blocks = list(_block_names(stage_sizes))
     for name, stride in blocks:
         s2 = a[f"{name}/cb2.in"]
         if block == "bottleneck":
             o = _qconv(q[f"{name}/cb1"], t8, s_in)
-            o = _qconv(q[f"{name}/cb2"], requant(o, s2), s2, stride)
+            o = _qconv(q[f"{name}/cb2"], requant(o, s2, rq), s2, stride)
             s3 = a[f"{name}/cb3.in"]
-            o = _qconv(q[f"{name}/cb3"], requant(o, s3), s3)
+            o = _qconv(q[f"{name}/cb3"], requant(o, s3, rq), s3)
         else:
             o = _qconv(q[f"{name}/cb1"], t8, s_in, stride)
-            o = _qconv(q[f"{name}/cb2"], requant(o, s2), s2)
+            o = _qconv(q[f"{name}/cb2"], requant(o, s2, rq), s2)
         if f"{name}/down" in q["fp"]:
             down = _fp_conv(q, f"{name}/down", t8.float() * s_in, stride, relu=False,
                             f32_pointwise=False)
             ds = a[f"{name}/down.out"]
-            identity = requant_signed(down, ds).float() * ds
+            identity = requant_signed(down, ds, rq).float() * ds
         else:
             identity = t8.float() * s_in
         if name == blocks[-1][0]:
             return torch.relu(o + identity).to(out_dtype)
         s_in = a[f"{name}.out"]
-        t8 = requant(o + identity, s_in)
+        t8 = requant(o + identity, s_in, rq)
     raise ValueError(f"stage_sizes {tuple(stage_sizes)} have no block")

@@ -1,5 +1,5 @@
 """Post-training int8 quantization of the frozen CLIP ViT tower, inference only (port of
-`embodied_clip_tpu/ops/quantize_vit.py`, its default path).
+`embodied_clip_tpu/ops/quantize_vit.py`).
 
 The four dense layers of every transformer block (the fused-QKV in-proj, out-proj,
 mlp c_fc, mlp c_proj) carry ~98% of ViT-B/32's operations: at batch 128 they are
@@ -19,13 +19,21 @@ Scheme (symmetric PTQ, as the ResNet trunk's):
                (`quantize_vit.py:138-140`)
 
 The serving tree: `fp` (the f32 state_dict entries of everything that is not one of
-the four denses, openai names), `blocks` (one dict per block: each dense's `weight_q`
-(out, in) s8 — the torch Linear layout, whose transpose is the column-major operand
-`qmm` takes as it is — its `w_scale` and f32 `bias`), and `act_scales` (0-dim f32
-tensors on the data's device, keyed as in the JAX package: `block{i}/attn_in`,
-`/attn_out_in`, `/mlp_in`, `/mlp_proj_in`). The JAX package's `ECT_VIT_QUANT_ATTN` and
-`ECT_VIT_CONV_OUT` experiments (`quantize_vit.py:246-261`) are TPU experiments and are
-not ported.
+the four denses, openai names, plus each block's attention in-proj and out-proj weights
+(out, in) in bf16, as the JAX package keeps them), `blocks` (one dict per block: each
+dense's `weight_q` (out, in) s8 — the torch Linear layout, whose transpose is the
+column-major operand `qmm` takes as it is — its `w_scale` and f32 `bias`), and
+`act_scales` (0-dim f32 tensors on the data's device, keyed as in the JAX package:
+`block{i}/attn_in`, `/attn_out_in`, `/mlp_in`, `/mlp_proj_in`).
+
+`quantized_vit_apply` takes the JAX package's trace-time options as keywords
+(`quantize_vit.py:105-140,241-261`), defaulting as JAX does:
+  quant_attn     (ECT_VIT_QUANT_ATTN)  False: the in-proj and out-proj as products of
+                                       bf16 operands with f32 sums, plus the f32 bias
+  recip_requant  (ECT_RECIP_REQUANT=1) the reciprocal requant (`ops/int8.py`)
+The JAX package's `ECT_VIT_CONV_OUT=1` only picks XLA's conv emitter for the out-proj's
+s8 product over its dot emitter: the product is integer-exact either way, so its output
+is bit-equal to the default's, and the port has the one s8 GEMM.
 """
 
 from __future__ import annotations
@@ -44,6 +52,8 @@ __all__ = ["quantize_vit", "quantized_vit_apply", "DENSES"]
 # The block's four denses: (name in the JAX tree, its act-scale key, openai prefix).
 DENSES = (("in_proj", "attn_in", "attn.in_proj_"), ("out_proj", "attn_out_in", "attn.out_proj."),
           ("mlp_fc", "mlp_in", "mlp.c_fc."), ("mlp_proj", "mlp_proj_in", "mlp.c_proj."))
+# The denses `quant_attn=False` runs from bf16 weights kept in `fp`.
+ATTN_DENSES = ("in_proj", "out_proj")
 
 
 def _dense_keys(i: int, prefix: str):
@@ -111,20 +121,32 @@ def quantize_vit(sd: Dict[str, torch.Tensor], x_calib: torch.Tensor, num_heads: 
                for name, (w, b) in dense_w[i].items()} for i in range(layers)]
     dense_keys = {k for i in dense_w for pair in dense_w[i].values() for k in pair}
     fp = {k: v for k, v in sd.items() if k not in dense_keys}
+    for i in dense_w:
+        for name in ATTN_DENSES:
+            w = dense_w[i][name][0]
+            fp[w] = sd[w].to(torch.bfloat16)
     return {"fp": fp, "blocks": blocks, "act_scales": scales}
 
 
 def quantized_vit_apply(q: Dict[str, Any], x: torch.Tensor, num_heads: int, layers: int,
-                        out_dtype=torch.bfloat16) -> torch.Tensor:
+                        out_dtype=torch.bfloat16, quant_attn: bool = True,
+                        recip_requant: bool = False) -> torch.Tensor:
     """int8 ViT forward: x is the preprocessed NHWC image batch (f32/bf16). Returns the
     CLIP embedding in `out_dtype`, which is also the compute dtype of the residual
-    stream and the attention core."""
+    stream and the attention core. `quant_attn` and `recip_requant` are the options of
+    the module docstring."""
     key = {name: key for name, key, _ in DENSES}
+    prefix = {name: p for name, _, p in DENSES}
 
     def dense(i, name, t):
-        a = q["act_scales"][f"block{i}/{key[name]}"]
         d = q["blocks"][i][name]
-        t8 = requant_signed(t.float(), a)
+        if not quant_attn and name in ATTN_DENSES:
+            w = q["fp"][_dense_keys(i, prefix[name])[0]]
+            with full_f32():
+                y = torch.matmul(t.to(out_dtype).float(), w.to(out_dtype).float().t())
+            return y + d["bias"]
+        a = q["act_scales"][f"block{i}/{key[name]}"]
+        t8 = requant_signed(t.float(), a, recip_requant)
         acc = qmm(t8.reshape(-1, t8.shape[-1]), d["weight_q"].t())
         y = acc.float() * (a * d["w_scale"]) + d["bias"]
         return y.reshape(*t.shape[:-1], -1)

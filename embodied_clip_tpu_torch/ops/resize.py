@@ -118,3 +118,24 @@ def apply_resize(x: torch.Tensor, wh: np.ndarray, ww: np.ndarray,
     if pil_exact:
         x = _quantize_u8(x)
     return x
+
+
+def resize_bicubic(img: torch.Tensor, size: int | tuple[int, int],
+                   crop: tuple[int, int] | None = None, method: str = "bicubic",
+                   dtype=torch.float32, pil_exact: bool = True) -> torch.Tensor:
+    """Resize NHWC (or HWC) images with PIL-parity filtering, optionally center-cropped
+    (`embodied_clip_tpu/ops/resize.py:156`). uint8 input is scaled to [0, 1]
+    (torchvision ToTensor semantics) before filtering; float input is taken as already
+    in [0, 1] and filtered without PIL's per-pass uint8 rounding."""
+    squeeze = img.ndim == 3
+    if squeeze:
+        img = img[None]
+    # The height crop commutes with the width pass, so the plan folds it in exactly.
+    wh, ww = resize_plan(tuple(img.shape[1:3]), size, crop, method)
+    x = img.to(torch.float32)
+    if img.dtype == torch.uint8:
+        x = x / 255.0
+    else:
+        pil_exact = False
+    x = apply_resize(x, wh, ww, pil_exact=pil_exact).to(dtype)
+    return x[0] if squeeze else x

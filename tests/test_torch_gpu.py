@@ -280,6 +280,73 @@ def test_resblocks_kernel_matches_plain_version(cuda, cin, cm, nb, n, h, out_dty
     assert torch.equal(got, again)
 
 
+# Each int8 kernel in the reciprocal requant form at a few of the shapes above: K2 and K3
+# within their contract of their plain version in that form, K4 and K5 bit-exact. Against
+# the division form: a single requant in the reciprocal form (K2's, before its pool; K4's
+# block output; K5's s8 output) moves by at most one s8 step; the outputs of chained ones
+# (K4's next cb1, K3's third block output) carry a flipped step through the later convs,
+# so there only the share is held (≤0.5%).
+RECIP_CASES = [("K2", (3, 112, 112, 32, 64)), ("K2", (2, 16, 16, 8, 16)),
+               ("K3", (2, 56, 64, 64, 256)), ("K3", (2, 16, 16, 16, 64)),
+               ("K3", (2, 24, 96, 96, 384)), ("K4", (256, 64, 2, 7)),
+               ("K4", (2048, 512, 8, 7)), ("K5", (512, 128, 3, 4, 28)),
+               ("K5", (2048, 512, 2, 2, 7))]
+
+
+def _recip_call(kernel, shape, dev):
+    """(wrapper, plain version, args, kw) of one kernel call at `shape`."""
+    rng = np.random.RandomState(9)
+    if kernel == "K2":
+        n, h, w, cin, cout = shape
+        x = _t(np.abs(rng.randn(n, h, w, cin)).astype(np.float32) * 0.5, dev, torch.bfloat16)
+        args = (x, _t(rng.randn(3, 3, cin, cout).astype(np.float32) * 0.1, dev),
+                _t(rng.randn(cout).astype(np.float32) * 0.05, dev),
+                torch.tensor(2.3 / 127, device=dev))
+        return SK.stem3_requant_pool_int8, SK.stem3_requant_pool_int8_reference, args, {}
+    if kernel == "K3":
+        n, h, cin, cm, cout = shape
+        ops = Q.stage1_int8_operands(C.to_torch(C.stage1_q(rng, cin, cm, cout), dev))
+        return (BK.fused_stage1_int8, BK.fused_stage1_int8_reference,
+                (_t(C.s8(rng, (n, h, h, cin)), dev), ops), {})
+    if kernel == "K4":
+        cin, cm, n, h = shape
+        q, names = C.identity_q(rng, cin, cm, 2)
+        ops = Q.cb3_cb1_operands(C.to_torch(q, dev), names[0], names[1],
+                                 torch.tensor(1.9 / 127, device=dev))
+        args = (_t(C.s8(rng, (n, h, h, cm)), dev), _t(C.s8(rng, (n, h, h, cin)), dev), ops)
+        return BK.fused_cb3_cb1_int8, BK.fused_cb3_cb1_int8_reference, args, {}
+    cin, cm, nb, n, h = shape
+    q, names = C.identity_q(rng, cin, cm, nb)
+    q = C.to_torch(q, dev)
+    ops, scl = Q.resblocks_int8_operands(q, names, torch.tensor(1.8 / 127, device=dev),
+                                         q["act_scales"][f"{names[-1]}.out"])
+    return (BK.fused_resblocks_int8, BK.fused_resblocks_int8_reference,
+            (_t(C.s8(rng, (n, h, h, cin)), dev), ops, scl), {})
+
+
+@pytest.mark.parametrize("kernel,shape", RECIP_CASES)
+def test_int8_kernels_in_the_reciprocal_form_match_plain_versions(cuda, kernel, shape):
+    fn, ref, args, kw = _recip_call(kernel, shape, cuda)
+    before = fn.launches
+    got = fn(*args, **kw, recip=True)
+    div = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    want = ref(*args, **kw, recip=True)
+    pairs = list(zip(got, want, div)) if isinstance(got, tuple) else [(got, want, div)]
+    for i, (g, w, d) in enumerate(pairs):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        if kernel in ("K2", "K3"):
+            dmax, frac = C.step_diff(g, w)
+            assert dmax <= 1 and frac <= 0.005, (dmax, frac)
+        else:
+            assert torch.equal(g, w)
+        form_step, form_share = C.step_diff(g, d)
+        assert form_share <= 0.005, (form_step, form_share)
+        if kernel in ("K2", "K5") or (kernel == "K4" and i == 0):
+            assert form_step <= 1, (form_step, form_share)
+
+
 def test_int8_trunk_paths_on_the_card(cuda, monkeypatch):
     """A width-16 trunk with stage sizes (3, 2, 2, 2), quantized on the card: path A
     (K2, K3, K5 with the gate lowered) and path B (K2, K3, K4) are bit-identical, and

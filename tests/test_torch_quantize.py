@@ -22,6 +22,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from embodied_clip_tpu.models.clip_resnet import ModifiedResNet as JaxResNet
 from embodied_clip_tpu.models.resnet import ResNet as JaxTVResNet
@@ -168,8 +169,7 @@ def test_kernel_dispatch_matches_jax(carried, monkeypatch, path):
     from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
 
     sub = q["fp"]["stem3"]
-    t = Q._fp_conv(q, "stem2", Q._fp_conv(q, "stem1", torch.from_numpy(x), 2, f32_out=True),
-                   f32_out=True)
+    t = Q._fp_conv(q, "stem2", Q._fp_conv(q, "stem1", torch.from_numpy(x), 2))
     t8 = SK.stem3_requant_pool_int8(t.to(torch.bfloat16), sub["kernel"], sub["bias"],
                                     q["act_scales"]["stem.out"])
     flags = (dict(pallas_stage1=True, pallas_resblocks=True) if path == "A"
@@ -297,9 +297,27 @@ def test_quantize_resnet_trunk_matches_jax(tv_trunk):
         np.testing.assert_array_equal(got["fp"][k]["bias"].numpy(), sub["conv"]["bias"])
 
 
+def _jitted_conv(x, kernel, stride: int = 1, pet=None):
+    """JAX's `quantize._conv` as its encoders' jitted graph computes it: XLA leaves a
+    conv of bf16 operands unrounded, the f32 conv of the upcast operands
+    (`tests/test_torch_resnet_stem_settle.py` shows it on every element); op by op,
+    JAX rounds it to bf16. s8 convs as they are."""
+    if pet is None and x.dtype == jnp.bfloat16:
+        x, kernel = x.astype(jnp.float32), jnp.asarray(kernel).astype(jnp.float32)
+        k = kernel.shape[0]
+        return lax.conv_general_dilated(
+            x, kernel, (stride, stride), [((k - 1) // 2, (k - 1) // 2)] * 2,
+            dimension_numbers=("NHWC", "HWIO", "NHWC"), precision=lax.Precision.HIGHEST)
+    return jq_conv(x, kernel, stride, pet)
+
+
+jq_conv = jq._conv
+
+
 def test_resnet_int8_graph_matches_jax_from_the_stem_on(tv_trunk, monkeypatch):
     """JAX's quantized trunk carried across by `from_flax_qtrunk` as it is; the port's s8
-    stem output (after its int8 max pool) fed to JAX's graph; every s8 tensor JAX
+    stem output (after its int8 max pool) fed to JAX's graph, run op by op with its bf16
+    convs in the form XLA compiles them to (`_jitted_conv`); every s8 tensor JAX
     requantizes after it bit-exact but for ±1 step on ≤0.5% of elements, where the bf16
     shortcut conv's sum order flips a tie."""
     stage_sizes, block, _, _, x = tv_trunk
@@ -316,6 +334,7 @@ def test_resnet_int8_graph_matches_jax_from_the_stem_on(tv_trunk, monkeypatch):
     monkeypatch.setattr(jq, "_max_pool_int8", lambda *a, **k: jnp.asarray(t8.numpy()))
     monkeypatch.setattr(jq, "_requant",
                         lambda *a: want_seen.append(jrequant(*a)) or want_seen[-1])
+    monkeypatch.setattr(jq, "_conv", _jitted_conv)
     want = np.asarray(jq.quantized_resnet_apply(qj, jnp.asarray(x), stage_sizes, block,
                                                 out_dtype=jnp.float32))
     n_convs = len(Q._resnet_convs(block))

@@ -21,7 +21,7 @@ from (b). Run with -s to see the numbers.
 The JAX package's XLA graph leaves all three stem convs unrounded on the CPU: its
 optimized HLO holds f32 convolutions of the bf16 operands there, with no bf16 convert
 after them. The port's plain int8 graph runs its stem convs in that form
-(`ops/quantize._fp_conv(..., f32_out=True)`): each stem conv's output equals JAX's in f32
+(`ops/quantize._fp_conv`): each stem conv's output equals JAX's in f32
 up to the sum order, and the graph's s8 stem output equals the JAX XLA graph's on every
 element of the settle frames.
 """
@@ -47,6 +47,7 @@ from embodied_clip_tpu_torch.ops.kernels.stem_kernel import (
     stem3_requant_pool_int8_reference,
 )
 from fake_thor import FakeController
+import torch_int8_cases as C
 
 
 def _scripted_frames() -> np.ndarray:
@@ -169,7 +170,7 @@ def test_plain_int8_graph_stem_equals_jax_xla_stem(settle, monkeypatch):
 
 @pytest.mark.parametrize("name,stride", [("stem1", 2), ("stem2", 1), ("stem3", 1)])
 def test_repaired_stem_conv_equals_jax_f32(settle, name, stride):
-    """Each stem conv of the port's plain int8 graph (`_fp_conv(..., f32_out=True)`, bias
+    """Each stem conv of the port's plain int8 graph (`_fp_conv`, bias
     in, no relu) against JAX's (`_conv` of bf16 operands, `.astype(f32)`, bias) on the
     same bf16 input: equal in f32 up to the sum order (within 2⁻²⁰ of the output's
     largest magnitude), where the bf16-rounded conv is a bf16 step away."""
@@ -191,8 +192,8 @@ def test_repaired_stem_conv_equals_jax_f32(settle, name, stride):
     want = np.asarray(jax.jit(lambda t: fp_conv(name, t, stride, False))(t))
     qp = from_flax_qtrunk(q)
     tin = torch.from_numpy(np.asarray(t.astype(jnp.float32))).to(torch.bfloat16)
-    got = Q._fp_conv(qp, name, tin, stride, relu=False, f32_out=True).numpy()
-    rounded = Q._fp_conv(qp, name, tin, stride, relu=False).numpy()
+    got = Q._fp_conv(qp, name, tin, stride, relu=False).numpy()
+    rounded = C.bf16_rounded_conv(qp, name, tin, stride, relu=False).numpy()
     tol = 2.0 ** -20 * np.abs(want).max()
     err, err_rounded = np.abs(got - want).max(), np.abs(rounded - want).max()
     print(f"\n{name}: |f32 form - JAX| {err:.3e}, |bf16-rounded - JAX| {err_rounded:.3e}"

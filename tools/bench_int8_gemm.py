@@ -23,8 +23,9 @@ golden_frames(32) (`bench.py`'s recipe); the frames are golden_frames(128). The 
   * sums the launches per encode by the wrapper that made them: K3 and K5 on path A, K4
     on path B.
 
-A source without the entry launch (the file before it, at commit 3dc6178) runs (d) as its
-own two launches: cb1a as (a) and its CUDA-core shortcut kernel.
+A `--source` file must have the repository file's C interface (the `recip` arguments
+of its (a) and (c) launches included); an older file is compared at the commit where it
+was measured.
 
 Writes everything to chiprun_out/bench_int8_gemm.json. Exits non-zero without a CUDA
 device, or when a source does not build or disagrees.
@@ -65,18 +66,15 @@ def cuda_ms(fn, iters=20, warmup=3):
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    sig = {"ect_conv1x1_s8": [p, i, i, p, i, p, p, p, p, p, p, i, i, p],
+    sig = {"ect_conv1x1_s8": [p, i, i, p, i, p, p, p, p, p, p, i, i, i, p],
            "ect_conv3x3_s8": [p, i, i, i, i, p, i, p, p, p, p, i, p],
-           "ect_cb3_cb1_s8": [p, p, i, i, i, i] + [p] * 11 + [i, p],
-           "ect_stage1_entry": [p, i, i, p, i, p, p, p, p, i, p, p, p, p, p, p, i, p],
-           "ect_shortcut_bf16": [p, p, i, i, i, p, p, p, p, i, p]}  # before the entry
+           "ect_cb3_cb1_s8": [p, p, i, i, i, i] + [p] * 11 + [i, i, p],
+           "ect_stage1_entry": [p, i, i, p, i, p, p, p, p, i, p, p, p, p, p, p, i, p]}
     for name, args in sig.items():
-        if hasattr(lib, name):
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = args, ctypes.c_int
-    if hasattr(lib, "ect_stage1_entry_ties"):
-        lib.ect_stage1_entry_ties.argtypes = [i, i]
-        lib.ect_stage1_entry_ties.restype = ctypes.c_longlong
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, ctypes.c_int
+    lib.ect_stage1_entry_ties.argtypes = [i, i]
+    lib.ect_stage1_entry_ties.restype = ctypes.c_longlong
     lib.ect_error_string.argtypes = [ctypes.c_int]
     lib.ect_error_string.restype = ctypes.c_char_p
     return lib
@@ -149,22 +147,14 @@ class Launch:
             m, (cin, cm, cout) = self.shapes()
             q1, sc8 = self.outs
             k1t, wsc = ops["k1a_t"], ops["wsc"]
-            if hasattr(lib, "ect_stage1_entry"):
-                if getattr(self, "ties", None) is None:  # the launch's scratch, made once
-                    self.ties = torch.empty(lib.ect_stage1_entry_ties(m, cout),
-                                            dtype=torch.int64, device=dev)
-                err = lib.ect_stage1_entry(x8.data_ptr(), m, cin, k1t.data_ptr(), cm,
-                                           ops["s1a"].data_ptr(), ops["b1a"].data_ptr(), r1,
-                                           wsc.data_ptr(), cout, s_in, ops["bsc"].data_ptr(),
-                                           dsc, q1.data_ptr(), sc8.data_ptr(),
-                                           self.ties.data_ptr(), *stream)
-            else:  # cb1a as (a), then the CUDA-core shortcut kernel
-                err = (lib.ect_conv1x1_s8(x8.data_ptr(), m, cin, k1t.data_ptr(), cm,
-                                          ops["s1a"].data_ptr(), ops["b1a"].data_ptr(), 0, 0,
-                                          r1, q1.data_ptr(), 0, *stream)
-                       or lib.ect_shortcut_bf16(x8.data_ptr(), wsc.data_ptr(), m, cin, cout,
-                                                s_in, ops["bsc"].data_ptr(), dsc,
-                                                sc8.data_ptr(), *stream))
+            if getattr(self, "ties", None) is None:  # the launch's scratch, made once
+                self.ties = torch.empty(lib.ect_stage1_entry_ties(m, cout),
+                                        dtype=torch.int64, device=dev)
+            err = lib.ect_stage1_entry(x8.data_ptr(), m, cin, k1t.data_ptr(), cm,
+                                       ops["s1a"].data_ptr(), ops["b1a"].data_ptr(), r1,
+                                       wsc.data_ptr(), cout, s_in, ops["bsc"].data_ptr(),
+                                       dsc, q1.data_ptr(), sc8.data_ptr(),
+                                       self.ties.data_ptr(), *stream)
         elif self.step == "a":
             x8, kt, s, b, r_out, out = self.args
             res, r_res = self.kw.get("res"), self.kw.get("r_res_ptr")
@@ -174,7 +164,8 @@ class Launch:
                                      kt.data_ptr(), kt.shape[0],
                                      s.data_ptr(), b.data_ptr(),
                                      0 if res is None else res.data_ptr(), r_res or 0, r_out,
-                                     self.outs[0].data_ptr(), kind, *stream)
+                                     self.outs[0].data_ptr(), kind,
+                                     int(self.kw.get("recip", False)), *stream)
         elif self.step == "b":
             x8, k2t, s, b, r_out, _ = self.args
             n, h, w, c = x8.shape
@@ -188,7 +179,8 @@ class Launch:
                                      k3t.data_ptr(), s3.data_ptr(), b3.data_ptr(),
                                      k1t.data_ptr(), s1.data_ptr(), b1.data_ptr(), r_res, r_out,
                                      r_next, self.outs[0].data_ptr(), self.outs[1].data_ptr(),
-                                     *stream)
+                                     int(self.kw.get("recip_out", False))
+                                     | 2 * int(self.kw.get("recip_next", False)), *stream)
         if err:
             raise RuntimeError(f"({self.step}) launch failed: "
                                + lib.ect_error_string(err).decode())
@@ -328,9 +320,7 @@ def main(argv) -> int:
         lib = bind(ctypes.CDLL(lib_path))
         regs = [line.split(":")[-1].strip() for line in log.splitlines() if "Used" in line]
         warn = sorted({line.split(")")[0] + ")" for line in log.splitlines() if "(C7" in line})
-        entry_launch = hasattr(lib, "ect_stage1_entry")
-        print(f"{path}: {'(d) one entry launch' if entry_launch else '(d) as cb1a + shortcut'}"
-              f"; ptxas {regs}; warnings {warn or 'none'}")
+        print(f"{path}: ptxas {regs}; warnings {warn or 'none'}")
         rows, sums = [], {}
         with torch.inference_mode():
             for key, entry in distinct.items():
@@ -367,7 +357,7 @@ def main(argv) -> int:
         for tag, s in sorted(sums.items()):
             print(f"  per encode, path {tag}: {s['launches']} launches, {s['ms']:.4f} ms "
                   f"against launch bounds of {s['bound_ms']:.4f} ms; on {smi}")
-        results.append({"source": path, "entry_launch": entry_launch, "ptxas": regs,
+        results.append({"source": path, "ptxas": regs,
                         "warnings": warn, "rows": rows, "per_encode": sums})
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/bench_int8_gemm.json", "w") as f:
