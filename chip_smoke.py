@@ -10,7 +10,8 @@ Phases:
      the SASS of `bottleneck_bf16` (K6/K7) holds wgmma (HGMMA) and no mma.sync (HMMA),
      that of `stem_int8` (K2) bf16 wgmma (HGMMA), that of `bottleneck_int8` (K3-K5)
      s8 wgmma (IGMMA) beside bf16 wgmma (HGMMA: K3's shortcut) and no dp4a (IDP.4A),
-     and that of `preprocess` (K1) the 1-D bulk copy (UBLKCP);
+     its stride shortcut (e) bf16 wgmma and its 2×2 pool kernel (f) 128-bit loads and
+     stores, and that of `preprocess` (K1) the 1-D bulk copy (UBLKCP);
   3. hold kernel K1 (fused preprocess) to its plain PyTorch version on the card:
      bit-equal at the main path's shape (golden_frames(128), 300x300 → 224), f32 and
      bf16; ≤1.5 uint8 LSB with <1e-3 of pixels flipped at batches 128, 1 and 5, on a
@@ -26,9 +27,16 @@ Phases:
      with the kernels and on the cuDNN route (`fold_bn(fused_bottlenecks=False)`, the
      same weights), in turns;
   5. quantize that encoder (calibrated on golden_frames(32)) and encode
-     golden_frames(128) through path A (K2 + K3 + K5) and path B (K2 + K3 + K4),
-     recording every kernel call's inputs; hold K2 and K3 to their plain versions at
-     ≤1 s8 step on ≤0.5% of elements, K4 and K5 bit-exactly; time each kernel and its
+     golden_frames(128) through path A (K2 + K3 + K5 + the stride blocks) and path B
+     (K2 + K3 + K4 + the stride blocks up to cb3), recording every kernel call's inputs;
+     hold K2 and K3 to their plain versions at ≤1 s8 step on ≤0.5% of elements, K4 and
+     K5 bit-exactly, and every stride-block call of both paths with o8 (cb1, cb2, the
+     pools) and cb3 (on the kernel's own o8 and id8) bit-exact, id8 and the block output
+     at ≤1 step on ≤0.5% (`parity.stride_block_disagreement`); the
+     stride shortcut's id8 equal to the exact sum's requant, its share apart from the
+     plain graph's f32 product and its near-tie share printed, the library's route of
+     its products beside it (never called by the port on this path); time each kernel
+     and its
      plain version on those inputs (back-to-back wrapper calls between CUDA events, as
      every kernel's `ms`; beside it `device_ms`, the calls replayed from a CUDA graph,
      which leaves out the host's share), compute its bound, and print each call's
@@ -37,10 +45,12 @@ Phases:
      same way that the port never calls: cuDNN's bf16 conv of the same stem3 shape
      (channels-last, the conv alone) and `torch.matmul` of the shortcut's bf16 product;
   6. drive the int8 main path: the four requests through path A, with launches per
-     request K1 1, K2 1, K3 1, K5 3; the same through path B, with K4 12 per request;
-     keys, shapes, finite bf16; cosine distance vs the f32 encoder ≤1e-3 for the
-     pooled keys and ≤2e-3 for the conv map (`INT8_COSINE_LIMITS`); paths A and B
-     bit-identical; batch-128 encode times of both paths;
+     request K1 1, K2 1, K3 1, K5 3, stride block 3; the same through path B, with K4 12
+     and stride block 3 per request; keys, shapes, finite bf16; cosine distance vs the
+     f32 encoder ≤1e-3 for the pooled keys and ≤2e-3 for the conv map
+     (`INT8_COSINE_LIMITS`); paths A and B bit-identical; batch-128 encode times of both
+     paths, and of path A with `kernel_stride_blocks=False` in turns with the default;
+     no call of `ops/int8.qmm` or `im2col3x3` during a path A encode;
   7. record every K6/K7 call of a batch-128 `clip_rn50` encode and of an
      `imagenet_rn50` encode; hold each to its plain version (`parity.bf16_disagreement`:
      ≤1% of elements differ, each within two bf16 steps; K7 block by block,
@@ -61,8 +71,9 @@ Phases:
      unfolded encoder on the same frames; every K6/K7 call of one rollout encode (batch
      32) held to its plain version with phase 7's contract; K1 at the rollout's shape,
      (32, 56, 56) → 224, held to its plain version and timed; one iteration on int8 path
-     A (K1, K2, K3 65, K5 195), its stored features within `INT8_COSINE_LIMITS`, every
-     K2/K3/K5 call of one rollout encode held with phase 5's contracts. Iterations 0, 2
+     A (K1, K2, K3 65, K5 195, stride block 195), its stored features within
+     `INT8_COSINE_LIMITS`, every K2/K3/K5/stride-block call of one rollout encode held
+     with phase 5's contracts. Iterations 0, 2
      and 3 are split into rollout (encode, env, policy step, the rest) and update (the
      gradient all-reduces within it) by CUDA events and hooks; iterations 1 and 4 carry
      only the iteration's own events, so that the split's cost shows; each iteration's
@@ -82,14 +93,16 @@ Phases:
      version and timed, the act / env_step / update split, env-steps/s, the encode's
      share of the act step, peak device memory (`--profile`: the device-busy share of
      one rollout and one update); (c) one iteration on int8 path A (K1, K2, K3 65, K5
-     195): the stored features equal to the encoder's output on the same frames, the
+     195, stride block 195): the stored features equal to the encoder's output on the
+     same frames, the
      encoder at batch 8 within `INT8_COSINE_LIMITS` on golden_frames(8), the stored
      features' distance to f32 printed beside the plain int8 graph's (the scripted
      controller's flat frames put both far from f32), and held within 1e-3 cosine
      (`INT8_PLAIN_GRAPH_LIMIT`) of the plain int8 graph fed by the same stem (K2) on the
      same frames, and of the plain graph with its own stem (whose stem convs keep their
      f32 outputs, as K2 and the JAX XLA graph do);
-     every K2/K3/K5 call of one act-step encode held with phase 5's contracts; (d) a
+     every K2/K3/K5/stride-block call of one act-step encode held with phase 5's
+     contracts; (d) a
      worker SIGKILLed at act step 20: respawned, its step and the respawned worker's
      first step masked invalid (the latter done), the update runs; (e)
      `evaluate_policy_host` (deterministic, val scenes) delivers 16 episodes, written by
@@ -121,8 +134,9 @@ Phases:
      recorded under its class name, success and SPL printed for the seen and the unseen
      split; (d) one batch-8 `clip_rn50x16` request (300×300 → 384), bf16 folded (K1 1,
      K7 1 over the 6-block stage 1, K6 31) within 1e-3 cosine of f32, every K6/K7 call
-     held with phase 7's contract; then int8 path A (K1 1, K2 1, K5 3), every K2/K5 call
-     held with phase 5's contracts, its distance to f32 printed;
+     held with phase 7's contract; then int8 path A (K1 1, K2 1, K5 3, stride block 3),
+     every K2/K5/stride-block call held with phase 5's contracts, its distance to f32
+     printed;
  12. the RL experiment registry (`config.experiments.get_experiment`) at full width, each
      experiment as registered but for the overrides named: (a)
      `objectnav_robothor_rgb_clipresnet50gru_ddppo` (fake backend, bf16 folded
@@ -132,8 +146,9 @@ Phases:
      checkpoint in a fresh output dir, the resumed weights bit-equal to the
      uninterrupted run's; launches per iteration K1 = K7 = 65, K6 = 650; env-steps/s
      and the checkpoint's size; (b) the same with `encoder_dtype=int8`, 1 iteration (K1,
-     K2, K3 65, K5 195), calibrated on golden_frames(16) and 8 frames of the env, every
-     K2/K3/K5 call of one rollout encode held with phase 5's contracts; (c)
+     K2, K3 65, K5 195, stride block 195), calibrated on golden_frames(16) and 8 frames
+     of the env, every K2/K3/K5/stride-block call of one rollout encode held with phase
+     5's contracts; (c)
      `zeroshot_objectnav_robothor_rgb_clipresnet50gru_ddppo` trains 2 iterations, then
      `zeroshot_…_ddppo_eval` evaluates its checkpoint (`evaluate(ckpt=…)`) on 64 episodes
      over all 12 classes, metrics.json written and scored, seen and unseen success and
@@ -149,7 +164,8 @@ Phases:
      imagenet_rn50 + clip_rn50 at batch 256 in f32, bf16 and int8 (`cli.main` in this
      process): keys, shapes, the planted labels, bf16 within 1e-3 cosine of f32, int8
      within `INT8_COSINE_LIMITS` / `IMAGENET_INT8_COSINE_LIMITS`, launches per batch (bf16
-     K1 2; int8 K1 2, K2 1, K3 1, K5 3), every K2/K3/K5 call of one int8 batch held with
+     K1 2; int8 K1 2, K2 1, K3 1, K5 3, stride block 3), every K2/K3/K5/stride-block
+     call of one int8 batch held with
      phase 5's contracts, encode frames/s and the splits' encode / labels / npz-write
      seconds; (c) a 256-image reachability store read back by `load_probe_split`; (d)
      `probe-sweep --max-epochs 2` over the 11 probes (steps/s, epoch ms) and one probe
@@ -163,22 +179,25 @@ Phases:
      `--variables`; (h) `list-configs` in a subprocess; (i) with 2 cards, the
      data-parallel probe trainer in 2 NCCL processes against one;
  14. the JAX package's int8 graph options at full width (`bench.py:57-81`'s recipe:
-     `clip_rn50` folded, `quantize(golden_frames(32))`, batch 128): (a) every K2-K5 call
-     of a path A and a path B encode in the reciprocal requant, held to its plain
-     version in that form with phase 5's contracts and timed in both forms (ms and
-     device_ms), the two forms' s8 outputs apart on ≤0.5% of elements (≤1 step where one
-     requant makes the output), each kernel in that form where its TPU kernel calls
-     `_unscale`; (b) batch-128 encodes in turns: path A, path A reciprocal, `int8_stem`
-     "stem3" and "full", path B reciprocal, the plain graph alone and with
-     `int4_stage1` 1 and 2: ms, launches per encode (K2 none under an int8 stem), cosine
-     to f32 per key (INT8_COSINE_LIMITS; int4 INT4_COSINE_LIMIT); (c) ViT-B/32 int8:
+     `clip_rn50` folded, `quantize(golden_frames(32))`, batch 128): (a) every K2-K5 and
+     stride-block call of a path A and a path B encode in the reciprocal requant, held to
+     its plain version in that form with phase 5's contracts and timed in both forms (ms
+     and device_ms), the two forms' s8 outputs apart on ≤0.5% of elements (≤1 step where
+     one requant makes the output), each kernel in that form where its TPU kernel calls
+     `_unscale`, the stride block at all four requants; (b) batch-128 encodes in turns:
+     path A, path A reciprocal, `int8_stem` "stem3" and "full" (their s8 stem convs
+     through `conv3x3_int8`, each call held bit-exactly), path B reciprocal, the plain
+     graph alone and with `int4_stage1` 1 and 2: ms, launches per encode (K2 none under
+     an int8 stem), cosine to f32 per key (INT8_COSINE_LIMITS; int4 INT4_COSINE_LIMIT);
+     (c) ViT-B/32 int8:
      `quant_attn=False` (no farther from f32 than all-s8) and the reciprocal form, each
      timed and within VIT_INT8_COSINE_LIMIT; (d) `imagenet_rn50` int8 in both forms
      within IMAGENET_INT8_COSINE_LIMITS, beside its graph with bf16-rounded stem and
      shortcut convs (before they were repaired);
  15. check that no process the script started is left, then print {"kernels": [...]}
-     (each K2-K5 row with its reciprocal form's numbers and every kernel's launches per
-     phase-14 encode) and the last line {"ok": true, "device": {...}}.
+     (each K2-K5 and stride-block row with its reciprocal form's numbers and every
+     kernel's launches per phase-14 encode; the stride block's row marked as having no
+     TPU kernel) and the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero. It exits non-zero at once, and
 prints no result, where no CUDA device is available.
@@ -225,13 +244,18 @@ VIT_INT8_COSINE_LIMIT = 2e-2
 # points) on at most this many times the share its plain version differs on.
 EXACT_SHARE_RATIO = 1.5
 STEP_LIMIT, STEP_SHARE_LIMIT = 1, 0.005  # K2, K3 vs plain (tests/test_stem_kernel.py:43)
-# Launches per request on each int8 path (clip_rn50: 3 identity runs, 12 boundaries).
+# The kernels held at ≤STEP_LIMIT steps on ≤STEP_SHARE_LIMIT of elements (their f32 sums'
+# order); of the stride block, o8 and cb3 (on the kernel's own o8 and id8) bit-exact, id8
+# and the output within that contract (the plain graph's full-f32 shortcut product).
+STEP_KERNELS = ("stem3_requant_pool_int8", "fused_stage1_int8", "fused_stride_block_int8")
+# Launches per request on each int8 path (clip_rn50: 3 identity runs, 12 boundaries, 3
+# stride blocks).
 PER_REQUEST = {"A": {"fused_preprocess": 1, "stem3_requant_pool_int8": 1,
                      "fused_stage1_int8": 1, "fused_resblocks_int8": 3,
-                     "fused_cb3_cb1_int8": 0},
+                     "fused_cb3_cb1_int8": 0, "fused_stride_block_int8": 3},
                "B": {"fused_preprocess": 1, "stem3_requant_pool_int8": 1,
                      "fused_stage1_int8": 1, "fused_resblocks_int8": 0,
-                     "fused_cb3_cb1_int8": 12}}
+                     "fused_cb3_cb1_int8": 12, "fused_stride_block_int8": 3}}
 # Launches per request on the folded bf16 paths (RN50 trunks: stage 1, 3 + 5 + 2
 # identity blocks; ResNet-18's basic blocks run no bottleneck kernel).
 BF16_PER_REQUEST = {"clip_rn50": {"fused_preprocess": 1, "fused_stage1": 1,
@@ -363,6 +387,19 @@ def int8_work(name: str, args, kw, out):
         macs = sum(b[k].numel() for b in blocks for k in ("k1", "k2", "k3"))
         w = nbytes(*(v for b in blocks for k, v in b.items() if not k.endswith("_t")), scl)
         return nbytes(x8, out) + w, 2 * m * macs, 0
+    if name == "fused_stride_block_int8":
+        # cb1 (unless K4 made it: then q1 is read) and cb2 at the input's resolution, cb3
+        # (unless K4 takes it) and the bf16 shortcut at the pooled one.
+        x8, ops = args
+        cb3, q1 = kw.get("cb3", True), kw.get("q1")
+        m, mp = x8.numel() // x8.shape[-1], x8.numel() // x8.shape[-1] // 4
+        keys = ["k2", "s2", "b2", "wsc", "bsc", "scl"]
+        keys += (["k1", "s1", "b1"] if q1 is None else []) + (["k3", "s3", "b3"] if cb3 else [])
+        macs8 = (m * ops["k1"].numel() if q1 is None else 0) + m * ops["k2"].numel() + (
+            mp * ops["k3"].numel() if cb3 else 0)
+        outs = out if isinstance(out, tuple) else (out,)
+        return (nbytes(x8, *outs, *([q1] if q1 is not None else []), *(ops[k] for k in keys)),
+                2 * macs8, 2 * mp * ops["wsc"].numel())
     raise KeyError(name)
 
 
@@ -421,11 +458,15 @@ class Recorder:
 
 
 def hold_int8_call(mod, name, args, kw):
-    """One recorded K2-K5 call against its plain version on the same inputs: K2 and K3
-    within STEP_LIMIT s8 steps on at most STEP_SHARE_LIMIT of the elements, K4 and K5
-    bit-exact. Returns (worst step, share of elements that differ)."""
+    """One recorded K2-K5, stride-block or `conv3x3_int8` call against its plain version
+    on the same inputs: K2 and K3 within STEP_LIMIT s8 steps on at most STEP_SHARE_LIMIT
+    of the elements; K4, K5 and `conv3x3_int8` bit-exact, whatever their output's type;
+    the stride block as `hold_stride_block` says. Returns (worst step, share of elements
+    that differ)."""
     import torch
 
+    if name == "fused_stride_block_int8":
+        return hold_stride_block(args, kw)
     fn, ref = getattr(mod, name), getattr(mod, name + "_reference")
     # K2's `wmat` is the kernel's own copy of its weights, not an input of K2.
     pkw = {k: v for k, v in kw.items() if k != "wmat"}
@@ -438,8 +479,10 @@ def hold_int8_call(mod, name, args, kw):
     worst_step, worst_share = 0, 0.0
     for g, w in pairs:
         check(g.shape == w.shape and g.dtype == w.dtype, f"{name} output shape/type")
-        d = (g.int() - w.int()).abs()
-        step, share = int(d.max()), float((d != 0).float().mean())
+        d = (g.float() - w.float()).abs()
+        step, share = float(d.max()), float((d != 0).float().mean())
+        if g.dtype == torch.int8:
+            step = int(step)
         worst_step, worst_share = max(worst_step, step), max(worst_share, share)
         if name in ("stem3_requant_pool_int8", "fused_stage1_int8"):
             check(step <= STEP_LIMIT and share <= STEP_SHARE_LIMIT,
@@ -448,6 +491,49 @@ def hold_int8_call(mod, name, args, kw):
             check(torch.equal(g, w), f"{name} bit-exact vs its plain version on "
                                      f"{tuple(args[0].shape)}")
     return worst_step, worst_share
+
+
+def hold_stride_block(args, kw):
+    """One recorded stride-block call against its plain version on the same inputs
+    (`parity.stride_block_disagreement`): o8 (cb1, cb2, the pools) bit-exact; id8 within
+    STEP_LIMIT steps on ≤STEP_SHARE_LIMIT of elements; with cb3, the output bit-exact
+    against the plain cb3 of the kernel's own o8 and id8, and against the plain block
+    within K3's contract (s8), or for the trunk's conv map apart on ≤STEP_SHARE_LIMIT of
+    elements by at most r_res plus the bf16 rounding. Returns (worst s8 step, share of
+    elements that differ) of id8 and an s8 output."""
+    import torch
+
+    from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
+    from embodied_clip_tpu_torch.parity import stride_block_disagreement
+
+    x8, ops = args
+    cb3, shape = kw.get("cb3", True), tuple(x8.shape)
+    before = BK.fused_stride_block_int8.launches
+    r = stride_block_disagreement(x8, ops, **kw)
+    torch.cuda.synchronize()
+    check(BK.fused_stride_block_int8.launches == before + (2 if cb3 else 1),
+          "fused_stride_block_int8 launched its kernel")
+    check(r["o8_equal"], f"stride block {shape}: o8 (cb1, cb2, the pools) bit-exact vs plain")
+    step, share = r["id8_step"], r["id8_share"]
+    check(step <= STEP_LIMIT and share <= STEP_SHARE_LIMIT,
+          f"stride block {shape}: id8 vs plain {step} steps on {share:.2e} of elements")
+    if not cb3:
+        return step, share
+    check(r["cb3_equal"], f"stride block {shape}: cb3 bit-exact vs plain on the kernel's "
+                          f"own o8 and id8")
+    g, w = r["out"], r["plain"]
+    check(g.shape == w.shape and g.dtype == w.dtype, "fused_stride_block_int8 output shape/type")
+    d = (g.float() - w.float()).abs()
+    out_step, out_share = float(d.max()), float((d != 0).float().mean())
+    if g.dtype == torch.int8:
+        check(out_step <= STEP_LIMIT and out_share <= STEP_SHARE_LIMIT,
+              f"stride block {shape} vs plain: {out_step} steps on {out_share:.2e}")
+        return max(step, int(out_step)), max(share, out_share)
+    limit = 1.01 * float(ops["scl"][3]) + 2 ** -7 * float(w.float().abs().max())
+    check(out_share <= STEP_SHARE_LIMIT and out_step <= limit,
+          f"stride block {shape}: conv map vs plain {out_step:.3e} (limit {limit:.3e}) on "
+          f"{out_share:.2e} of elements")
+    return step, share
 
 
 def hold_bf16_call(name, args, kw, label):
@@ -482,32 +568,53 @@ def hold_bf16_call(name, args, kw, label):
     return got, want, share, worst, per_block
 
 
+def record_int8_calls(encoders, frames):
+    """{kernel: {path: [(args, kw, out)]}} of every K2-K5 and stride-block call of one
+    encode of each of `encoders` ({path: encoder})."""
+    import contextlib
+
+    import torch
+
+    from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
+    from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
+
+    recs = {}
+    for path, enc in encoders.items():
+        with contextlib.ExitStack() as stack:
+            rs = [stack.enter_context(Recorder(SK if name.startswith("stem3") else BK, name))
+                  for name in INT8_KERNELS]
+            enc.encode(frames)
+            torch.cuda.synchronize()
+        for r in rs:
+            if r.calls:
+                recs.setdefault(r.name, {})[path] = r.calls
+    return recs
+
+
+# The int8 kernels of paths A and B, each with the path whose calls its row times.
+INT8_KERNELS = {"stem3_requant_pool_int8": "A", "fused_stage1_int8": "A",
+                "fused_resblocks_int8": "A", "fused_cb3_cb1_int8": "B",
+                "fused_stride_block_int8": "A"}
+
+
 def check_int8_kernels(qenc, frames, card, profile):
-    """Phase 5: every K2–K5 call of a batch-128 encode on paths A and B, against the
-    plain version on the same inputs; timings and bounds summed over one encode."""
+    """Phase 5: every K2–K5 and stride-block call of a batch-128 encode on paths A and B,
+    against the plain version on the same inputs; timings and bounds summed over one
+    encode (the stride block's over path A's three calls, path B's held and timed too)."""
     import torch
 
     from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
     from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
     from embodied_clip_tpu_torch.ops.quantize import PATH_B
 
-    kernels = [(SK, "stem3_requant_pool_int8", "A"), (BK, "fused_stage1_int8", "A"),
-               (BK, "fused_resblocks_int8", "A"), (BK, "fused_cb3_cb1_int8", "B")]
-    recs = {}
-    for path, enc in (("A", qenc), ("B", qenc.with_kernels(**PATH_B))):
-        with Recorder(SK, "stem3_requant_pool_int8") as r2, \
-                Recorder(BK, "fused_stage1_int8") as r3, \
-                Recorder(BK, "fused_resblocks_int8") as r5, \
-                Recorder(BK, "fused_cb3_cb1_int8") as r4:
-            enc.encode(frames)
-            torch.cuda.synchronize()
-        for r in (r2, r3, r4, r5):
-            if r.calls:
-                recs.setdefault(r.name, r.calls)
+    recs = record_int8_calls({"A": qenc, "B": qenc.with_kernels(**PATH_B)}, frames)
+    check(len(recs.get("fused_stride_block_int8", {}).get("B", [])) == 3,
+          "path B's encode makes 3 stride-block calls")
     results = {}
-    for mod, name, path in kernels:
+    for name, path in INT8_KERNELS.items():
+        mod = SK if name.startswith("stem3") else BK
         fn, ref = getattr(mod, name), getattr(mod, name + "_reference")
-        calls = recs.get(name, [])
+        calls = recs.get(name, {}).get(path, [])
         check(len(calls) > 0, f"{name} ran on path {path}")
         worst_step, worst_share = 0, 0.0
         ms = device_ms = plain_ms = bound_ms = 0.0
@@ -530,17 +637,32 @@ def check_int8_kernels(qenc, frames, card, profile):
                   f"replayed from a CUDA graph), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
                   f"by {b_by}")
         contract = (f"≤{STEP_LIMIT} step on ≤{STEP_SHARE_LIMIT:g}: worst {worst_step} step "
-                    f"on {worst_share:.2e}" if name in ("stem3_requant_pool_int8",
-                                                        "fused_stage1_int8")
-                    else "bit-exact")
+                    f"on {worst_share:.2e}" if name in STEP_KERNELS else "bit-exact")
+        if name == "fused_stride_block_int8":
+            contract = f"o8 and cb3 bit-exact, id8 and the output {contract}"
         print(f"[5] {name}: {len(calls)} call(s) per batch-128 encode (path {path}): kernel "
               f"{ms:.4f} ms ({device_ms:.4f} ms on the device, from CUDA graphs), plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms; {contract}")
-        results[name] = {"max_abs_err": float(worst_step), "ms": ms, "device_ms": device_ms,
-                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": max(by, key=by.get)}
-    results["stem3_requant_pool_int8"].update(stem_yardstick(recs))
-    results["fused_stage1_int8"].update(stage1_entry(recs, card))
+        results[name] = {"max_abs_err": float(worst_step), "share_differing": worst_share,
+                         "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": max(by, key=by.get)}
+    # Path B's stride-block calls (cb3 left to K4; cb1 from K4 in stages 3 and 4).
+    b_calls = recs["fused_stride_block_int8"]["B"]
+    b = {"ms": 0.0, "bound_ms": 0.0, "worst_step": 0, "share_differing": 0.0}
+    for args, kw, out in b_calls:
+        step, share = hold_int8_call(BK, "fused_stride_block_int8", args, kw)
+        b["worst_step"], b["share_differing"] = (max(b["worst_step"], step),
+                                                 max(b["share_differing"], share))
+        b["ms"] += cuda_ms(lambda: BK.fused_stride_block_int8(*args, **kw), 10)
+        b["bound_ms"] += bound(int8_work("fused_stride_block_int8", args, kw, out), card)[0]
+    print(f"[5] fused_stride_block_int8, path B (o8 and id8 for K4; cb1 from K4 in stages 3 "
+          f"and 4): {len(b_calls)} calls held (o8 bit-exact, id8 worst {b['worst_step']} step "
+          f"on {b['share_differing']:.2e}), kernel {b['ms']:.4f} ms, bound {b['bound_ms']:.4f} ms")
+    results["fused_stride_block_int8"]["path_b"] = b
+    first = {name: paths[INT8_KERNELS[name]] for name, paths in recs.items()}
+    results["stem3_requant_pool_int8"].update(stem_yardstick(first))
+    results["fused_stage1_int8"].update(stage1_entry(first, card))
+    results["fused_stride_block_int8"].update(stride_block_parts(first))
     if profile:
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as torch_profile
@@ -605,6 +727,55 @@ def stage1_entry(recs, card):
     return {"entry_ms": ms, "entry_bound_ms": b_ms, "entry_flagged": flagged,
             "yardstick_ms": mm_ms,
             "yardstick": "torch.matmul of the bf16 shortcut product, alone"}
+
+
+def stride_block_parts(recs):
+    """Phase 5: on each of path A's stride-block calls, the shortcut launch's id8 against
+    the exact sum's requant (`_shortcut_reference`, must be equal) and against the plain
+    graph's full-f32 product (the share apart is reported), and the share it flagged as
+    near-ties; beside the block, its products alone through the library's route, which
+    the port never calls on this path: `torch._int_mm` for cb1 and cb3, im2col +
+    `torch._int_mm` for cb2 (`ops/int8.qconv_acc`), `torch.matmul` of the bf16 shortcut.
+    (Each launch of the block against its bound: `tools/bench_int8_gemm.py`.)"""
+    import torch
+
+    from embodied_clip_tpu_torch.ops.int8 import avg_pool_int8, qconv_acc, qmm
+    from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
+
+    bits = torch.tensor([bin(i).count("1") for i in range(256)], device="cuda")
+    library_ms, flagged, apart, exact = 0.0, [], [], True
+    for args, kw, _ in recs["fused_stride_block_int8"]:
+        x8, ops = args
+        recip, scl = kw.get("recip", False), ops["scl"]
+        cin, cm = x8.shape[-1], ops["k2"].shape[-1]
+        xp = avg_pool_int8(x8, 2)
+        sc8, ties = BK._shortcut(xp, ops, BK._ptr(scl, 0), BK._ptr(scl, 3), recip)
+        want = BK._shortcut_reference(xp, ops["wsc"], ops["bsc"], scl[0], scl[3], recip)
+        plain = BK._stride_shortcut_reference(xp, ops["wsc"], ops["bsc"], scl[0], scl[3], recip)
+        torch.cuda.synchronize()
+        exact &= torch.equal(sc8, want)
+        apart.append(float((sc8 != plain).float().mean()))
+        flagged.append(int(bits[ties.view(torch.uint8).long()].sum()) / sc8.numel())
+        # cb2's and cb3's inputs at their shapes (the products' times do not depend on
+        # the values).
+        q1 = torch.zeros((*x8.shape[:-1], cm), dtype=torch.int8, device="cuda")
+        o8 = torch.zeros((*xp.shape[:-1], cm), dtype=torch.int8, device="cuda")
+        a16 = (xp.reshape(-1, cin).float() * scl[0]).to(torch.bfloat16)
+        library_ms += (cuda_ms(lambda: qmm(x8.reshape(-1, cin), ops["k1"]), 10)
+                       + cuda_ms(lambda: qconv_acc(q1, ops["k2"]), 5)
+                       + cuda_ms(lambda: qmm(o8.reshape(-1, cm), ops["k3"]), 10)
+                       + cuda_ms(lambda: torch.matmul(a16, ops["wsc"]), 10))
+        print(f"[5] stride block {tuple(x8.shape)}: the shortcut flagged {flagged[-1]:.3e} of "
+              f"id8 as near-ties; id8 equal to the exact sum's requant: "
+              f"{torch.equal(sc8, want)}; apart from the plain graph's full-f32 product on "
+              f"{apart[-1]:.3e}")
+    check(exact, "the stride shortcut's id8 equals the exact sum's requant on every element")
+    print(f"[5] the stride blocks' products alone through the library's route "
+          f"(torch._int_mm, im2col + torch._int_mm, torch.matmul bf16): {library_ms:.4f} ms")
+    return {"library_ms": library_ms,
+            "library_route": "the block's products alone: torch._int_mm (cb1, cb3), im2col + "
+                             "torch._int_mm (cb2), torch.matmul of bf16 (the shortcut)",
+            "shortcut_flagged": flagged, "id8_apart_from_plain_f32": apart}
 
 
 def check_bf16_kernels(encoders, frames, card):
@@ -777,8 +948,7 @@ def hold_rollout_calls(fe, frames, label, phase="9", per_encode=None):
             contract = ("≤1% of elements differ (more past RN50's longest reduction: "
                         "parity.bf16_share_limit), each within 2 bf16 steps" if label == "bf16"
                         else f"≤{STEP_LIMIT} step on ≤{STEP_SHARE_LIMIT:g}"
-                        if r.name in ("stem3_requant_pool_int8", "fused_stage1_int8")
-                        else "bit-exact")
+                        if r.name in STEP_KERNELS else "bit-exact")
             found = (f"{share:.2e} of elements differ, worst {worst:.3f} of the allowance"
                      if label == "bf16" else f"worst {worst} step(s) on {share:.2e}")
             print(f"[{phase} {label}] {r.name}: {len(r.calls)} call(s) of a rollout encode "
@@ -1096,12 +1266,7 @@ def check_host_path(card, smi, profile):
         check(venv.ring is not None, "the pool moves frames through the frame ring")
         return venv
 
-    counted = {"fused_preprocess": K.fused_preprocess, "fused_stage1": BK.fused_stage1,
-               "fused_bottleneck": BK.fused_bottleneck,
-               "stem3_requant_pool_int8": SK.stem3_requant_pool_int8,
-               "fused_stage1_int8": BK.fused_stage1_int8,
-               "fused_resblocks_int8": BK.fused_resblocks_int8,
-               "fused_cb3_cb1_int8": BK.fused_cb3_cb1_int8}
+    counted = counted_kernels()
     per_encode = {"bf16": {"fused_preprocess": 1, "fused_stage1": 1, "fused_bottleneck": 10},
                   "int8": PER_REQUEST["A"]}
     cfg = DDPPOConfig(rollout_len=T, ppo=PPOConfig(lr=3e-4, epochs=4))
@@ -1441,7 +1606,34 @@ def counted_kernels():
             "stem3_requant_pool_int8": SK.stem3_requant_pool_int8,
             "fused_stage1_int8": BK.fused_stage1_int8,
             "fused_resblocks_int8": BK.fused_resblocks_int8,
-            "fused_cb3_cb1_int8": BK.fused_cb3_cb1_int8}
+            "fused_cb3_cb1_int8": BK.fused_cb3_cb1_int8,
+            "fused_stride_block_int8": BK.fused_stride_block_int8,
+            "conv3x3_int8": BK.conv3x3_int8}
+
+
+def library_s8_calls(fn):
+    """{"qmm": n, "im2col3x3": n}: the calls fn() makes of `ops/int8.qmm`
+    (`torch._int_mm`) and `ops/int8.im2col3x3`, through any module of the port that
+    holds them."""
+    from embodied_clip_tpu_torch.ops import int8 as I8
+
+    counts = {"qmm": 0, "im2col3x3": 0}
+    originals = {name: getattr(I8, name) for name in counts}
+    patched = []
+    for mod in [m for k, m in sys.modules.items() if k.startswith("embodied_clip_tpu_torch")]:
+        for name in counts:
+            if getattr(mod, name, None) is originals[name]:
+                def counting(*a, _fn=originals[name], _name=name, **k):
+                    counts[_name] += 1
+                    return _fn(*a, **k)
+                patched.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, counting)
+    try:
+        fn()
+    finally:
+        for mod, name, orig in patched:
+            setattr(mod, name, orig)
+    return counts
 
 
 def launches_of(fn):
@@ -1715,7 +1907,8 @@ def check_rn50x16(card, smi):
 
     out = {}
     per_request = {"bf16": {"fused_stage1": 1, "fused_bottleneck": 31},
-                   "int8": {"stem3_requant_pool_int8": 1, "fused_resblocks_int8": 3}}
+                   "int8": {"stem3_requant_pool_int8": 1, "fused_resblocks_int8": 3,
+                            "fused_stride_block_int8": 3}}
     for label in ("bf16", "int8"):
         if label == "int8":
             t0 = time.perf_counter()
@@ -2008,7 +2201,8 @@ PROBE_SCENES = {"train": ("FloorPlan1", "FloorPlan2", "FloorPlan3", "FloorPlan4"
 # K1 per encoder; int8: K1 per encoder, clip_rn50's path A, imagenet_rn50's plain graph).
 EXTRACTION_PER_BATCH = {"bfloat16": {"fused_preprocess": 2},
                         "int8": {"fused_preprocess": 2, "stem3_requant_pool_int8": 1,
-                                 "fused_stage1_int8": 1, "fused_resblocks_int8": 3}}
+                                 "fused_stage1_int8": 1, "fused_resblocks_int8": 3,
+                                 "fused_stride_block_int8": 3}}
 STORE_SHAPES = {"imagenet_conv": (7, 7, 2048), "imagenet_avgpool": (2048,),
                 "clip_conv": (7, 7, 2048), "clip_avgpool": (2048,), "clip_attnpool": (1024,),
                 "object_presence": (52,), "object_localization": (9, 52), "free_space": ()}
@@ -2608,52 +2802,47 @@ def check_verify_parity(tmp, smi, O, make_preprocessor):
 # and ≤1.14e-4 (pooled), inside those limits, and int4's ≤2.35e-2
 # (tests/test_torch_quant_variants.py::test_rn50_int8_option_fidelity_matches_jax).
 INT4_COSINE_LIMIT = 5e-2
-# Launches per batch-128 encode of each option (phase 14 (b)); the int8 stems leave K2 out.
+# Launches per batch-128 encode of each option (phase 14 (b)); the int8 stems leave K2 out
+# and run their s8 convs through `conv3x3_int8` (stem3; stem2 and stem3 under "full").
+_A = {"fused_preprocess": 1, "fused_stage1_int8": 1, "fused_resblocks_int8": 3,
+      "fused_stride_block_int8": 3}
 OPTION_LAUNCHES = {
-    "A": {"fused_preprocess": 1, "stem3_requant_pool_int8": 1, "fused_stage1_int8": 1,
-          "fused_resblocks_int8": 3},
-    "A recip": {"fused_preprocess": 1, "stem3_requant_pool_int8": 1,
-                "fused_stage1_int8": 1, "fused_resblocks_int8": 3},
-    "stem3": {"fused_preprocess": 1, "fused_stage1_int8": 1, "fused_resblocks_int8": 3},
-    "full": {"fused_preprocess": 1, "fused_stage1_int8": 1, "fused_resblocks_int8": 3},
+    "A": {**_A, "stem3_requant_pool_int8": 1},
+    "A recip": {**_A, "stem3_requant_pool_int8": 1},
+    "stem3": {**_A, "conv3x3_int8": 1},
+    "full": {**_A, "conv3x3_int8": 2},
     "B recip": {"fused_preprocess": 1, "stem3_requant_pool_int8": 1, "fused_stage1_int8": 1,
-                "fused_cb3_cb1_int8": 12},
+                "fused_cb3_cb1_int8": 12, "fused_stride_block_int8": 3},
     "plain": {"fused_preprocess": 1},
     "int4 1": {"fused_preprocess": 1},
     "int4 2": {"fused_preprocess": 1}}
 
 
 def check_recip_kernels(qenc, frames, card):
-    """Phase 14 (a): every K2-K5 call of a batch-128 encode on paths A and B in the
-    reciprocal form, held to its plain version in that form with phase 5's contracts;
-    each call timed in both forms (in turns: reciprocal, division, division,
+    """Phase 14 (a): every K2-K5 and stride-block call of a batch-128 encode on paths A
+    and B in the reciprocal form, held to its plain version in that form with phase 5's
+    contracts; each call timed in both forms (in turns: reciprocal, division, division,
     reciprocal) by phase 5's method, and the s8 difference of the two forms (≤0.5% of
     elements; ≤1 step where one requant makes the output). Each kernel takes the
-    reciprocal form where its TPU kernel calls `_unscale` (ops/kernels/bottleneck_kernel.py)."""
+    reciprocal form where its TPU kernel calls `_unscale`, the stride block at all four
+    of its requants, as the XLA graph (ops/kernels/bottleneck_kernel.py). The stride
+    block's row sums path A's calls; path B's are held too."""
     import torch
 
     from embodied_clip_tpu_torch.ops import quantize as Q
     from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
     from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
 
-    kernels = [(SK, "stem3_requant_pool_int8"), (BK, "fused_stage1_int8"),
-               (BK, "fused_resblocks_int8"), (BK, "fused_cb3_cb1_int8")]
-    recs = {}
-    for enc in (qenc.with_kernels(recip_requant=True),
-                qenc.with_kernels(**Q.PATH_B, recip_requant=True)):
-        with Recorder(SK, "stem3_requant_pool_int8") as r2, \
-                Recorder(BK, "fused_stage1_int8") as r3, \
-                Recorder(BK, "fused_resblocks_int8") as r5, \
-                Recorder(BK, "fused_cb3_cb1_int8") as r4:
-            enc.encode(frames)
-            torch.cuda.synchronize()
-        for r in (r2, r3, r4, r5):
-            if r.calls:
-                recs.setdefault(r.name, r.calls)
+    recs = record_int8_calls({"A": qenc.with_kernels(recip_requant=True),
+                              "B": qenc.with_kernels(**Q.PATH_B, recip_requant=True)}, frames)
+    for args, kw, _ in recs["fused_stride_block_int8"]["B"]:
+        check(kw.get("recip") is True, "path B's stride blocks in the reciprocal form")
+        hold_int8_call(BK, "fused_stride_block_int8", args, kw)
     results = {}
-    for mod, name in kernels:
+    for name, path in INT8_KERNELS.items():
+        mod = SK if name.startswith("stem3") else BK
         fn = getattr(mod, name)
-        calls = recs.get(name, [])
+        calls = recs.get(name, {}).get(path, [])
         check(len(calls) > 0 and all(kw.get("recip") is True for _, kw, _ in calls),
               f"{name} ran in the reciprocal form")
         t = dict.fromkeys(("ms", "device_ms", "division_ms", "division_device_ms",
@@ -2686,8 +2875,9 @@ def check_recip_kernels(qenc, frames, card):
             t["division_device_ms"] += graph_ms(lambda: fn(*args, **div))
             t["bound_ms"] += bound(int8_work(name, args, kw, got), card)[0]
         contract = (f"≤{STEP_LIMIT} step on ≤{STEP_SHARE_LIMIT:g}: worst {worst_step} step on "
-                    f"{worst_share:.2e}" if name in ("stem3_requant_pool_int8",
-                                                     "fused_stage1_int8") else "bit-exact")
+                    f"{worst_share:.2e}" if name in STEP_KERNELS else "bit-exact")
+        if name == "fused_stride_block_int8":
+            contract = f"o8 and cb3 bit-exact, id8 and the output {contract}"
         print(f"[14a] {name}, reciprocal requant: {len(calls)} call(s) per batch-128 encode; "
               f"vs its plain version in that form {contract}; kernel {t['ms']:.4f} ms "
               f"({t['device_ms']:.4f} on the device) against the division's "
@@ -2707,6 +2897,7 @@ def check_int8_options(qenc, iqenc, iref, f32_ref, g8, g128, x128, card, smi):
     from embodied_clip_tpu_torch.models.encoders import build_encoder
     from embodied_clip_tpu_torch.ops import quantize as Q
     from embodied_clip_tpu_torch.ops.int8 import full_f32
+    from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
     from embodied_clip_tpu_torch.parity import cosine_distance, golden_frames
 
     tests_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
@@ -2738,6 +2929,14 @@ def check_int8_options(qenc, iqenc, iref, f32_ref, g8, g128, x128, card, smi):
         rows[label] = {"launches": got, "cosine_vs_f32": cos, "ms": []}
     for label in list(variants) + list(reversed(variants)):
         rows[label]["ms"].append(cuda_ms(lambda: variants[label].encode(x128), 5))
+    # The int8 stems' s8 convs go through conv3x3_int8: each call held bit-exactly.
+    for label in ("stem3", "full"):
+        with Recorder(BK, "conv3x3_int8") as rc:
+            variants[label].encode(x128)
+            torch.cuda.synchronize()
+        for args, kw, _ in rc.calls:
+            hold_int8_call(BK, "conv3x3_int8", args, kw)
+        rows[label]["conv3x3_int8_calls_held"] = [list(a[0].shape) for a, _, _ in rc.calls]
     for label, r in rows.items():
         ms = ", ".join(f"{m:.3f}" for m in r["ms"])
         print(f"[14b] clip_rn50 int8 {label}: batch-128 encode {ms} ms; launches "
@@ -2842,6 +3041,21 @@ def main(argv) -> int:
               + " instructions" + (f", {n_banned} {banned.rstrip('.')}" if banned else ""))
         check(all(counts.values()) and n_banned == 0,
               f"{src} holds {', '.join(wants)}" + (f" and no {banned}" if banned else ""))
+        if src == "bottleneck_int8":
+            # The stride blocks' launches: the pool (f) moves 16 bytes a thread each way
+            # (128-bit loads and stores), the shortcut (e) runs on bf16 wgmma.
+            funcs = {f.splitlines()[0]: f for f in sass.split("Function : ")[1:]}
+            pool = [f for k, f in funcs.items() if "avg_pool2_s8_kernel" in k]
+            shortcut = [f for k, f in funcs.items() if "shortcut_kernel" in k]
+            wide = [sum(1 for ln in f.splitlines() if op in ln and ".128" in ln)
+                    for f in pool for op in ("LDG", "STG")]
+            print(f"[2] bottleneck_int8 SASS: the 2x2 pool kernel's 128-bit loads, stores "
+                  f"{wide}; the stride shortcut's {len(shortcut)} instantiations hold "
+                  f"{[f.count('HGMMA.') for f in shortcut]} HGMMA")
+            check(len(pool) == 1 and wide[0] >= 4 and wide[1] >= 1,
+                  "the 2x2 pool kernel loads and stores 16 bytes a thread")
+            check(len(shortcut) == 2 and all("HGMMA." in f for f in shortcut),
+                  "the stride shortcut runs on bf16 wgmma")
 
     # Full-f32 references: cuDNN convs and cuBLAS matmuls default to TF32 otherwise.
     torch.backends.cudnn.allow_tf32 = False
@@ -3016,7 +3230,8 @@ def main(argv) -> int:
                "stem3_requant_pool_int8": SK.stem3_requant_pool_int8,
                "fused_stage1_int8": BK.fused_stage1_int8,
                "fused_resblocks_int8": BK.fused_resblocks_int8,
-               "fused_cb3_cb1_int8": BK.fused_cb3_cb1_int8}
+               "fused_cb3_cb1_int8": BK.fused_cb3_cb1_int8,
+               "fused_stride_block_int8": BK.fused_stride_block_int8}
     path_launches = {}
     for path, encoder in (("A", qenc), ("B", qenc_b)):
         for fn in counted.values():
@@ -3048,6 +3263,17 @@ def main(argv) -> int:
     for path, ms in (("A", ms_a), ("B", ms_b), ("A", ms_a2)):
         print(f"[6{path}] clip_rn50 int8 encode, batch 128 on the device: {ms:.3f} ms, "
               f"{128 / ms * 1e3:.1f} frames/s on {smi}")
+    # Path A with the stride blocks on plain torch (kernel_stride_blocks=False), in turns
+    # with the default on the same weights; and the default's calls of the library's s8
+    # route during one encode (ops/int8.qmm = torch._int_mm, im2col3x3): none.
+    route_ms = encode_times({"path A": qenc,
+                             "path A, kernel_stride_blocks=False": qenc.with_kernels(
+                                 kernel_stride_blocks=False)}, "6", "clip_rn50 int8")
+    library_calls = library_s8_calls(lambda: qenc.encode(x128))
+    print(f"[6A] calls of ops/int8.qmm and im2col3x3 during one path A encode: "
+          f"{library_calls}")
+    check(library_calls == {"qmm": 0, "im2col3x3": 0},
+          f"path A makes no qmm or im2col3x3 call: {library_calls}")
 
     # -- 7. K6/K7 against their plain versions on batch-128 main-path inputs -------------
     ibase = build_encoder("imagenet_rn50", dtype=torch.bfloat16, device="cuda")
@@ -3133,6 +3359,14 @@ def main(argv) -> int:
                      "replaces": pallas + replaces, "launches": path_launches[path][name],
                      "path": path, **int8_results[name], "library_ms": None,
                      "ms_unit": "per batch-128 encode (all calls)"})
+    sb = int8_results["fused_stride_block_int8"]
+    rows.append({"name": "fused_stride_block_int8", "route": "cuda",
+                 "source": src + "bottleneck_int8.cu",
+                 "replaces": "embodied_clip_tpu/ops/quantize.py:431 (no TPU kernel: XLA's s8 "
+                             "convolutions; the block at :545-609)", "tpu_kernel": None,
+                 "launches": path_launches["A"]["fused_stride_block_int8"], "path": "A",
+                 "launches_path_b": path_launches["B"]["fused_stride_block_int8"], **sb,
+                 "ms_unit": "per batch-128 encode (all calls)"})
     for name, replaces in (("fused_bottleneck", "bottleneck_kernel.py:81"),
                            ("fused_stage1", "bottleneck_kernel.py:164")):
         r = bf16_results[name]
@@ -3154,7 +3388,8 @@ def main(argv) -> int:
             row["recip"] = options["kernels"][name]
     print(json.dumps({"encode_ms_batch128": {"clip_rn50": {**clip_times, "int8_path_a": ms_a,
                                                            "int8_path_a_again": ms_a2,
-                                                           "int8_path_b": ms_b},
+                                                           "int8_path_b": ms_b,
+                                                           "int8_path_a_in_turns": route_ms},
                                              **imagenet_ms},
                       "cosine_vs_f32": {k: v for k, v in imagenet_cos.items()},
                       "card": smi}))

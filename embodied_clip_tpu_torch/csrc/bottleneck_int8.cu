@@ -21,6 +21,14 @@
 //   (d) entry_kernel           K3's first launch: block 0's cb1 (s8, as (a)) and its 1×1
 //                              conv shortcut (bf16 operands, f32 sum, signed s8
 //                              requant) from one read of each x8 tile
+//   (e) shortcut_kernel        the stride blocks' conv shortcut alone (d's shortcut half
+//                              at any width, the weights streamed), on the pooled input
+//   (f) avg_pool2_s8_kernel    the exact 2×2 integer mean pool of an NHWC s8 tensor
+// The stride blocks (block 0 of stages 2-4) have no TPU kernel: the JAX package leaves
+// them to XLA's s8 convolutions (embodied_clip_tpu/ops/quantize.py:545-609). The wrapper
+// fused_stride_block_int8 runs them as (a) cb1, (b) cb2, (f) on cb2's output and on the
+// block input, (e), and (a) cb3 with the residual epilogue; the int8-stem options run
+// their s8 stem convs through (b) and (f).
 //
 // Arithmetic. Products are s8×s8 summed in s32 on the tensor cores
 // (wgmma.mma_async m64nNk32.s32.s8.s8): exact in any order at every K (|acc| ≤
@@ -35,8 +43,11 @@
 // The reciprocal requant (the JAX package's ECT_RECIP_REQUANT=1, ops/int8.py) is a
 // template parameter RECIP of the requants where the TPU kernels take it (their
 // `_unscale`): K4's two, K3's three block outputs ((c)'s out8 and the last (a)), and K5's
-// s8 output (its last (a)). Every other requant divides under either setting, as theirs
-// do: the (b) launches, K3's entry, K5's inner (a)/(c). There each thread takes 1 / r of
+// s8 output (its last (a)). Every other requant of K3-K5 divides under either setting, as
+// theirs do: their (b) launches, K3's entry, K5's inner (a)/(c). The stride blocks and
+// the int8 stems, which have no TPU kernel, follow the XLA graph, whose `_unscale` takes
+// the reciprocal at every requant: their (a), (b) and (e) launches take RECIP too. There
+// each thread takes 1 / r of
 // the scale once (__frcp_rn, the correctly rounded reciprocal, the value of torch's and
 // XLA's f32 1.0 / r), and v / r becomes __fmul_rn(v, 1 / r). The host picks the form per
 // call.
@@ -91,7 +102,10 @@
 // Outputs are deterministic: no split-K, no atomics.
 //
 // What holds it back now (tools/bench_int8_gemm.py on NVIDIA H100 80GB HBM3 at 700 W):
-// the epilogues' per-element arithmetic. K4's launches and the residual (a) run at
+// the epilogues' per-element arithmetic. The stride blocks' shortcut (e) runs at ~5% of
+// its bf16 bound (tools/bench_int8_gemm.py): its A operand is converted from s8 in
+// registers for every 128-column tile, and each 32-k group waits for the tensor cores
+// before its IEEE add. K4's launches and the residual (a) run at
 // 15-30% of their bound, and the (b) launches (K = 1152-4608 per output) reach 46-49% of
 // the int8 peak. PERF.md §6 has the RECIP forms' times (chip_smoke.py phase 14 (a)).
 // Measured and not kept: the
@@ -117,6 +131,7 @@ constexpr int kSmemLimit = 232448;  // bytes of shared memory one H100 block may
 constexpr int kTooWide = kEncodeFailed - 1;  // K4: no tile of the block output fits
 constexpr int kBadWidth = kEncodeFailed - 2;  // K3's entry: widths it does not take
 constexpr int kBadForm = kEncodeFailed - 3;   // a requant form no launch takes
+constexpr int kBadShape = kEncodeFailed - 4;  // (e), (f): shapes they do not take
 
 enum Out { kS8 = 0, kS8Res = 1, kBf16ResRelu = 2, kF32ResRelu = 3 };
 
@@ -835,10 +850,12 @@ __device__ __forceinline__ float add_squares(float s, uint32_t u) {
   return __fmaf_ru(b, b, __fmaf_ru(a, a, s));
 }
 
-// The quotient sc / dsc of the signed requant, and whether it lies within `margin` (plus
-// the rounding of the add and the division) of a requant boundary.
-__device__ __forceinline__ float quotient(float sc, float b, float dsc) {
-  return __fdiv_rn(__fadd_rn(sc, b), dsc);
+// The quotient sc / dsc of the signed requant (with RECIP, d is 1 / dsc and the quotient
+// a product), and whether it lies within `margin` (plus the rounding of the add and the
+// division) of a requant boundary.
+template <bool RECIP = false>
+__device__ __forceinline__ float quotient(float sc, float b, float d) {
+  return unscale<RECIP>(__fadd_rn(sc, b), d);
 }
 
 __device__ __forceinline__ bool near_tie(float v, float margin) {
@@ -1127,6 +1144,326 @@ __global__ void __launch_bounds__(kThreads, 1) entry_kernel(const __grid_constan
   flush();
 }
 
+// (e) the stride blocks' conv shortcut: sc8 = requant_signed(bf16(float(xp)·s_in)·wsc + bsc,
+// dsc) for the pooled block input xp (M, K) s8 and wsc (K, N) bf16, K and N any multiples
+// of 16 (RN50 256→512 … 1024→2048, RN50x16 384→768 … 1536→3072). It is the shortcut half
+// of (d) with the weights streamed: at these widths wsc (up to 9 MB) is no longer resident.
+// Per 128 × 128 output tile (each consumer warpgroup 64 rows, all 128 columns), the
+// producer streams 128-k chunks of xp (128 × 128 s8) and of wsc (128 k-rows × 128 columns
+// as two 64-column N-major panels) through a 3-stage ring. Each consumer converts its rows
+// of the chunk to bf16 A fragments in registers (the reference's op order, as (d)) and
+// issues the products in 32-k groups, each summed on the tensor cores in fresh registers
+// and added to the sum with IEEE adds in k order; the groups alternate between two
+// register sets, so that group g + 1 runs on the tensor cores while group g is added.
+// ptxas gives this kernel 168 registers a thread: with one set it spilled an accumulator
+// and serialized the wgmmas (C7512), and the shortcut took 1.78 ms an encode against
+// 1.55 with two (tools/bench_int8_gemm.py, NVIDIA H100 80GB HBM3). Near-ties are
+// flagged and summed again exactly as in (d): the margin is (128 + G) · 2^-24 · S for G =
+// ceil(K / 32) groups (the argument at kTieMargin, with G free), its per-column factor
+// margin · ||wsc[:, c]||₂ / dsc computed by shortcut_margin_kernel before the launch, and
+// the exact sums read xp and the K-major copy wsct (N, K) from device memory. sc8 equals
+// the exact f32 sum's requant (f64 products and sum, rounded once) on every element.
+constexpr int kScStages = 3;
+constexpr int kScPanel = 128 * 128;            // 128 k-rows × 64 bf16 columns
+constexpr int kScStage = 128 * kBK + 2 * kScPanel;  // an xp chunk and a wsc chunk: 48 KB
+constexpr int kScSmem = 1024 + kScStages * kScStage + 4 * kSlot + 4 * (2 * kTieCap + 2) +
+                        8 * 2 * kScStages;
+static_assert(kScSmem <= kSmemLimit, "more shared memory than an H100 block may have");
+
+struct ShortcutParams {
+  CUtensorMap x8, wsc, sc;  // TMA descriptors (see ect_shortcut_s8)
+  const float* s_in;
+  const float* bsc;
+  const float* dsc;
+  const float* colm;           // (N) the columns' margin factors (shortcut_margin_kernel)
+  const int8_t* x8p;           // xp (M, K) in device memory, for the exact sums
+  const __nv_bfloat16* wsct;   // wsc's K-major copy (N, K), for the exact sums
+  int8_t* sc8p;
+  uint64_t* ties;  // the flag words: [tile][consumer thread]
+  int M, K, N, chunks, n_tiles, tiles;
+};
+
+// colm[c] = margin · ||wsct[c, :]||₂ / dsc, rounded up, then widened by 2^-20 so that it
+// also bounds the margin in units of the reciprocal form's quotient. One warp a column.
+__global__ void shortcut_margin_kernel(const __nv_bfloat16* __restrict__ wsct, int K, int N,
+                                       const float* dsc, float margin, float* colm) {
+  const int c = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (c >= N) return;
+  float m = 0.0f;
+  for (int k = 8 * lane; k < K; k += 256) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(wsct + (size_t)c * K + k));
+    const uint32_t* u = reinterpret_cast<const uint32_t*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a = __uint_as_float(u[i] << 16), b = __uint_as_float(u[i] & 0xFFFF0000u);
+      m = __fmaf_ru(b, b, __fmaf_ru(a, a, m));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = __fadd_ru(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if (lane == 0)
+    colm[c] = __fmul_ru(__fdiv_ru(__fmul_ru(margin, __fsqrt_ru(m)), __ldg(dsc)), 1.000001f);
+}
+
+// The exact shortcut sum of xp row xrow and column c (wcol = wsct + c·K), in k order,
+// rounded once to f32; its signed requant (d: dsc, or 1 / dsc with RECIP).
+template <bool RECIP>
+__device__ __noinline__ int8_t exact_shortcut_any(const int8_t* xrow, const __nv_bfloat16* wcol,
+                                                  int K, float s_in, float b, float d) {
+  double sum = 0.0;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    const int4 xv = __ldg(reinterpret_cast<const int4*>(xrow + k0));
+    int4 wv[2];
+    wv[0] = __ldg(reinterpret_cast<const int4*>(wcol + k0));
+    wv[1] = __ldg(reinterpret_cast<const int4*>(wcol + k0 + 8));
+    const int8_t* xs = reinterpret_cast<const int8_t*>(&xv);
+    const __nv_bfloat16* ws = reinterpret_cast<const __nv_bfloat16*>(wv);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const float x0 =
+          __bfloat162float(__float2bfloat16_rn(__fmul_rn(static_cast<float>(xs[k]), s_in)));
+      sum = fma(static_cast<double>(x0), static_cast<double>(__bfloat162float(ws[k])), sum);
+    }
+  }
+  return requant_quotient(quotient<RECIP>(__double2float_rn(sum), b, d));
+}
+
+template <bool RECIP>
+__global__ void __launch_bounds__(kThreads, 1) shortcut_kernel(const __grid_constant__ ShortcutParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* ring = base;                              // kScStages × (xp chunk, wsc panels)
+  uint8_t* staging = ring + kScStages * kScStage;    // 2 warpgroups × 2 slots
+  uint32_t* tie_refs = reinterpret_cast<uint32_t*>(staging + 4 * kSlot);  // 2 × kTieCap
+  int* tie_count = reinterpret_cast<int*>(tie_refs + 2 * kTieCap);        // one per warpgroup
+  uint64_t* full = reinterpret_cast<uint64_t*>(tie_count + 2);
+  uint64_t* empty = full + kScStages;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kScStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);  // every consumer thread: each reads A from the stage
+    }
+    tie_count[0] = tie_count[1] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // ---- producer warpgroup: one thread streams the xp and wsc chunks of every tile ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      int stage = 0, phase = 0;
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        const int m0 = (tile / p.n_tiles) * 128, n0 = (tile % p.n_tiles) * 128;
+        for (int t = 0; t < p.chunks; ++t) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], kScStage);
+          uint8_t* st = ring + stage * kScStage;
+          tma_load_2d(st, &p.x8, &full[stage], t * kBK, m0);
+          tma_load_2d(st + 128 * kBK, &p.wsc, &full[stage], n0, t * kBK);
+          tma_load_2d(st + 128 * kBK + kScPanel, &p.wsc, &full[stage], n0 + 64, t * kBK);
+          if (++stage == kScStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups 0 and 1: rows 64·wg … 64·wg + 63 of each tile ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = tid >> 7, lt = tid & 127, warp = lt >> 5, lane = lt & 31;
+  const int t = lane & 3;
+  const int rt = 16 * warp + (lane >> 2);  // rows rt and rt + 8 of this warpgroup's 64
+  const float s_in = __ldg(p.s_in), d = requant_scale<RECIP>(p.dsc);
+  float acc[64], part[64], part2[64];
+  int stage = 0, phase = 0, nslot = 0;
+
+  auto stage_out = [&](int col0, int row0, auto write) {
+    uint8_t* slot = staging + (2 * wg + (nslot & 1)) * kSlot;
+    if (lt == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+    named_sync(1 + wg);
+    write(slot);
+    fence_async_shared();
+    named_sync(1 + wg);
+    if (lt == 0) {
+      tma_store_2d(&p.sc, slot, col0, row0);
+      bulk_commit();
+    }
+    ++nslot;
+  };
+
+  // As (d)'s flush: sums the flagged elements of this warpgroup's listed words again
+  // exactly and empties the list, once every TMA store the warpgroup issued has landed.
+  auto flush = [&]() {
+    if (lt == 0) {
+      bulk_wait();
+      asm volatile("fence.proxy.async;\n" ::: "memory");
+    }
+    named_sync(1 + wg);
+    const int listed = tie_count[wg];
+    for (int j = lt; j < listed; j += 128) {
+      const uint32_t ref = tie_refs[wg * kTieCap + j];
+      const int tile = blockIdx.x + static_cast<int>(ref >> 8) * gridDim.x;
+      const int owner = ref & 255, olane = owner & 31;
+      const int orow =
+          (tile / p.n_tiles) * 128 + 64 * wg + 16 * ((owner & 127) >> 5) + (olane >> 2);
+      const int ocol = (tile % p.n_tiles) * 128 + 2 * (olane & 3);
+      uint64_t ties = p.ties[static_cast<size_t>(tile) * 256 + owner];
+      while (ties) {
+        const int i = __ffsll(static_cast<long long>(ties)) - 1;
+        ties &= ties - 1;
+        const int row = orow + 8 * ((i >> 1) & 1), c = ocol + 8 * (i >> 2) + (i & 1);
+        if (row < p.M && c < p.N)
+          p.sc8p[static_cast<size_t>(row) * p.N + c] = exact_shortcut_any<RECIP>(
+              p.x8p + static_cast<size_t>(row) * p.K, p.wsct + static_cast<size_t>(c) * p.K, p.K,
+              s_in, __ldg(p.bsc + c), d);
+      }
+    }
+    named_sync(1 + wg);
+    if (lt == 0) tie_count[wg] = 0;  // read by all only after stage_out's next barrier
+  };
+
+  int it = 0;  // this block's tile iteration
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++it) {
+    if (tie_count[wg] > kTieCap - 128) flush();
+    const int m0 = (tile / p.n_tiles) * 128, n0 = (tile % p.n_tiles) * 128;
+    float srow[2] = {0.0f, 0.0f};  // ||x0||² of rows rt and rt + 8 over this lane's k
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;  // 0 + the first group's sum is that sum
+    for (int ch = 0; ch < p.chunks; ++ch) {
+      mbar_wait(&full[stage], phase);
+      const uint8_t* xt = ring + stage * kScStage;
+      const uint64_t wdesc = smem_desc(xt + 128 * kBK, kScPanel, 1024);
+      // Group g's A fragments: row rt + 8h, k 16s + 2t (+ 8) + {0, 1} of the chunk's k16
+      // steps 2g, 2g + 1 (16-byte chunk s of a swizzled row sits at s ^ (row % 8)).
+      auto issue = [&](float (&d)[64], int g) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int s2 = 0; s2 < 2; ++s2)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = 64 * wg + rt + 8 * h, s = 2 * g + s2;
+            const uint8_t* chunk = xt + r * 128 + (((s ^ r) & 7) << 4);
+            a[s2][h] = shortcut_pair(*reinterpret_cast<const uint16_t*>(chunk + 2 * t), s_in);
+            a[s2][2 + h] =
+                shortcut_pair(*reinterpret_cast<const uint16_t*>(chunk + 8 + 2 * t), s_in);
+            srow[h] = add_squares(add_squares(srow[h], a[s2][h]), a[s2][2 + h]);
+          }
+#pragma unroll
+        for (int i = 0; i < 64; ++i) d[i] = 0.0f;
+        fence_regs(d);
+        fence_regs(a[0]);
+        fence_regs(a[1]);
+        wgmma_fence();
+        wgmma_rs<128, 1>(d, a[0], wdesc + 256 * g);
+        wgmma_rs<128, 1>(d, a[1], wdesc + 256 * g + 128);
+        wgmma_commit();
+      };
+      // Groups into two register sets in turn: group g + 1 is issued before group g is
+      // added, in k order.
+      issue(part, 0);
+      issue(part2, 1);
+      wgmma_wait<1>();
+      fence_regs(part);
+      promote(acc, part);
+      issue(part, 2);
+      wgmma_wait<1>();
+      fence_regs(part2);
+      promote(acc, part2);
+      issue(part2, 3);
+      wgmma_wait<1>();
+      fence_regs(part);
+      promote(acc, part);
+      wgmma_wait<0>();
+      fence_regs(part2);
+      promote(acc, part2);
+      mbar_arrive(&empty[stage]);  // this thread is done with the stage
+      if (++stage == kScStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    // ||x0||₂ of rows rt and rt + 8, rounded up: this lane's k, then the quad's.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      srow[h] = __fadd_ru(srow[h], __shfl_xor_sync(0xffffffffu, srow[h], 1));
+      srow[h] = __fsqrt_ru(__fadd_ru(srow[h], __shfl_xor_sync(0xffffffffu, srow[h], 2)));
+    }
+    float2 bv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) bv[h] = load_pair(p.bsc, n0 + 64 * h + 2 * lane, p.N);
+    stage_out(n0, m0 + 64 * wg, [&](uint8_t* slot) {
+      uint64_t ties = 0;  // bit i: acc[i] lies near a requant boundary
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 b = shfl_pair(bv[j / 8], j, lane);
+        const int c = 8 * j + 2 * t;
+        const float2 cm = load_pair(p.colm, n0 + c, p.N);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h;
+          const float v0 = quotient<RECIP>(acc[i], b.x, d);
+          const float v1 = quotient<RECIP>(acc[i + 1], b.y, d);
+          ties |= static_cast<uint64_t>(near_tie(v0, __fmul_ru(srow[h], cm.x))) << i;
+          ties |= static_cast<uint64_t>(near_tie(v1, __fmul_ru(srow[h], cm.y))) << (i + 1);
+          *reinterpret_cast<uint16_t*>(slot + sw128(rt + 8 * h, c)) =
+              pack2(requant_quotient(v0), requant_quotient(v1));
+        }
+      }
+      p.ties[static_cast<size_t>(tile) * 256 + tid] = ties;
+      if (ties)
+        tie_refs[wg * kTieCap + atomicAdd(&tie_count[wg], 1)] = static_cast<uint32_t>(it) << 8 | tid;
+    });
+  }
+  flush();
+}
+
+// (f) The exact 2×2 integer mean pool of an NHWC s8 tensor (n, H, W, C), H and W even,
+// C a multiple of 16: out = (Σ of the 4 values + 2) >> 2 (floor division by 4, as the
+// plain version's). Bound by bytes (the input once, the output once, 1.25× the input);
+// each thread turns 4 × 16 input bytes into 16 output bytes with 128-bit loads and stores.
+// (No TPU kernel: the JAX package's `_avg_pool_int8` is an XLA reduce_window.)
+__global__ void avg_pool2_s8_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
+                                    int H, int W, int C16, long long total) {
+  const int W2 = W / 2, H2 = H / 2;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int cg = static_cast<int>(i % C16);
+    const long long pix = i / C16;
+    const int ox = static_cast<int>(pix % W2);
+    const long long r = pix / W2;
+    const int oy = static_cast<int>(r % H2);
+    const long long img = r / H2;
+    const int4* p = reinterpret_cast<const int4*>(x) + ((img * H + 2 * oy) * W + 2 * ox) * C16 + cg;
+    int4 v[4];
+    v[0] = __ldg(p);
+    v[1] = __ldg(p + C16);
+    v[2] = __ldg(p + (size_t)W * C16);
+    v[3] = __ldg(p + (size_t)W * C16 + C16);
+    const uint32_t* u = reinterpret_cast<const uint32_t*>(v);
+    uint32_t o[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      uint32_t packed = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        int s = 2;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) s += static_cast<int8_t>(u[4 * q + w] >> (8 * b));
+        packed |= static_cast<uint32_t>(static_cast<uint8_t>(s >> 2)) << (8 * b);
+      }
+      o[w] = packed;
+    }
+    reinterpret_cast<int4*>(out)[i] = make_int4(o[0], o[1], o[2], o[3]);
+  }
+}
+
 // ---------------------------------------------------------------- host side
 
 // An (rows, cols) s8 matrix as box_cols × box_rows boxes (see encode_2d).
@@ -1189,13 +1526,14 @@ auto cb3_cb1_pick(int bm, int stages) {
 // header); ect_error_string names kBadForm, the code of a form no launch takes.
 
 // (a) 1×1 conv: out_kind 0 = s8 requant, 1 = s8 requant with residual,
-// 2 = bf16 relu(v + residual), 3 = f32 relu(v + residual). recip 1 (only with out_kind
-// 1, the last launch of K3 and of K5) takes the requant in the reciprocal form.
+// 2 = bf16 relu(v + residual), 3 = f32 relu(v + residual). recip 1 (only with the s8
+// outputs: out_kind 1 in the last launch of K3 and of K5, out_kind 0 and 1 in the stride
+// blocks) takes the requant in the reciprocal form.
 extern "C" int ect_conv1x1_s8(const void* x8, int M, int K, const void* w8t, int N,
                               const void* S, const void* b, const void* res,
                               const void* r_res, const void* r_out, void* out,
                               int out_kind, int recip, int device, void* stream) {
-  if (recip && out_kind != kS8Res) return kBadForm;
+  if (recip && out_kind != kS8Res && out_kind != kS8) return kBadForm;
   int sms = 0;
   cudaError_t err = prepare_launch(device, &sms);
   if (err != cudaSuccess) return (int)err;
@@ -1221,8 +1559,12 @@ extern "C" int ect_conv1x1_s8(const void* x8, int M, int K, const void* w8t, int
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (out_kind) {
     case kS8:
-      err = bn == 64 ? launch_gemm<false, 64, kS8>(p, device, sms, s)
-                     : launch_gemm<false, 128, kS8>(p, device, sms, s);
+      if (recip)
+        err = bn == 64 ? launch_gemm<false, 64, kS8, true>(p, device, sms, s)
+                       : launch_gemm<false, 128, kS8, true>(p, device, sms, s);
+      else
+        err = bn == 64 ? launch_gemm<false, 64, kS8>(p, device, sms, s)
+                       : launch_gemm<false, 128, kS8>(p, device, sms, s);
       break;
     case kS8Res:
       err = recip ? launch_gemm<false, 128, kS8Res, true>(p, device, sms, s)
@@ -1237,10 +1579,11 @@ extern "C" int ect_conv1x1_s8(const void* x8, int M, int K, const void* w8t, int
 }
 
 // (b) 3×3 conv, stride 1, zero halo, s8 requant epilogue. x8 (n, H, W, C); w8t
-// (N, 9·C).
+// (N, 9·C). recip 1 (the stride blocks' cb2 and the int8 stems' convs) takes the requant
+// in the reciprocal form.
 extern "C" int ect_conv3x3_s8(const void* x8, int n, int H, int W, int C, const void* w8t,
                               int N, const void* S, const void* b, const void* r_out,
-                              void* out8, int device, void* stream) {
+                              void* out8, int recip, int device, void* stream) {
   int sms = 0;
   cudaError_t err = prepare_launch(device, &sms);
   if (err != cudaSuccess) return (int)err;
@@ -1264,8 +1607,12 @@ extern "C" int ect_conv3x3_s8(const void* x8, int n, int H, int W, int C, const 
   p.M = M;
   p.N = N;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = bn == 64 ? launch_gemm<true, 64, kS8>(p, device, sms, s)
-                 : launch_gemm<true, 128, kS8>(p, device, sms, s);
+  if (recip)
+    err = bn == 64 ? launch_gemm<true, 64, kS8, true>(p, device, sms, s)
+                   : launch_gemm<true, 128, kS8, true>(p, device, sms, s);
+  else
+    err = bn == 64 ? launch_gemm<true, 64, kS8>(p, device, sms, s)
+                   : launch_gemm<true, 128, kS8>(p, device, sms, s);
   return (int)err;
 }
 
@@ -1397,6 +1744,86 @@ extern "C" int ect_stage1_entry(const void* x8, int M, int Cin, const void* k1t,
   return (int)cudaGetLastError();
 }
 
+// (e) the stride blocks' conv shortcut: sc8 (M, N) on dsc from the pooled block input
+// xp (M, K) s8 on s_in, wsc (K, N) bf16 and its K-major copy wsct (N, K); K and N
+// multiples of 16. colm is scratch of N floats and ties of ect_shortcut_ties(M, N) 8-byte
+// words, both read only by this call. recip 1 takes the requant in the reciprocal form.
+// Two launches: the columns' margin factors, then the product.
+extern "C" long long ect_shortcut_ties(int M, int N) {
+  return (long long)((M + 127) / 128) * ((N + 127) / 128) * 256;
+}
+
+extern "C" int ect_shortcut_s8(const void* xp, int M, int K, const void* wsc, const void* wsct,
+                               int N, const void* s_in, const void* bsc, const void* dsc,
+                               void* colm, void* sc8, void* ties, int recip, int device,
+                               void* stream) {
+  if (K <= 0 || K % 16 || N <= 0 || N % 16) return kBadShape;
+  int sms = 0;
+  cudaError_t err = prepare_launch(device, &sms);
+  if (err != cudaSuccess) return (int)err;
+  if (M <= 0) return 0;
+  ShortcutParams p{};
+  CUresult r = map_s8(&p.x8, xp, M, K, kBK, 128);
+  if (r == CUDA_SUCCESS)
+    r = encode_2d(&p.wsc, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, wsc, K, N, 64, 128);
+  if (r == CUDA_SUCCESS) r = map_s8(&p.sc, sc8, M, N, 128, 64);
+  if (r != CUDA_SUCCESS) return kEncodeFailed + (int)r;
+  static bool configured[kMaxDevices] = {};
+  if (!configured[device]) {
+    for (auto kern : {shortcut_kernel<false>, shortcut_kernel<true>}) {
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kScSmem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    configured[device] = true;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // (128 + G) · 2^-24 for G = ceil(K / 32) groups of 32 k (the margin's argument at
+  // kTieMargin and at shortcut_kernel).
+  const float margin = static_cast<float>(128 + (K + 31) / 32) / 16777216.0f;
+  shortcut_margin_kernel<<<(N + 7) / 8, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(wsct), K,
+                                                      N, static_cast<const float*>(dsc), margin,
+                                                      static_cast<float*>(colm));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  p.s_in = static_cast<const float*>(s_in);
+  p.bsc = static_cast<const float*>(bsc);
+  p.dsc = static_cast<const float*>(dsc);
+  p.colm = static_cast<const float*>(colm);
+  p.x8p = static_cast<const int8_t*>(xp);
+  p.wsct = static_cast<const __nv_bfloat16*>(wsct);
+  p.sc8p = static_cast<int8_t*>(sc8);
+  p.ties = static_cast<uint64_t*>(ties);
+  p.M = M;
+  p.K = K;
+  p.N = N;
+  p.chunks = (K + kBK - 1) / kBK;
+  p.n_tiles = (N + 127) / 128;
+  p.tiles = ((M + 127) / 128) * p.n_tiles;
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  if (recip)
+    shortcut_kernel<true><<<grid, kThreads, kScSmem, s>>>(p);
+  else
+    shortcut_kernel<false><<<grid, kThreads, kScSmem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// (f) out (n, H/2, W/2, C) = the exact 2×2 integer mean pool of x8 (n, H, W, C); H and W
+// even, C a multiple of 16.
+extern "C" int ect_avg_pool2_s8(const void* x8, int n, int H, int W, int C, void* out,
+                                int device, void* stream) {
+  if (H % 2 || W % 2 || C % 16 || n < 0 || H < 0 || W < 0) return kBadShape;
+  int sms = 0;
+  cudaError_t err = prepare_launch(device, &sms);
+  if (err != cudaSuccess) return (int)err;
+  const long long total = (long long)n * (H / 2) * (W / 2) * (C / 16);
+  if (total <= 0) return 0;
+  const long long blocks = (total + 255) / 256;
+  const int grid = static_cast<int>(blocks < 16LL * sms ? blocks : 16LL * sms);
+  avg_pool2_s8_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x8), static_cast<int8_t*>(out), H, W, C / 16, total);
+  return (int)cudaGetLastError();
+}
+
 extern "C" const char* ect_error_string(int code) {
   if (code >= kEncodeFailed) return "cuTensorMapEncode refused a tensor map (CUresult = code - 10000)";
   if (code == kTooWide)
@@ -1405,6 +1832,9 @@ extern "C" const char* ect_error_string(int code) {
   if (code == kBadWidth)
     return "stage-1 entry: (Cin = Cm, Cout) must be (16, 64), (64, 256) or (96, 384)";
   if (code == kBadForm)
-    return "recip: the 1x1 launch takes 1 only with out_kind 1; cb3-cb1 takes 0, 1 or 3";
+    return "recip: the 1x1 launch takes 1 only with out_kind 0 or 1; cb3-cb1 takes 0, 1 or 3";
+  if (code == kBadShape)
+    return "shortcut: K and N must be multiples of 16; 2x2 pool: H and W even, C a multiple "
+           "of 16";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

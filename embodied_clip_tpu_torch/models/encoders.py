@@ -151,8 +151,9 @@ class FrozenEncoder:
     def quantize(self, calibration_frames) -> "FrozenEncoder":
         """An int8-trunk encoder (ops/quantize.py): s8 bottleneck convs with fused
         requant epilogues; the stem convs, the shortcut convs and the attention pool
-        stay in the compute dtype. On CUDA the trunk runs kernels K2, K3 and K5
-        (`PATH_A`); on the CPU, the same dispatch on their plain versions.
+        stay in the compute dtype. On CUDA the trunk runs kernels K2, K3 and K5 and the
+        stride blocks' launches (`PATH_A`); on the CPU, the same dispatch on their plain
+        versions.
 
         A torchvision-family encoder gets `_QuantizedResNetEncoder`: the same scheme on
         its 7×7 stem (bf16, requantized before an int8 max pool) and its stride-2 convs;
@@ -231,7 +232,7 @@ class _QuantizedEncoder(FrozenEncoder):
 class _QuantizedCLIPEncoder(_QuantizedEncoder):
     """CLIP ResNet encoder with an int8 trunk.
 
-    `kernels` holds `quantized_trunk_apply`'s keywords: its four kernel switches
+    `kernels` holds `quantized_trunk_apply`'s keywords: its five kernel switches
     (`PATH_A` by default) and its options (`recip_requant`, `int8_stem`, `int4_stage1`;
     the JAX package's defaults unless set)."""
 

@@ -1,4 +1,5 @@
-"""Kernels K3-K7: the bottlenecks of the quantized and the folded bf16 ResNet trunks.
+"""Kernels K3-K7 and the stride blocks: the bottlenecks of the quantized and the folded
+bf16 ResNet trunks.
 
 Replaces, in `embodied_clip_tpu/ops/pallas/bottleneck_kernel.py`:
   K3 `fused_stage1_int8`     the whole int8 stage 1 (3 bottlenecks, bf16 shortcut)
@@ -6,9 +7,14 @@ Replaces, in `embodied_clip_tpu/ops/pallas/bottleneck_kernel.py`:
   K5 `fused_resblocks_int8`  k stride-1 identity bottlenecks
   K6 `fused_bottleneck`      one bf16 stride-1 identity bottleneck, BN folded
   K7 `fused_stage1`          the whole bf16 stage 1 (conv shortcut on block 0)
-Each has the TPU kernel's signature and result. The CUDA sources are
-`embodied_clip_tpu_torch/csrc/bottleneck_int8.cu` (K3-K5) and `bottleneck_bf16.cu`
-(K6, K7); their headers state the bound and the design. A stage does not fit one SM's
+Each has the TPU kernel's signature and result. Beside them, with no TPU kernel (the JAX
+package leaves these to XLA's s8 convolutions, `embodied_clip_tpu/ops/quantize.py:545-609`
+and `:446-473`):
+  `fused_stride_block_int8`  block 0 of stages 2-4: cb1, cb2, the 2×2 pools, the pooled
+                             conv shortcut and cb3 + residual + requant
+  `conv3x3_int8`             the int8-stem options' s8 3×3 stem convs (and the pool)
+The CUDA sources are `embodied_clip_tpu_torch/csrc/bottleneck_int8.cu` (K3-K5, the
+stride blocks, `conv3x3_int8`) and `bottleneck_bf16.cu` (K6, K7); their headers state the bound and the design. A stage does not fit one SM's
 shared memory as it fits a TPU core's VMEM, so each is a short sequence of launches
 through a few device functions:
 
@@ -21,6 +27,10 @@ through a few device functions:
                  residual + requant (a)
   K6  3          cb1 (a), 3×3 cb2 (b), cb3 + residual (c), each + bias + relu → bf16
   K7  3 a block  as K6; block 0's cb3 adds the conv shortcut as a second K loop
+  stride block 6 cb1 (a) (left out where K4 made it), cb2 (b), the pool (f) of cb2's
+                 output and of the block input, the conv shortcut (e) on the pooled input
+                 (2 launches: its columns' tie margins, then the product), cb3 + residual
+                 + requant (a) (left out on path B, where K4 takes cb3)
 
 The int8 launches run s8 products on the tensor cores (wgmma), which read both operands
 K-major: they take each s8 weight's K-major copy `k…_t`, built once by the operand
@@ -28,8 +38,9 @@ builders of `ops/quantize.py`, and C, Cm and N in multiples of 16 (TMA's 16-byte
 strides). K3's conv shortcut runs on bf16 wgmma and reads `wsc` as it is; its entry
 launch takes the stage-1 widths of the width-16 trunk, RN50 and RN50x16
 (`ENTRY_WIDTHS`). Every wrapper takes its plain version for a CPU tensor, and only for
-a CPU tensor; on a CUDA tensor it launches or raises. Each counts its calls that launch
-(`.launches`), once per call, whatever the number of launches inside. The int8 plain
+a CPU tensor; on a CUDA tensor it launches or raises (odd spatial sizes and widths that
+are not multiples of 16 included). Each counts its calls that launch (`.launches`), once
+per call, whatever the number of launches inside. The int8 plain
 versions use the int8 graph's primitives (`ops/int8.py`) in the TPU kernels' op order;
 the bf16 ones round to bf16 exactly where the TPU kernels do.
 
@@ -41,7 +52,8 @@ setting (K3's cb1/cb2 requants and its shortcut, `:249,258,285`; K5's cb1, cb2 a
 inter-block ones, `:383,393,400`), and so do these. The plain int8 graph
 (`ops/quantize.py`) takes the reciprocal at every requant, as the JAX XLA graph does, so
 under `recip` a kernel path is not bit-exact against the plain graph, in the JAX package
-as here.
+as here. The stride blocks and `conv3x3_int8`, having no TPU kernel, compute the XLA
+graph: under `recip` they take the reciprocal at every requant.
 """
 
 from __future__ import annotations
@@ -53,12 +65,21 @@ from typing import Dict, Mapping, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from embodied_clip_tpu_torch.ops.int8 import full_f32, qconv_acc, qmm, requant, requant_signed
+from embodied_clip_tpu_torch.ops.int8 import (
+    avg_pool_int8,
+    full_f32,
+    qconv_acc,
+    qmm,
+    requant,
+    requant_signed,
+)
 
 __all__ = ["fused_stage1_int8", "fused_cb3_cb1_int8", "fused_resblocks_int8",
            "fused_stage1_int8_reference", "fused_cb3_cb1_int8_reference",
-           "fused_resblocks_int8_reference", "fused_bottleneck", "fused_stage1",
-           "fused_bottleneck_reference", "fused_stage1_reference"]
+           "fused_resblocks_int8_reference", "fused_stride_block_int8",
+           "fused_stride_block_int8_reference", "conv3x3_int8", "conv3x3_int8_reference",
+           "fused_bottleneck", "fused_stage1", "fused_bottleneck_reference",
+           "fused_stage1_reference"]
 
 _OUT_KIND = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 3}  # residual epilogues
 
@@ -79,13 +100,25 @@ def _pw(x8: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return qmm(_rows(x8), k).reshape(*x8.shape[:-1], k.shape[-1])
 
 
-def _shortcut_reference(x8, wsc, bsc, s_in, dsc):
-    """K3's conv shortcut: bf16(x8·s_in) · wsc + bsc → signed s8, the f32 sum being the
-    exact sum of the (exact) bf16 products rounded once to f32: computed in f64, so that
-    it names one value on every device and in every summation order."""
+def _shortcut_reference(x8, wsc, bsc, s_in, dsc, recip=False):
+    """K3's conv shortcut, and the one launch (e) computes: bf16(x8·s_in) · wsc + bsc →
+    signed s8, the f32 sum being the exact sum of the (exact) bf16 products rounded once
+    to f32: computed in f64, so that it names one value on every device and in every
+    summation order. `recip` takes the requant in the reciprocal form."""
     x0 = (x8.float() * s_in).to(torch.bfloat16)
     sc = torch.matmul(x0.double(), wsc.double()).float()
-    return requant_signed(sc + bsc, dsc)
+    return requant_signed(sc + bsc, dsc, recip)
+
+
+def _stride_shortcut_reference(xp, wsc, bsc, s_in, dsc, recip=False):
+    """The plain graph's conv shortcut of a stride block on its pooled input xp: bf16(xp ·
+    s_in) · wsc as an f32 product (full f32), + bsc → signed s8. On a near-tie its f32 sum
+    order may move the requant by a step from `_shortcut_reference`'s exact sum, which
+    the kernel computes."""
+    x0 = (xp.float() * s_in).to(torch.bfloat16)
+    with full_f32():
+        sc = torch.matmul(x0.float(), wsc.float())
+    return requant_signed(sc + bsc, dsc, recip)
 
 
 def fused_cb3_cb1_int8_reference(x8, res8, ops, recip=False):
@@ -114,6 +147,41 @@ def fused_resblocks_int8_reference(x8, block_ops, scl, out_dtype=torch.int8, rec
     return out.to(out_dtype)
 
 
+def fused_stride_block_int8_reference(x8, ops, recip=False, out_dtype=torch.int8, cb3=True,
+                                      q1=None):
+    """Plain version of `fused_stride_block_int8`: the plain int8 graph's stride block
+    (`quantize.py:545-609`'s op order) on scl = [s_in, r2, r3, r_res, r_out]; `recip`
+    takes all four requants (cb1, cb2, the shortcut, cb3) in the reciprocal form."""
+    scl = ops["scl"]
+    if q1 is None:
+        q1 = requant(_affine(_pw(x8, ops["k1"]), ops["s1"], ops["b1"]), scl[1], recip)
+    o = _affine(qconv_acc(q1, ops["k2"]), ops["s2"], ops["b2"])
+    o8 = avg_pool_int8(requant(o, scl[2], recip), 2)  # requant pre-pool, as cb2's epilogue
+    id8 = _stride_shortcut_reference(avg_pool_int8(x8, 2), ops["wsc"], ops["bsc"], scl[0],
+                                     scl[3], recip)
+    if not cb3:
+        return o8, id8
+    return _stride_cb3_reference(o8, id8, ops, recip, out_dtype)
+
+
+def _stride_cb3_reference(o8, id8, ops, recip=False, out_dtype=torch.int8):
+    """The stride block's cb3 on its pooled o8 and shortcut id8: o8·k3·s3 + b3 +
+    id8·r_res, requant on r_out (`recip`: the reciprocal form), or for `out_dtype`
+    bf16/f32 the relu'd conv map."""
+    scl = ops["scl"]
+    out = _affine(_pw(o8, ops["k3"]), ops["s3"], ops["b3"]) + id8.float() * scl[3]
+    if out_dtype == torch.int8:
+        return requant(out, scl[4], recip)  # the block relu is the clip at 0
+    return torch.relu(out).to(out_dtype)
+
+
+def conv3x3_int8_reference(x8, ops, recip=False, pool=False):
+    """Plain version of `conv3x3_int8`: requant(conv3x3(x8, k)·s + b, r), then the 2×2
+    pool with `pool`."""
+    out = requant(_affine(qconv_acc(x8, ops["k"]), ops["s"], ops["b"]), ops["r"], recip)
+    return avg_pool_int8(out, 2) if pool else out
+
+
 def fused_stage1_int8_reference(x8, ops, recip=False):
     """Plain version of K3: int8 stage 1, output on stage 2's input scale; `recip` takes
     the three block outputs' requants."""
@@ -140,19 +208,26 @@ def fused_stage1_int8_reference(x8, ops, recip=False):
 def _lib():
     from embodied_clip_tpu_torch.ops.kernels import _build
 
-    lib = _build.load("bottleneck_int8")
+    return _bind_int8(_build.load("bottleneck_int8"))
+
+
+def _bind_int8(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from `csrc/bottleneck_int8.cu`."""
     p, i = ctypes.c_void_p, ctypes.c_int
     sig = {
         "ect_conv1x1_s8": [p, i, i, p, i, p, p, p, p, p, p, i, i, i, p],
-        "ect_conv3x3_s8": [p, i, i, i, i, p, i, p, p, p, p, i, p],
+        "ect_conv3x3_s8": [p, i, i, i, i, p, i, p, p, p, p, i, i, p],
+        "ect_shortcut_s8": [p, i, i, p, p, i, p, p, p, p, p, p, i, i, p],
+        "ect_avg_pool2_s8": [p, i, i, i, i, p, i, p],
         "ect_cb3_cb1_s8": [p, p, i, i, i, i] + [p] * 11 + [i, i, p],
         "ect_stage1_entry": [p, i, i, p, i, p, p, p, p, i, p, p, p, p, p, p, i, p],
     }
     for name, args in sig.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, ctypes.c_int
-    lib.ect_stage1_entry_ties.argtypes = [i, i]
-    lib.ect_stage1_entry_ties.restype = ctypes.c_longlong
+    for name in ("ect_stage1_entry_ties", "ect_shortcut_ties"):
+        getattr(lib, name).argtypes = [i, i]
+        getattr(lib, name).restype = ctypes.c_longlong
     lib.ect_error_string.argtypes = [ctypes.c_int]
     lib.ect_error_string.restype = ctypes.c_char_p
     return lib
@@ -221,8 +296,8 @@ def _check_width(name: str, n: int) -> None:
 
 def _conv1x1(x8, kt, s, b, r_out_ptr, out, res=None, r_res_ptr=None, recip=False):
     """(a): out = epilogue(x8 · k) for the K-major kt = k.T (Cout, Cin); s8 requant, or
-    the residual epilogues. `recip` (only with the s8 residual epilogue) takes the
-    requant in the reciprocal form."""
+    the residual epilogues. `recip` (only with an s8 output) takes the requant in the
+    reciprocal form."""
     dev = x8.device
     cout, cin = kt.shape
     if (x8.shape[-1] != cin or out.shape != (*x8.shape[:-1], cout)
@@ -243,9 +318,9 @@ def _conv1x1(x8, kt, s, b, r_out_ptr, out, res=None, r_res_ptr=None, recip=False
           r_res_ptr or 0, r_out_ptr, out.data_ptr(), kind, int(recip), *_stream(x8))
 
 
-def _conv3x3(x8, k2t, s, b, r_out_ptr, out):
+def _conv3x3(x8, k2t, s, b, r_out_ptr, out, recip=False):
     """(b): out = requant(conv3x3(x8, k2)·s + b) for the K-major copy k2t (Cout, 9·C) of
-    an HWIO (3, 3, C, Cout) kernel."""
+    an HWIO (3, 3, C, Cout) kernel; `recip` takes the requant in the reciprocal form."""
     dev = x8.device
     n, h, w, c = x8.shape
     cout = k2t.shape[0]
@@ -256,7 +331,42 @@ def _conv3x3(x8, k2t, s, b, r_out_ptr, out):
     _check_f32("3x3 scale", s, dev, cout)
     _check_f32("3x3 bias", b, dev, cout)
     _call(_lib().ect_conv3x3_s8, x8.data_ptr(), n, h, w, c, k2t.data_ptr(), cout,
-          s.data_ptr(), b.data_ptr(), r_out_ptr, out.data_ptr(), *_stream(x8))
+          s.data_ptr(), b.data_ptr(), r_out_ptr, out.data_ptr(), int(recip), *_stream(x8))
+
+
+def _avg_pool2(x8):
+    """(f): the exact 2×2 integer mean pool of NHWC s8 x8 (H, W even, C a multiple of 16)."""
+    n, h, w, c = x8.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"2x2 pool: H and W must be even, got {tuple(x8.shape)}")
+    _check_s8("2x2 pool input", x8, x8.device)
+    out = torch.empty((n, h // 2, w // 2, c), dtype=torch.int8, device=x8.device)
+    _call(_lib().ect_avg_pool2_s8, x8.data_ptr(), n, h, w, c, out.data_ptr(), *_stream(x8))
+    return out
+
+
+def _shortcut(xp, ops, s_in_ptr, dsc_ptr, recip=False):
+    """(e): the stride blocks' conv shortcut on the pooled block input xp (…, Cin): sc8
+    (…, Cout) on dsc, equal to `_shortcut_reference` on every element; returns (sc8, the
+    near-tie flag words: one set bit per element summed again exactly)."""
+    dev = xp.device
+    wsc, wsct, bsc = ops["wsc"], ops["wsc_t"], ops["bsc"]
+    cin, cout = wsc.shape
+    if xp.shape[-1] != cin or cin % 16 or cout % 16:
+        raise ValueError(f"shortcut: xp {tuple(xp.shape)} and wsc {tuple(wsc.shape)} must "
+                         "chain, with widths that are multiples of 16")
+    _check_bf16("wsc", wsc, dev, (cin, cout))
+    _check_bf16("wsc_t", wsct, dev, (cout, cin))
+    _check_f32("bsc", bsc, dev, cout)
+    m = xp.numel() // cin
+    lib = _lib()
+    sc8 = torch.empty((*xp.shape[:-1], cout), dtype=torch.int8, device=dev)
+    colm = torch.empty(cout, dtype=torch.float32, device=dev)  # the columns' tie margins
+    ties = torch.empty(lib.ect_shortcut_ties(m, cout), dtype=torch.int64, device=dev)
+    _call(lib.ect_shortcut_s8, xp.data_ptr(), m, cin, wsc.data_ptr(), wsct.data_ptr(), cout,
+          s_in_ptr, bsc.data_ptr(), dsc_ptr, colm.data_ptr(), sc8.data_ptr(), ties.data_ptr(),
+          int(recip), *_stream(xp))
+    return sc8, ties
 
 
 ENTRY_WIDTHS = {16: 64, 64: 256, 96: 384}  # K3's entry: Cin (= Cm) → Cout
@@ -426,9 +536,88 @@ def fused_stage1_int8(x8: torch.Tensor, ops: Dict[str, torch.Tensor],
     return out
 
 
+def fused_stride_block_int8(x8: torch.Tensor, ops: Dict[str, torch.Tensor], recip: bool = False,
+                            out_dtype=torch.int8, cb3: bool = True, q1=None):
+    """Block 0 of a later stage of the int8 CLIP trunk (stride 2 through the pools).
+
+    x8 (N, H, W, Cin) s8 on scl[0], H and W even; ops from
+    `ops/quantize.stride_block_int8_operands`: k1 (Cin, Cm), s1, b1, k2 (3, 3, Cm, Cm), s2,
+    b2, k3 (Cm, C), s3, b3, the K-major copies k1_t, k2_t, k3_t, the bf16 shortcut wsc
+    (Cin, C) with its K-major copy wsc_t and bias bsc, scl = [s_in, r2, r3, r_res, r_out].
+    In the JAX graph's op order: cb1 + requant on r2; the 3×3 cb2 at the input resolution
+    + requant on r3; the exact 2×2 integer pool of that and of x8; the conv shortcut of
+    the pooled x8 (bf16 operands, f32 sum) + signed requant on r_res; cb3 + bias +
+    id8·r_res + requant on r_out. Returns (N, H/2, W/2, C) s8, or for `out_dtype` bf16/f32
+    the trunk's final conv map (relu'd, no requant). With `cb3` False (path B, where K4
+    takes cb3 with the next block's cb1) returns (o8 (N, H/2, W/2, Cm), id8 (N, H/2, W/2,
+    C)); `q1`, cb1's output on r2 where K4 made it, leaves cb1 out.
+
+    cb1, cb2, the pools and cb3 are bit-exact against the plain version (cb3 on the
+    kernel's own o8 and id8: `parity.stride_block_disagreement`); the shortcut equals the
+    exact sum's requant on every element (its near-ties summed again exactly), from which
+    the plain graph's full-f32 product may differ by one step on a near-tie, so id8 and
+    the output are held at ≤1 s8 step on ≤0.5% of elements, K3's contract. `recip` takes all four requants in the reciprocal form, as the XLA graph
+    does."""
+    if _cuda_input("fused_stride_block_int8", x8):
+        return fused_stride_block_int8_reference(x8, ops, recip, out_dtype, cb3, q1)
+    if out_dtype not in _OUT_KIND:
+        raise ValueError(f"fused_stride_block_int8 writes int8, bfloat16 or float32, "
+                         f"not {out_dtype}")
+    dev = x8.device
+    n, h, w, cin = x8.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"fused_stride_block_int8: H and W must be even, got {tuple(x8.shape)}")
+    scl = ops["scl"]
+    _check_f32("scl", scl, dev, 5)
+    k2t = _kmajor_copy(ops, "k2")
+    cm = k2t.shape[0]
+    if q1 is None:
+        q1 = torch.empty((n, h, w, cm), dtype=torch.int8, device=dev)
+        _conv1x1(x8, _kmajor_copy(ops, "k1"), ops["s1"], ops["b1"], _ptr(scl, 1), q1,
+                 recip=recip)
+    elif q1.shape != (n, h, w, cm):
+        raise ValueError(f"q1 {tuple(q1.shape)} is not cb1's output of {tuple(x8.shape)}")
+    else:
+        _check_s8("q1", q1, dev)
+    q2 = torch.empty((n, h, w, cm), dtype=torch.int8, device=dev)
+    _conv3x3(q1, k2t, ops["s2"], ops["b2"], _ptr(scl, 2), q2, recip=recip)
+    o8 = _avg_pool2(q2)
+    id8, _ = _shortcut(_avg_pool2(x8), ops, _ptr(scl, 0), _ptr(scl, 3), recip)
+    if cb3:
+        out = torch.empty(id8.shape, dtype=out_dtype, device=dev)
+        _conv1x1(o8, _kmajor_copy(ops, "k3"), ops["s3"], ops["b3"], _ptr(scl, 4), out,
+                 res=id8, r_res_ptr=_ptr(scl, 3), recip=recip and out_dtype == torch.int8)
+    fused_stride_block_int8.launches += 1
+    return out if cb3 else (o8, id8)
+
+
+def conv3x3_int8(x8: torch.Tensor, ops: Dict[str, torch.Tensor], recip: bool = False,
+                 pool: bool = False) -> torch.Tensor:
+    """An s8 3×3 'SAME' conv at stride 1 with its requant epilogue: requant(conv3x3(x8,
+    k)·s + b, r), and with `pool` the exact 2×2 integer pool of that (H, W even): the
+    int8-stem options' stem2 and stem3 (`quantize.py:446-473`). ops from
+    `ops/quantize.conv3x3_int8_operands`: k (3, 3, C, Cout), its K-major copy k_t, s, b
+    (Cout,), r (1,). Bit-exact against the plain version; `recip` takes the requant in
+    the reciprocal form."""
+    if _cuda_input("conv3x3_int8", x8):
+        return conv3x3_int8_reference(x8, ops, recip, pool)
+    _check_f32("r", ops["r"], x8.device, 1)
+    if pool and (x8.shape[1] % 2 or x8.shape[2] % 2):
+        raise ValueError(f"conv3x3_int8: H and W must be even to pool, got {tuple(x8.shape)}")
+    out = torch.empty((*x8.shape[:-1], ops["k"].shape[-1]), dtype=torch.int8, device=x8.device)
+    _conv3x3(x8, _kmajor_copy(ops, "k"), ops["s"], ops["b"], ops["r"].data_ptr(), out,
+             recip=recip)
+    if pool:
+        out = _avg_pool2(out)
+    conv3x3_int8.launches += 1
+    return out
+
+
 fused_stage1_int8.launches = 0
 fused_cb3_cb1_int8.launches = 0
 fused_resblocks_int8.launches = 0
+fused_stride_block_int8.launches = 0
+conv3x3_int8.launches = 0
 
 
 # ------------------------------------------------------- K6, K7: bf16 plain versions

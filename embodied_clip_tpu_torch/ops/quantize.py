@@ -18,7 +18,7 @@ JAX `qtrunk` across. The s8 stem2/stem3 entries serve the int8-stem option; the 
 the default stem. The kernels' derived operands are built on first use and kept under
 the key "_operands".
 
-`quantized_trunk_apply` is the dispatch of `quantize.py:381-610`. Its four kernel
+`quantized_trunk_apply` is the dispatch of `quantize.py:381-610`. Four of its kernel
 switches are the JAX keyword arguments under the port's names:
 
   kernel_stem      (pallas_stem)       K2 stem3_requant_pool_int8
@@ -26,10 +26,13 @@ switches are the JAX keyword arguments under the port's names:
   kernel_resblocks (pallas_resblocks)  K5 fused_resblocks_int8 on identity runs
   fuse_pointwise   (fuse_pointwise)    K4 fused_cb3_cb1_int8 at block boundaries
 
-With all of them off it is the plain graph. `PATH_A` (K2 + K3 + K5) is what a
-quantized encoder runs; `PATH_B` swaps K5 for K4. What the kernels do not cover (the
-stem1/stem2 convs, and each later stage's stride block 0) runs as plain torch:
-cuDNN for the convs of bf16 operands, `torch._int_mm` (+ im2col) for the s8 ones.
+The fifth, `kernel_stride_blocks`, has no JAX counterpart: it runs what the JAX package
+leaves to XLA's s8 convolutions on the port's own launches, each later stage's stride
+block 0 (`fused_stride_block_int8`) and the int8-stem options' s8 stem convs
+(`conv3x3_int8`). With all of them off it is the plain graph. `PATH_A` (K2 + K3 + K5 +
+the stride blocks) is what a quantized encoder runs; `PATH_B` swaps K5 for K4. What the
+kernels do not cover (the stem1/stem2 convs) runs as plain torch: cuDNN for the convs of
+bf16 operands; the plain graph's s8 convs go through `torch._int_mm` (+ im2col).
 Three options change what the graph computes, each the JAX package's trace-time
 environment variable as a keyword, defaulting as JAX does:
 
@@ -38,7 +41,8 @@ environment variable as a keyword, defaulting as JAX does:
                                         the TPU kernels do (ops/kernels/bottleneck_kernel.py)
   int8_stem      (ECT_INT8_STEM)        "stem3": stem3 an s8 conv; "full": stem2 and
                                         stem3 s8, stem1's output requantized; K2 is
-                                        not called under either
+                                        not called under either (`conv3x3_int8` is,
+                                        under `kernel_stride_blocks`)
   int4_stage1    (ECT_INT4_STAGE1)      stage 1's activations on a 4-bit grid (1: all;
                                         2: the block outputs and the shortcut), plain
                                         graph only, values held in s8 tensors
@@ -76,15 +80,16 @@ from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
 __all__ = ["calibrate_trunk", "quantize_trunk", "quantized_trunk_apply",
            "calibrate_resnet_trunk", "quantize_resnet_trunk", "quantized_resnet_apply",
            "stage1_int8_operands", "cb3_cb1_operands", "resblocks_int8_operands",
+           "stride_block_int8_operands", "conv3x3_int8_operands",
            "PATH_A", "PATH_B", "KERNELS_OFF", "INT8_STEMS", "PALLAS_RESBLOCKS_MIN_CM"]
 
 KERNELS_OFF = dict(kernel_stem=False, kernel_stage1=False, kernel_resblocks=False,
-                   fuse_pointwise=0)
+                   fuse_pointwise=0, kernel_stride_blocks=False)
 INT8_STEMS = ("off", "stem3", "full")
 PATH_A = dict(kernel_stem=True, kernel_stage1=True, kernel_resblocks=True,
-              fuse_pointwise=0)
+              fuse_pointwise=0, kernel_stride_blocks=True)
 PATH_B = dict(kernel_stem=True, kernel_stage1=True, kernel_resblocks=False,
-              fuse_pointwise=1)
+              fuse_pointwise=1, kernel_stride_blocks=True)
 
 # Minimum bottleneck width for K5 (identity runs with cm ≥ this). Module-level so
 # tests can lower it to reach K5 on narrow trunks.
@@ -330,6 +335,38 @@ def resblocks_int8_operands(q: Dict[str, Any], names: Sequence[str],
     return blocks, torch.stack(scl).float()
 
 
+def stride_block_int8_operands(q: Dict[str, Any], name: str,
+                               s_in: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Operands of `fused_stride_block_int8` for stride block `name` on input scale s_in:
+    k1 (Cin, Cm), s1, b1, k2 (3, 3, Cm, Cm), s2, b2, k3 (Cm, C), s3, b3 and their K-major
+    copies k1_t, k2_t, k3_t; the bf16 shortcut wsc (Cin, C) with its K-major copy wsc_t
+    (the exact re-summation of near-ties reads a column as a row) and bsc; scl = [s_in,
+    r2, r3, r_res (down.out), r_out]."""
+    a = q["act_scales"]
+    cb1, cb2, cb3 = (q[f"{name}/{c}"] for c in ("cb1", "cb2", "cb3"))
+    down = q["fp"][f"{name}/down"]
+    s2, s3 = a[f"{name}/cb2.in"], a[f"{name}/cb3.in"]
+    wsc = down["kernel"][0, 0].to(torch.bfloat16).contiguous()
+    return _with_kmajor({
+        "k1": cb1["kernel_q"][0, 0].contiguous(), "s1": s_in * cb1["w_scale"],
+        "b1": cb1["bias"],
+        "k2": cb2["kernel_q"], "s2": s2 * cb2["w_scale"], "b2": cb2["bias"],
+        "k3": cb3["kernel_q"][0, 0].contiguous(), "s3": s3 * cb3["w_scale"],
+        "b3": cb3["bias"],
+        "wsc": wsc, "wsc_t": wsc.t().contiguous(), "bsc": down["bias"],
+        "scl": torch.stack([s_in, s2, s3, a[f"{name}/down.out"], a[f"{name}.out"]]).float(),
+    }, "k1", "k2", "k3")
+
+
+def conv3x3_int8_operands(q: Dict[str, Any], name: str, in_scale: torch.Tensor,
+                          out_scale: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Operands of `conv3x3_int8` for the s8 stem conv `name` ("stem2" | "stem3"): k
+    (3, 3, C, Cout) with its K-major copy k_t, s = in_scale · w_scale, b, r = [out_scale]."""
+    sub = q[name]
+    return _with_kmajor({"k": sub["kernel_q"], "s": in_scale * sub["w_scale"],
+                         "b": sub["bias"], "r": out_scale.reshape(1).float()}, "k")
+
+
 def _cached(q: Dict[str, Any], key: tuple, build: Callable[[], Any]):
     cache = q.setdefault("_operands", {})
     if key not in cache:
@@ -366,8 +403,20 @@ def _qconv(sub, t8, in_scale, stride=1):
     return acc.float() * (in_scale * sub["w_scale"]) + sub["bias"]
 
 
-def _stem(q, x, s_in, kernel_stem, int8_stem, recip):
-    """The stem's s8 output (N, H/4, W/4, C) on s_in: `quantize.py:445-493`."""
+def _s8_stem_conv(q, name, t8, in_scale, out_scale, recip, pool, kernel):
+    """An s8 stem conv + requant (+ the 2×2 pool): `conv3x3_int8` under `kernel`, else the
+    plain graph."""
+    if kernel:
+        ops = _cached(q, ("conv3x3", name),
+                      lambda: conv3x3_int8_operands(q, name, in_scale, out_scale))
+        return BK.conv3x3_int8(t8, ops, recip=recip, pool=pool)
+    out = requant(_qconv(q[name], t8, in_scale), out_scale, recip)
+    return avg_pool_int8(out, 2) if pool else out
+
+
+def _stem(q, x, s_in, kernel_stem, int8_stem, recip, kernel_s8=False):
+    """The stem's s8 output (N, H/4, W/4, C) on s_in: `quantize.py:445-493`. `kernel_s8`
+    runs the int8-stem options' s8 convs through `conv3x3_int8`."""
     a = q["act_scales"]
     if int8_stem not in INT8_STEMS:
         raise ValueError(f"int8_stem must be one of {INT8_STEMS}, got {int8_stem!r}")
@@ -376,14 +425,14 @@ def _stem(q, x, s_in, kernel_stem, int8_stem, recip):
         # writes s8; stem2 and stem3 are s8 convs.
         s1, s2 = a["stem1.out"], a["stem2.out"]
         t8 = requant(_fp_conv(q, "stem1", x, 2, relu=False), s1, recip)
-        t8 = requant(_qconv(q["stem2"], t8, s1), s2, recip)
-        return avg_pool_int8(requant(_qconv(q["stem3"], t8, s2), s_in, recip), 2)
+        t8 = _s8_stem_conv(q, "stem2", t8, s1, s2, recip, False, kernel_s8)
+        return _s8_stem_conv(q, "stem3", t8, s2, s_in, recip, True, kernel_s8)
     t = _fp_conv(q, "stem1", x, 2)
     t = _fp_conv(q, "stem2", t)
     if int8_stem == "stem3":
         s2 = a["stem2.out"]
         t8 = requant(t, s2, recip)
-        return avg_pool_int8(requant(_qconv(q["stem3"], t8, s2), s_in, recip), 2)
+        return _s8_stem_conv(q, "stem3", t8, s2, s_in, recip, True, kernel_s8)
     if kernel_stem and t.shape[1] % 2 == 0 and t.shape[2] % 2 == 0:
         sub = q["fp"]["stem3"]
         return SK.stem3_requant_pool_int8(
@@ -397,14 +446,17 @@ def quantized_trunk_apply(q: Dict[str, Any], x: torch.Tensor, stage_sizes: Seque
                           out_dtype=torch.bfloat16, kernel_stem: bool = False,
                           kernel_stage1: bool = False, kernel_resblocks: bool = False,
                           fuse_pointwise: int = 0, recip_requant: bool = False,
-                          int8_stem: str = "off", int4_stage1: int = 0) -> torch.Tensor:
+                          int8_stem: str = "off", int4_stage1: int = 0,
+                          kernel_stride_blocks: bool = False) -> torch.Tensor:
     """int8 trunk forward: x is the preprocessed NHWC image batch (f32/bf16). Returns
     the NHWC conv map in `out_dtype`. The switches route the pieces the TPU kernels
-    computed through K2–K5 (see the module docstring); `fuse_pointwise` > 0 fuses
-    every pair whose block output width is ≥ it, and is off under `kernel_resblocks`,
-    which owns those blocks. `recip_requant`, `int8_stem` and `int4_stage1` are the
-    options of the module docstring; `int4_stage1` is off wherever K3, K5 or K4 runs,
-    as in the JAX package, whose kernels own those tensors."""
+    computed through K2–K5, and with `kernel_stride_blocks` the stride blocks and the
+    int8 stems' s8 convs through the port's own launches (see the module docstring);
+    `fuse_pointwise` > 0 fuses every pair whose block output width is ≥ it, and is off
+    under `kernel_resblocks`, which owns those blocks. `recip_requant`, `int8_stem` and
+    `int4_stage1` are the options of the module docstring; `int4_stage1` is off wherever
+    K3, K5 or K4 runs, as in the JAX package, whose kernels own those tensors (stage 1
+    has no stride block)."""
     a = q["act_scales"]
     rq = recip_requant
     fuse_pointwise = 0 if kernel_resblocks else fuse_pointwise
@@ -414,7 +466,7 @@ def quantized_trunk_apply(q: Dict[str, Any], x: torch.Tensor, stage_sizes: Seque
         int4_stage1 = 0
 
     s_in = a["stem.out"]
-    t8 = _stem(q, x, s_in, kernel_stem, int8_stem, rq)
+    t8 = _stem(q, x, s_in, kernel_stem, int8_stem, rq, kernel_stride_blocks)
 
     blocks = list(_block_names(stage_sizes))
     if kernel_stage1 and stage_sizes[0] == 3:
@@ -451,46 +503,31 @@ def quantized_trunk_apply(q: Dict[str, Any], x: torch.Tensor, stage_sizes: Seque
             i += run
             continue
 
-        # int4 stage 1: narrow4 the cb2/cb3 inputs, wide4 the block outputs and the
-        # shortcut, on the 4-bit grid of their calibrated scales.
-        in_stage1 = name.startswith("layer1_")
-        narrow4 = int4_stage1 == 1 and in_stage1
-        wide4 = int4_stage1 in (1, 2) and in_stage1
-
-        # cb1/cb2 relus fold into the next requant's clip at 0.
-        if q1_carry is not None:
-            q18, q1_carry = q1_carry, None
-            s2 = a[f"{name}/cb2.in"]
-        elif narrow4:
-            q18, s2 = requant_u4(_qconv(q[f"{name}/cb1"], t8, s_in), a[f"{name}/cb2.in"], rq)
-        else:
-            s2 = a[f"{name}/cb2.in"]
-            q18 = requant(_qconv(q[f"{name}/cb1"], t8, s_in), s2, rq)
-        o = _qconv(q[f"{name}/cb2"], q18, s2)
-        if narrow4:
-            o8, s3 = requant_u4(o, a[f"{name}/cb3.in"], rq)
-        else:
-            s3 = a[f"{name}/cb3.in"]
-            o8 = requant(o, s3, rq)  # pre-pool for stride blocks
-        if stride > 1:
-            o8 = avg_pool_int8(o8, stride)
-
-        if f"{name}/down" in q["fp"]:
-            # Shortcut on the int8 grid: exact integer pool of the s8 input, the bf16
-            # 1×1 conv, its output requantized to s8 on a signed per-tensor scale.
-            idsrc = avg_pool_int8(t8, stride) if stride > 1 else t8
-            down = _fp_conv(q, f"{name}/down", idsrc.float() * s_in, relu=False)
-            if wide4:
-                id8, r_res = requant_s4(down, a[f"{name}/down.out"], rq)
-            else:
-                r_res = a[f"{name}/down.out"]
-                id8 = requant_signed(down, r_res, rq)
-        else:
-            id8, r_res = t8, s_in
-
         is_last = name == blocks[-1][0]
         c_out = q[f"{name}/cb3"]["kernel_q"].shape[-1]
-        if fuse_pointwise and c_out >= fuse_pointwise and not is_last:
+        fuse = fuse_pointwise and c_out >= fuse_pointwise and not is_last
+        if stride > 1:
+            # Block 0 of a later stage: pools on the int8 grid, a conv shortcut.
+            # int4 stage 1 moves the first stride block's input onto its 4-bit grid.
+            ops = _cached(q, ("stride_block", name, int4_stage1),
+                          lambda: stride_block_int8_operands(q, name, s_in))
+            block = (BK.fused_stride_block_int8 if kernel_stride_blocks
+                     else BK.fused_stride_block_int8_reference)
+            out = block(t8, ops, recip=rq, out_dtype=out_dtype if is_last else torch.int8,
+                        cb3=not fuse, q1=q1_carry)
+            q1_carry = None
+            if is_last:
+                return out
+            if not fuse:
+                t8, s_in = out, a[f"{name}.out"]
+                i += 1
+                continue
+            o8, id8 = out
+            r_res = a[f"{name}/down.out"]
+        else:
+            o8, id8, r_res, s3 = _stride1_block(q, name, t8, s_in, q1_carry, int4_stage1, rq)
+            q1_carry = None
+        if fuse:
             next_name = blocks[i + 1][0]
             ops = _cached(q, ("cb3_cb1", name, next_name),
                           lambda: cb3_cb1_operands(q, name, next_name, r_res))
@@ -503,13 +540,53 @@ def quantized_trunk_apply(q: Dict[str, Any], x: torch.Tensor, stage_sizes: Seque
         identity = id8.float() * r_res
         if is_last:
             return torch.relu(o + identity).to(out_dtype)
-        if wide4:
+        if int4_stage1 in (1, 2) and name.startswith("layer1_"):
             t8, s_in = requant_u4(o + identity, a[f"{name}.out"], rq)
         else:
             s_in = a[f"{name}.out"]
             t8 = requant(o + identity, s_in, rq)  # the block relu is the clip at 0
         i += 1
     raise ValueError(f"stage_sizes {tuple(stage_sizes)} leave no block after stage 1")
+
+
+def _stride1_block(q, name, t8, s_in, q1, int4_stage1, rq):
+    """A stride-1 block of the plain graph up to cb3's input: (o8 on s3, the shortcut's
+    id8 on r_res, r_res, s3). `q1` is cb1's output where K4 made it.
+
+    int4 stage 1: narrow4 the cb2/cb3 inputs, wide4 the block outputs and the shortcut,
+    on the 4-bit grid of their calibrated scales."""
+    a = q["act_scales"]
+    in_stage1 = name.startswith("layer1_")
+    narrow4 = int4_stage1 == 1 and in_stage1
+    wide4 = int4_stage1 in (1, 2) and in_stage1
+
+    # cb1/cb2 relus fold into the next requant's clip at 0.
+    if q1 is not None:
+        q18, s2 = q1, a[f"{name}/cb2.in"]
+    elif narrow4:
+        q18, s2 = requant_u4(_qconv(q[f"{name}/cb1"], t8, s_in), a[f"{name}/cb2.in"], rq)
+    else:
+        s2 = a[f"{name}/cb2.in"]
+        q18 = requant(_qconv(q[f"{name}/cb1"], t8, s_in), s2, rq)
+    o = _qconv(q[f"{name}/cb2"], q18, s2)
+    if narrow4:
+        o8, s3 = requant_u4(o, a[f"{name}/cb3.in"], rq)
+    else:
+        s3 = a[f"{name}/cb3.in"]
+        o8 = requant(o, s3, rq)
+
+    if f"{name}/down" in q["fp"]:
+        # Shortcut on the int8 grid: the bf16 1×1 conv, its output requantized to s8 on
+        # a signed per-tensor scale.
+        down = _fp_conv(q, f"{name}/down", t8.float() * s_in, relu=False)
+        if wide4:
+            id8, r_res = requant_s4(down, a[f"{name}/down.out"], rq)
+        else:
+            r_res = a[f"{name}/down.out"]
+            id8 = requant_signed(down, r_res, rq)
+    else:
+        id8, r_res = t8, s_in
+    return o8, id8, r_res, s3
 
 
 # ------------------------------------------------------ torchvision ResNet (imagenet)

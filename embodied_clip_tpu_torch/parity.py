@@ -1,8 +1,8 @@
 """Shared parity helpers (port of `embodied_clip_tpu/parity.py`): the golden frames
 both packages encode, the per-sample cosine distance the north star (features within
 1e-3 of the f32 reference, BASELINE.json) is stated in, and the real-weight parity check
-`verify_encoder_parity`. Also the contract the bf16 kernels K6/K7 are held to against
-their plain versions on the card.
+`verify_encoder_parity`. Also the contracts the bf16 kernels K6/K7 and the int8 stride
+block are held to against their plain versions on the card.
 
 The parity check's two halves: tools/capture_reference_activations.py runs wherever the
 reference stack lives and saves the golden frames' activations to an .npz; then
@@ -18,8 +18,8 @@ from typing import Dict, Optional
 import numpy as np
 
 __all__ = ["golden_frames", "cosine_distance", "verify_encoder_parity", "bf16_disagreement",
-           "bf16_share_limit", "stage1_block_disagreements", "BF16_KERNEL_RTOL",
-           "BF16_KERNEL_SHARE", "BF16_SHARE_REF_TERMS"]
+           "bf16_share_limit", "stage1_block_disagreements", "stride_block_disagreement",
+           "BF16_KERNEL_RTOL", "BF16_KERNEL_SHARE", "BF16_SHARE_REF_TERMS"]
 
 # K6/K7 vs their plain versions, both bf16 with f32 accumulation: at most 1% of output
 # elements differ, each by at most two bf16 steps (rtol 2⁻⁶) with atol 2⁻⁶ × the
@@ -185,3 +185,32 @@ def stage1_block_disagreements(x, blocks, shortcut):
         out.append(bf16_disagreement(got, want))
         prev = got
     return out
+
+
+def stride_block_disagreement(x8, ops, recip=False, out_dtype=None, cb3=True, q1=None):
+    """The stride block's contract, on the card, for one call of
+    `fused_stride_block_int8(x8, ops, recip, out_dtype, cb3, q1)`: the kernel's (o8, id8)
+    (a launch with `cb3` False) against the plain version's, o8 to be equal on every
+    element and id8 within ≤1 s8 step on ≤0.5% (the plain shortcut's f32 sum order);
+    with `cb3`, the kernel's output against the plain cb3 of the kernel's own o8 and id8
+    (the kernel is deterministic, so those are the inputs its cb3 had inside the whole
+    call), to be equal. Returns {"o8_equal", "id8_step", "id8_share", "cb3_equal" (None
+    without `cb3`), "out" (the kernel's output; (o8, id8) without `cb3`), "plain" (the
+    plain version's)}. Launches the block once more with `cb3`."""
+    import torch
+
+    from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
+
+    out_dtype = torch.int8 if out_dtype is None else out_dtype
+    o8, id8 = BK.fused_stride_block_int8(x8, ops, recip, cb3=False, q1=q1)
+    want = BK.fused_stride_block_int8_reference(x8, ops, recip, cb3=False, q1=q1)
+    d = (id8.int() - want[1].int()).abs()
+    res = {"o8_equal": bool(torch.equal(o8, want[0])), "id8_step": int(d.max()),
+           "id8_share": float((d != 0).float().mean()), "cb3_equal": None,
+           "out": (o8, id8), "plain": want}
+    if cb3:
+        got = BK.fused_stride_block_int8(x8, ops, recip, out_dtype, q1=q1)
+        cb3_want = BK._stride_cb3_reference(o8, id8, ops, recip, out_dtype)
+        res.update(cb3_equal=bool(torch.equal(got, cb3_want)), out=got,
+                   plain=BK.fused_stride_block_int8_reference(x8, ops, recip, out_dtype, q1=q1))
+    return res

@@ -19,7 +19,7 @@ from embodied_clip_tpu_torch.models.clip_resnet import ModifiedResNet
 from embodied_clip_tpu_torch.models.encoders import build_encoder
 from embodied_clip_tpu_torch.ops import quantize as Q
 from embodied_clip_tpu_torch.ops.fold_bn import fold_conv_bn_state_dict
-from embodied_clip_tpu_torch.ops.int8 import qmm, requant
+from embodied_clip_tpu_torch.ops.int8 import avg_pool_int8, qmm, requant
 from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
 from embodied_clip_tpu_torch.ops.kernels import preprocess_kernel as K
 from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
@@ -832,3 +832,184 @@ def test_probe_fit_epoch_on_the_card_equals_the_cpu(cuda, tmp_path):
     for a, b in ((vc, vg), (tc, tg)):
         for k in a:
             assert abs(a[k] - b[k]) <= 1e-4, (k, a[k], b[k])
+
+
+# -- the stride blocks (block 0 of stages 2-4) and the int8 stems' s8 convs -------------
+
+# (cin, cm, cout, n, h): the width-16 trunk's stage 2, RN50's stages 2-4 and RN50x16's,
+# each at its block input's resolution (batch 2; RN50's stage 2 also at batch 16).
+STRIDE_WIDTHS = [(64, 32, 128, 2, 8), (256, 128, 512, 2, 56), (256, 128, 512, 16, 56),
+                 (512, 256, 1024, 2, 28), (1024, 512, 2048, 2, 14), (384, 192, 768, 2, 96),
+                 (768, 384, 1536, 2, 48), (1536, 768, 3072, 2, 24)]
+
+
+def _stride_case(rng, cin, cm, cout, n, h, dev):
+    qnp, s_in = C.stride_q(rng, cin, cm, cout)
+    ops = Q.stride_block_int8_operands(C.to_torch(qnp, dev), "layer2_0",
+                                       torch.tensor(s_in, device=dev))
+    return ops, _t(C.s8(rng, (n, h, h, cin)), dev)
+
+
+@pytest.mark.parametrize("cin,cm,cout,n,h", STRIDE_WIDTHS)
+@pytest.mark.parametrize("recip", [False, True])
+def test_stride_block_kernel_matches_plain_version(cuda, cin, cm, cout, n, h, recip):
+    """The stride block's launches vs its plain version: cb1, cb2 and the pools
+    bit-exact (o8), the shortcut bit-equal to the exact sum's requant
+    (`_shortcut_reference`) and within ≤1 step on ≤0.5% of the plain graph's full-f32
+    product (id8 and the block output, K3's contract); cb3 bit-exact against its plain
+    version on the kernel's own o8 and id8, for the s8 output and for a bf16 conv map
+    (the trunk's last block), which is apart from the plain block only where id8 is;
+    one count per call; a second call bit-equal."""
+    ops, x8 = _stride_case(np.random.RandomState(cin + h), cin, cm, cout, n, h, cuda)
+    fn, before = BK.fused_stride_block_int8, BK.fused_stride_block_int8.launches
+    got = fn(x8, ops, recip=recip)
+    again = fn(x8, ops, recip=recip)
+    o8, id8 = fn(x8, ops, recip=recip, cb3=False)
+    conv = fn(x8, ops, recip=recip, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 4
+    assert got.shape == (n, h // 2, h // 2, cout) and torch.equal(got, again)
+    want_o8, want_id8 = BK.fused_stride_block_int8_reference(x8, ops, recip, cb3=False)
+    assert torch.equal(o8, want_o8)
+    scl = ops["scl"]
+    exact = BK._shortcut_reference(avg_pool_int8(x8, 2), ops["wsc"], ops["bsc"], scl[0],
+                                   scl[3], recip)
+    assert torch.equal(id8, exact), C.step_diff(id8, exact)
+    for g, w in ((id8, want_id8), (got, BK.fused_stride_block_int8_reference(x8, ops, recip))):
+        dmax, frac = C.step_diff(g, w)
+        assert dmax <= 1 and frac <= 0.005, (dmax, frac)
+    assert torch.equal(got, BK._stride_cb3_reference(o8, id8, ops, recip))
+    assert torch.equal(conv, BK._stride_cb3_reference(o8, id8, ops, recip, torch.bfloat16))
+    # The conv map: apart only where id8 is (by r_res, then the bf16 rounding).
+    want_conv = BK.fused_stride_block_int8_reference(x8, ops, recip, torch.bfloat16)
+    d = (conv.float() - want_conv.float()).abs()
+    assert conv.dtype == torch.bfloat16 and float((d != 0).float().mean()) <= 0.005
+    assert float(d.max()) <= 1.01 * float(scl[3]) + 2 ** -7 * float(want_conv.float().abs().max())
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 128), (256, 512), (512, 1024), (1024, 2048),
+                                      (384, 768), (768, 1536), (1536, 3072)])
+@pytest.mark.parametrize("recip", [False, True])
+def test_stride_shortcut_exact_on_planted_near_ties(cuda, cin, cout, recip):
+    """The stride blocks' shortcut launch (e) where the tensor cores' sum order decides
+    the requant, planted as `test_stage1_entry_shortcut_exact_on_planted_near_ties`: on
+    1/16 of the elements the exact quotient lies on a boundary or 2^-20 … 2^-9 from one.
+    sc8 bit-equal to `_shortcut_reference`; enough tiles that a warpgroup flags more
+    words than its list holds (4096) and sums near-ties again mid-launch."""
+    rng = np.random.RandomState(7)
+    nbase, steps = 16, 100
+    s_in, dsc = 2.0 ** -4, 2.0 ** -3
+    wsc = torch.from_numpy(rng.randn(cin, cout) * 2.0 ** -rng.randint(1, 13, (cin, cout)))
+    wsc = wsc.to(torch.bfloat16)
+    wsc[0] = 2.0
+    base = torch.from_numpy(rng.randint(40, 128, (nbase, cin))).to(torch.int8)
+    xp = base.repeat_interleave(steps, 0)
+    xp[:, 0] = torch.arange(steps, dtype=torch.int8).repeat(nbase)
+    x0 = base.double() * s_in
+    x0[:, 0] = 0.0
+    e_base = (x0 @ wsc.double())[torch.arange(cout) % nbase, torch.arange(cout)]
+    deltas = torch.tensor([0.0] + [sg * 2.0 ** -e for e in (20, 17, 15, 12, 9) for sg in (1, -1)],
+                          dtype=torch.float64)
+    nq = torch.from_numpy(rng.randint(-110, 11, cout)).double()
+    v0 = nq + 0.5 + deltas[torch.arange(cout) % len(deltas)]
+    bsc = (v0 * dsc - e_base).float()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    # Tiles enough for a warpgroup to flag more than 4096 words: 40 a block at the wide
+    # widths, 160 at the narrow ones, whose short sums flag fewer near-ties.
+    per_block = 40 if cin >= 384 else 160
+    reps = -(-per_block * sms * 128 * 128 // (nbase * steps * cout))
+    xp = xp.repeat(reps, 1).to(cuda)
+    ops = {"wsc": wsc.to(cuda).contiguous(), "wsc_t": wsc.t().contiguous().to(cuda),
+           "bsc": bsc.to(cuda)}
+    scl = torch.tensor([s_in, dsc], device=cuda)
+    sc8, ties = BK._shortcut(xp, ops, BK._ptr(scl, 0), BK._ptr(scl, 1), recip)
+    torch.cuda.synchronize()
+    want = BK._shortcut_reference(xp, ops["wsc"], ops["bsc"], scl[0], scl[1], recip)
+    tiles = ties.numel() // 256
+    words = ties.reshape(tiles, 256)[::sms, :128]
+    assert int((words != 0).sum()) > 4096
+    v = ((xp.double() * s_in).to(torch.bfloat16).double() @ ops["wsc"].double()).float()
+    y = ((v + ops["bsc"]) / scl[1]).abs() - 0.5
+    assert float(((y - y.round()).abs() < 2.0 ** -8).double().mean()) >= 0.9 / nbase
+    assert torch.equal(sc8, want), C.step_diff(sc8, want)
+
+
+@pytest.mark.parametrize("shape", [(8, 56, 56, 128), (2, 112, 112, 64), (3, 14, 14, 2048),
+                                   (128, 56, 56, 256), (1, 2, 2, 16)])
+def test_avg_pool2_kernel_equals_avg_pool_int8(cuda, shape):
+    """The 2×2 pool launch (f) alone, bit-equal to `avg_pool_int8` on s8 of either sign."""
+    x8 = torch.from_numpy(np.random.RandomState(11).randint(-128, 128, shape)
+                          .astype(np.int8)).to(cuda)
+    got = BK._avg_pool2(x8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, avg_pool_int8(x8, 2))
+
+
+# The int8 stems' convs: RN50's stem2 (32 → 32) and stem3 (32 → 64, pooled) at 112²,
+# RN50x16's stem3 (48 → 96) at 192², the width-16 trunk's (8 → 16).
+@pytest.mark.parametrize("n,h,cin,cout,pool", [(4, 112, 32, 32, False), (4, 112, 32, 64, True),
+                                               (2, 192, 48, 96, True), (2, 16, 16, 16, True)])
+@pytest.mark.parametrize("recip", [False, True])
+def test_conv3x3_int8_kernel_matches_plain_version(cuda, n, h, cin, cout, pool, recip):
+    rng = np.random.RandomState(12)
+    q = {"stem3": {k: _t(v, cuda) for k, v in C.qk(rng, cin, cout, 3).items()}}
+    ops = Q.conv3x3_int8_operands(q, "stem3", torch.tensor(1.3 / 127, device=cuda),
+                                  torch.tensor(2.2 / 127, device=cuda))
+    x8 = _t(C.s8(rng, (n, h, h, cin)), cuda)
+    before = BK.conv3x3_int8.launches
+    got = BK.conv3x3_int8(x8, ops, recip=recip, pool=pool)
+    torch.cuda.synchronize()
+    assert BK.conv3x3_int8.launches == before + 1
+    assert torch.equal(got, BK.conv3x3_int8_reference(x8, ops, recip, pool))
+
+
+def test_stride_block_kernels_reject_what_they_cannot_take(cuda):
+    """Odd spatial sizes and widths that are not multiples of 16 raise; nothing is
+    computed some other way and nothing is counted."""
+    ops, x8 = _stride_case(np.random.RandomState(13), 64, 32, 128, 2, 8, cuda)
+    fn, before = BK.fused_stride_block_int8, BK.fused_stride_block_int8.launches
+    with pytest.raises(ValueError, match="even"):
+        fn(x8[:, :7].contiguous(), ops)
+    with pytest.raises(ValueError, match="even"):
+        BK._avg_pool2(x8[:, :, :7].contiguous())
+    bad, x40 = _stride_case(np.random.RandomState(13), 40, 32, 128, 2, 8, cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fn(x40, bad)
+    bad, x8 = _stride_case(np.random.RandomState(13), 64, 32, 120, 2, 8, cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        fn(x8, bad)
+    assert fn.launches == before
+    q = {"stem3": {k: _t(v, cuda) for k, v in C.qk(np.random.RandomState(1), 32, 64, 3).items()}}
+    one = torch.tensor(0.01, device=cuda)
+    with pytest.raises(ValueError, match="even"):
+        BK.conv3x3_int8(_t(C.s8(np.random.RandomState(2), (1, 15, 16, 32)), cuda),
+                        Q.conv3x3_int8_operands(q, "stem3", one, one), pool=True)
+
+
+def test_int8_path_a_runs_no_im2col_and_no_int_mm(cuda, monkeypatch):
+    """A width-16 trunk on path A: the three stride blocks launch (3 counts), and no call
+    reaches `ops/int8.qmm` or `im2col3x3`; with `kernel_stride_blocks` off the same
+    trunk is within 1e-3 cosine (the shortcut's near-ties) of it."""
+    from embodied_clip_tpu_torch.ops import int8 as I8
+
+    monkeypatch.setattr(Q, "PALLAS_RESBLOCKS_MIN_CM", 1)
+    torch.manual_seed(0)
+    stage_sizes = (3, 2, 2, 2)
+    sd = fold_conv_bn_state_dict(ModifiedResNet(stage_sizes, 16).state_dict())
+    sd = {k: v.to(cuda) for k, v in sd.items()}
+    x = _t(np.random.RandomState(5).randn(2, 64, 64, 3).astype(np.float32), cuda)
+    q = Q.quantize_trunk(sd, stage_sizes, x)
+    off = Q.quantized_trunk_apply(q, x, stage_sizes, torch.float32,
+                                  **{**Q.PATH_A, "kernel_stride_blocks": False})
+    calls = []
+    for mod in (I8, BK):
+        for name in ("qmm", "im2col3x3"):
+            if hasattr(mod, name):
+                fn = getattr(mod, name)
+                monkeypatch.setattr(mod, name, lambda *a, _f=fn, _n=name, **k:
+                                    calls.append(_n) or _f(*a, **k))
+    before = BK.fused_stride_block_int8.launches
+    got = Q.quantized_trunk_apply(q, x, stage_sizes, torch.float32, **Q.PATH_A)
+    torch.cuda.synchronize()
+    assert BK.fused_stride_block_int8.launches == before + 3 and calls == []
+    assert cosine_distance(got, off) <= 1e-3

@@ -38,6 +38,7 @@ from embodied_clip_tpu_torch.models.convert import (
 from embodied_clip_tpu_torch.models.encoders import build_encoder
 from embodied_clip_tpu_torch.models.resnet import RESNET_CONFIGS
 from embodied_clip_tpu_torch.ops import quantize as Q
+from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
 from embodied_clip_tpu_torch.ops.int8 import avg_pool_int8, max_pool_int8
 from embodied_clip_tpu_torch.parity import cosine_distance
 
@@ -140,7 +141,10 @@ def test_plain_graph_matches_jax_from_the_stem_on(carried, monkeypatch):
     stage_sizes, qj, q, x = carried
     seen = []
     requant = Q.requant
-    monkeypatch.setattr(Q, "requant", lambda *a: seen.append(requant(*a)) or seen[-1])
+    record = lambda *a: seen.append(requant(*a)) or seen[-1]  # noqa: E731
+    monkeypatch.setattr(Q, "requant", record)
+    # The plain graph's stride blocks are the stride-block kernel's plain version.
+    monkeypatch.setattr(BK, "requant", record)
     got = Q.quantized_trunk_apply(q, torch.from_numpy(x), stage_sizes,
                                   out_dtype=torch.float32, **Q.KERNELS_OFF)
     t8 = avg_pool_int8(seen[0], 2)  # the plain graph's first requant is the stem's

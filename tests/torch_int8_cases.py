@@ -54,6 +54,25 @@ def identity_q(rng, cin, cm, nb, prefix="layer3"):
     return q, names
 
 
+def stride_q(rng, cin, cm, cout, name="layer2_0"):
+    """One stride block (block 0 of a later stage) named `name`: cb1 (cin → cm), the 3×3
+    cb2, cb3 (cm → cout), the conv shortcut (cin → cout, f32 HWIO as the quantizer keeps
+    it) and their scales. Returns (q, the block input's scale s_in)."""
+    q = {"act_scales": {}, "fp": {}}
+    a = q["act_scales"]
+    q[f"{name}/cb1"] = qk(rng, cin, cm)
+    q[f"{name}/cb2"] = qk(rng, cm, cm, 3)
+    q[f"{name}/cb3"] = qk(rng, cm, cout)
+    a[f"{name}/cb2.in"] = np.float32(1.5 / 127)
+    a[f"{name}/cb3.in"] = np.float32(1.2 / 127)
+    a[f"{name}/down.out"] = np.float32(1.7 / 127)
+    a[f"{name}.out"] = np.float32(2.1 / 127)
+    q["fp"][f"{name}/down"] = {"conv": {
+        "kernel": (rng.randn(1, 1, cin, cout) / np.sqrt(cin)).astype(np.float32),
+        "bias": (rng.randn(cout) * 0.05).astype(np.float32)}}
+    return q, np.float32(2.0 / 127)
+
+
 # The scale of the planted requants: x / R and x · (1 / R) part on 118 of the 127
 # boundaries n + 0.5 that a requant meets (fl(1 / R) lies below 1 / R by nearly half its
 # ulp), and every value the planted trunks form before a requant is exact in f32.
@@ -102,6 +121,20 @@ def planted_stage1_q(cin=64, cm=64, cout=256):
     q["act_scales"]["stem.out"] = np.float32(2.0 ** -4)
     q["act_scales"]["layer1_0/down.out"] = PLANT_SCALE
     return q
+
+
+def planted_stride_q(cin, cm, cout, name="layer2_0"):
+    """stride_q's layout planted as `planted_stage1_q`: one-hot convs and shortcut, every
+    requant's quotient exactly n + 0.5 (s_in = 2^-4, cb1's w_scale 16R, the shortcut's
+    weight 16R). Returns (q, s_in)."""
+    q = _planted_blocks([name], cin, cm, cout)
+    q[f"{name}/cb1"]["w_scale"][:] = 16 * PLANT_SCALE
+    kernel = np.zeros((1, 1, cin, cout), np.float32)
+    kernel[0, 0, np.arange(cout) % cin, np.arange(cout)] = 16 * PLANT_SCALE
+    q["fp"][f"{name}/down"] = {"conv": {
+        "kernel": kernel, "bias": np.full(cout, PLANT_SCALE / 2, np.float32)}}
+    q["act_scales"][f"{name}/down.out"] = PLANT_SCALE
+    return q, np.float32(2.0 ** -4)
 
 
 def to_torch(qnp, device="cpu"):
