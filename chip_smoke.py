@@ -10,8 +10,10 @@ Phases:
      the SASS of `bottleneck_bf16` (K6/K7) holds wgmma (HGMMA) and no mma.sync (HMMA),
      that of `stem_int8` (K2) bf16 wgmma (HGMMA), that of `bottleneck_int8` (K3-K5)
      s8 wgmma (IGMMA) beside bf16 wgmma (HGMMA: K3's shortcut) and no dp4a (IDP.4A),
-     its stride shortcut (e) bf16 wgmma and its 2×2 pool kernel (f) 128-bit loads and
-     stores, and that of `preprocess` (K1) the 1-D bulk copy (UBLKCP);
+     its stride shortcut (e) bf16 wgmma with both operands from shared memory and no
+     float → bf16 conversion (that is (f')'s, once), its 2×2 pool kernel (f) 128-bit
+     loads and stores (the shortcut's registers and spills printed), and that of
+     `preprocess` (K1) the 1-D bulk copy (UBLKCP);
   3. hold kernel K1 (fused preprocess) to its plain PyTorch version on the card:
      bit-equal at the main path's shape (golden_frames(128), 300x300 → 224), f32 and
      bf16; ≤1.5 uint8 LSB with <1e-3 of pixels flipped at batches 128, 1 and 5, on a
@@ -32,10 +34,13 @@ Phases:
      hold K2 and K3 to their plain versions at ≤1 s8 step on ≤0.5% of elements, K4 and
      K5 bit-exactly, and every stride-block call of both paths with o8 (cb1, cb2, the
      pools) and cb3 (on the kernel's own o8 and id8) bit-exact, id8 and the block output
-     at ≤1 step on ≤0.5% (`parity.stride_block_disagreement`); the
-     stride shortcut's id8 equal to the exact sum's requant, its share apart from the
-     plain graph's f32 product and its near-tie share printed, the library's route of
-     its products beside it (never called by the port on this path); time each kernel
+     at ≤1 step on ≤0.5%, and id8 equal to the exact sum's requant
+     (`parity.stride_block_disagreement`; so on every stride-block call of phases 5,
+     9-11, 13 and 14); each of path A's stride blocks launch by launch: (f') bit-equal to
+     its plain version, (e) equal to the exact sum's requant, its share apart from the
+     plain graph's f32 product and its near-tie share printed, each launch kind timed
+     against its bound ((e) and (f') also replayed from a CUDA graph), the library's
+     route of the block's products beside it (never called by the port); time each kernel
      and its
      plain version on those inputs (back-to-back wrapper calls between CUDA events, as
      every kernel's `ms`; beside it `device_ms`, the calls replayed from a CUDA graph,
@@ -495,8 +500,9 @@ def hold_int8_call(mod, name, args, kw):
 
 def hold_stride_block(args, kw):
     """One recorded stride-block call against its plain version on the same inputs
-    (`parity.stride_block_disagreement`): o8 (cb1, cb2, the pools) bit-exact; id8 within
-    STEP_LIMIT steps on ≤STEP_SHARE_LIMIT of elements; with cb3, the output bit-exact
+    (`parity.stride_block_disagreement`): o8 (cb1, cb2, the pools) bit-exact; id8 equal
+    to the exact sum's requant, and within STEP_LIMIT steps on ≤STEP_SHARE_LIMIT of
+    elements of the plain version's; with cb3, the output bit-exact
     against the plain cb3 of the kernel's own o8 and id8, and against the plain block
     within K3's contract (s8), or for the trunk's conv map apart on ≤STEP_SHARE_LIMIT of
     elements by at most r_res plus the bf16 rounding. Returns (worst s8 step, share of
@@ -514,6 +520,7 @@ def hold_stride_block(args, kw):
     check(BK.fused_stride_block_int8.launches == before + (2 if cb3 else 1),
           "fused_stride_block_int8 launched its kernel")
     check(r["o8_equal"], f"stride block {shape}: o8 (cb1, cb2, the pools) bit-exact vs plain")
+    check(r["id8_exact"], f"stride block {shape}: id8 equal to the exact sum's requant")
     step, share = r["id8_step"], r["id8_share"]
     check(step <= STEP_LIMIT and share <= STEP_SHARE_LIMIT,
           f"stride block {shape}: id8 vs plain {step} steps on {share:.2e} of elements")
@@ -662,7 +669,7 @@ def check_int8_kernels(qenc, frames, card, profile):
     first = {name: paths[INT8_KERNELS[name]] for name, paths in recs.items()}
     results["stem3_requant_pool_int8"].update(stem_yardstick(first))
     results["fused_stage1_int8"].update(stage1_entry(first, card))
-    results["fused_stride_block_int8"].update(stride_block_parts(first))
+    results["fused_stride_block_int8"].update(stride_block_parts(first, card))
     if profile:
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as torch_profile
@@ -729,53 +736,120 @@ def stage1_entry(recs, card):
             "yardstick": "torch.matmul of the bf16 shortcut product, alone"}
 
 
-def stride_block_parts(recs):
-    """Phase 5: on each of path A's stride-block calls, the shortcut launch's id8 against
-    the exact sum's requant (`_shortcut_reference`, must be equal) and against the plain
-    graph's full-f32 product (the share apart is reported), and the share it flagged as
-    near-ties; beside the block, its products alone through the library's route, which
-    the port never calls on this path: `torch._int_mm` for cb1 and cb3, im2col +
-    `torch._int_mm` for cb2 (`ops/int8.qconv_acc`), `torch.matmul` of the bf16 shortcut.
-    (Each launch of the block against its bound: `tools/bench_int8_gemm.py`.)"""
+def stride_block_parts(recs, card):
+    """Phase 5: each of path A's stride-block calls launch by launch, each launch on the
+    inputs the one before it wrote: (f') (the pool + scale of the block input) bit-equal
+    to its plain version, the shortcut (e)'s id8 equal to the exact sum's requant
+    (`_shortcut_reference`) and against the plain graph's full-f32 product (the share
+    apart is reported), the share it flagged as near-ties; each launch kind timed alone
+    against its bound (`ms` by CUDA events around back-to-back calls; (e) and (f') also
+    `device_ms`, replayed from a CUDA graph). Beside the block, its products alone
+    through the library's route, which the port never calls on this path:
+    `torch._int_mm` for cb1 and cb3, im2col + `torch._int_mm` for cb2
+    (`ops/int8.qconv_acc`), `torch.matmul` of the bf16 shortcut (f32 out, no requant).
+    (Every launch of both paths against its bound: `tools/bench_int8_gemm.py`.)"""
     import torch
 
     from embodied_clip_tpu_torch.ops.int8 import avg_pool_int8, qconv_acc, qmm
     from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
 
     bits = torch.tensor([bin(i).count("1") for i in range(256)], device="cuda")
-    library_ms, flagged, apart, exact = 0.0, [], [], True
+    library_ms, flagged, apart, exact, pool_equal = 0.0, [], [], True, True
+    kinds, stages = {}, []
     for args, kw, _ in recs["fused_stride_block_int8"]:
         x8, ops = args
         recip, scl = kw.get("recip", False), ops["scl"]
-        cin, cm = x8.shape[-1], ops["k2"].shape[-1]
-        xp = avg_pool_int8(x8, 2)
-        sc8, ties = BK._shortcut(xp, ops, BK._ptr(scl, 0), BK._ptr(scl, 3), recip)
-        want = BK._shortcut_reference(xp, ops["wsc"], ops["bsc"], scl[0], scl[3], recip)
-        plain = BK._stride_shortcut_reference(xp, ops["wsc"], ops["bsc"], scl[0], scl[3], recip)
+        n, h, w, cin = x8.shape
+        cm, cout = ops["k2"].shape[-1], ops["wsc"].shape[-1]
+        m, mp = n * h * w, n * (h // 2) * (w // 2)
+
+        def s8(shape):
+            return torch.empty(shape, dtype=torch.int8, device="cuda")
+
+        q1, q2, out = s8((n, h, w, cm)), s8((n, h, w, cm)), s8((n, h // 2, w // 2, cout))
+        k1t, k2t, k3t = (BK._kmajor_copy(ops, k) for k in ("k1", "k2", "k3"))
+        b = BK._ptr
+        parts = {}  # kind: (launch, (bytes, s8 ops, bf16 ops))
+
+        def cb1():
+            BK._conv1x1(x8, k1t, ops["s1"], ops["b1"], b(scl, 1), q1, recip=recip)
+
+        def cb2():
+            BK._conv3x3(q1, k2t, ops["s2"], ops["b2"], b(scl, 2), q2, recip=recip)
+
+        cb1()
+        cb2()
+        o8 = BK._avg_pool2(q2)
+        x0, rnorm = BK._pool2_scale(x8, b(scl, 0))
+        sc8, ties = BK._shortcut(x0, rnorm, ops, b(scl, 3), recip)
+
+        def cb3():
+            BK._conv1x1(o8, k3t, ops["s3"], ops["b3"], b(scl, 4), out, res=sc8,
+                        r_res_ptr=b(scl, 3), recip=recip)
+
+        vec = 4 * 2  # a scale and a bias, f32
+        parts["(a) cb1"] = (cb1, (m * cin + cin * cm + vec * cm + m * cm, 2 * m * cin * cm, 0))
+        parts["(b) cb2"] = (cb2, (2 * m * cm + 9 * cm * cm + vec * cm, 2 * m * 9 * cm * cm, 0))
+        parts["(f) pool"] = (lambda: BK._avg_pool2(q2), (m * cm + mp * cm, 0, 0))
+        parts["(f') pool + scale"] = (lambda: BK._pool2_scale(x8, b(scl, 0)),
+                                      (m * cin + 2 * mp * cin + 4 * mp, 0, 0))
+        parts["(e) shortcut"] = (lambda: BK._shortcut(x0, rnorm, ops, b(scl, 3), recip),
+                                 (2 * mp * cin + 4 * mp + 2 * cin * cout + vec * cout
+                                  + mp * cout, 0, 2 * mp * cin * cout))
+        parts["(a) cb3"] = (cb3, (2 * mp * cm + cm * cout + vec * cout + 2 * mp * cout,
+                                  2 * mp * cm * cout, 0))
+        want_x0, want_rnorm = BK.pool2_scale_reference(x8, scl[0])
+        want = BK._shortcut_reference(avg_pool_int8(x8, 2), ops["wsc"], ops["bsc"], scl[0],
+                                      scl[3], recip)
+        plain = BK._stride_shortcut_reference(avg_pool_int8(x8, 2), ops["wsc"], ops["bsc"],
+                                              scl[0], scl[3], recip)
         torch.cuda.synchronize()
+        pool_equal &= torch.equal(x0, want_x0) and torch.equal(rnorm, want_rnorm)
         exact &= torch.equal(sc8, want)
         apart.append(float((sc8 != plain).float().mean()))
         flagged.append(int(bits[ties.view(torch.uint8).long()].sum()) / sc8.numel())
-        # cb2's and cb3's inputs at their shapes (the products' times do not depend on
-        # the values).
-        q1 = torch.zeros((*x8.shape[:-1], cm), dtype=torch.int8, device="cuda")
-        o8 = torch.zeros((*xp.shape[:-1], cm), dtype=torch.int8, device="cuda")
-        a16 = (xp.reshape(-1, cin).float() * scl[0]).to(torch.bfloat16)
+        stage = {"x": list(x8.shape), "shortcut_flagged": flagged[-1]}
+        for kind, (fn, work) in parts.items():
+            k_ms = cuda_ms(fn, 10)
+            b_ms, b_by = bound(work, card)
+            row = kinds.setdefault(kind, {"ms": 0.0, "bound_ms": 0.0, "launches": 0})
+            row["ms"] += k_ms
+            row["bound_ms"] += b_ms
+            row["launches"] += 1
+            row["bound_by"] = b_by
+            stage[kind] = {"ms": k_ms, "bound_ms": b_ms, "bound_by": b_by}
+            if kind.startswith(("(e)", "(f')")):
+                d_ms = graph_ms(fn)
+                stage[kind]["device_ms"] = d_ms
+                row["device_ms"] = row.get("device_ms", 0.0) + d_ms
+                print(f"[5] stride block {tuple(x8.shape)} {kind}: {k_ms:.4f} ms ({d_ms:.4f} "
+                      f"ms on the device), {b_ms / k_ms:.1%} of its bound {b_ms:.4f} ms by "
+                      f"{b_by} ({b_ms / d_ms:.1%} on the device)")
+        stages.append(stage)
+        a16 = (avg_pool_int8(x8, 2).reshape(-1, cin).float() * scl[0]).to(torch.bfloat16)
         library_ms += (cuda_ms(lambda: qmm(x8.reshape(-1, cin), ops["k1"]), 10)
                        + cuda_ms(lambda: qconv_acc(q1, ops["k2"]), 5)
                        + cuda_ms(lambda: qmm(o8.reshape(-1, cm), ops["k3"]), 10)
                        + cuda_ms(lambda: torch.matmul(a16, ops["wsc"]), 10))
-        print(f"[5] stride block {tuple(x8.shape)}: the shortcut flagged {flagged[-1]:.3e} of "
-              f"id8 as near-ties; id8 equal to the exact sum's requant: "
-              f"{torch.equal(sc8, want)}; apart from the plain graph's full-f32 product on "
-              f"{apart[-1]:.3e}")
+        print(f"[5] stride block {tuple(x8.shape)}: (f') bit-equal to its plain version: "
+              f"{torch.equal(x0, want_x0) and torch.equal(rnorm, want_rnorm)}; the shortcut "
+              f"flagged {flagged[-1]:.3e} of id8 as near-ties; id8 equal to the exact sum's "
+              f"requant: {torch.equal(sc8, want)}; apart from the plain graph's full-f32 "
+              f"product on {apart[-1]:.3e}")
+    check(pool_equal, "the stride blocks' pool + scale (f') bit-equal to its plain version")
     check(exact, "the stride shortcut's id8 equals the exact sum's requant on every element")
+    for kind, row in kinds.items():
+        print(f"[5] the stride blocks' {kind} launches: {row['ms']:.4f} ms over "
+              f"{row['launches']} against bounds of {row['bound_ms']:.4f} ms "
+              f"({row['bound_ms'] / row['ms']:.1%})"
+              + (f"; {row['device_ms']:.4f} ms on the device" if "device_ms" in row else ""))
     print(f"[5] the stride blocks' products alone through the library's route "
           f"(torch._int_mm, im2col + torch._int_mm, torch.matmul bf16): {library_ms:.4f} ms")
     return {"library_ms": library_ms,
             "library_route": "the block's products alone: torch._int_mm (cb1, cb3), im2col + "
                              "torch._int_mm (cb2), torch.matmul of bf16 (the shortcut)",
-            "shortcut_flagged": flagged, "id8_apart_from_plain_f32": apart}
+            "shortcut_flagged": flagged, "id8_apart_from_plain_f32": apart,
+            "launch_kinds": kinds, "per_block": stages}
 
 
 def check_bf16_kernels(encoders, frames, card):
@@ -2990,6 +3064,56 @@ def check_int8_options(qenc, iqenc, iref, f32_ref, g8, g128, x128, card, smi):
     return out
 
 
+def stride_block_sass(sass: str, log: str) -> None:
+    """Phase 2: the stride blocks' launches in `bottleneck_int8`'s SASS: the pool (f)
+    moves 16 bytes a thread each way (128-bit loads and stores); the shortcut (e) runs on
+    bf16 wgmma with both operands from shared memory (every HGMMA takes A by descriptor,
+    `gdesc[…]`, where K3's entry takes it from registers) and holds no float → bf16
+    conversion (F2FP), which is (f')'s, once per element. Prints the shortcut's registers
+    and spills from ptxas's report in the build log."""
+    import re
+
+    funcs = {f.splitlines()[0]: f for f in sass.split("Function : ")[1:]}
+
+    def of(name):
+        return [f for k, f in funcs.items() if name in k]
+
+    def hgmma(f):
+        return [ln.strip() for ln in f.splitlines() if "HGMMA." in ln]
+
+    pool, shortcut, scale, entry = (of(n) for n in ("avg_pool2_s8_kernel", "shortcut_kernel",
+                                                    "pool2_scale_kernel", "entry_kernel"))
+    wide = [sum(1 for ln in f.splitlines() if op in ln and ".128" in ln)
+            for f in pool for op in ("LDG", "STG")]
+    ss = re.compile(r"HGMMA\.\S+\s+R\d+\s*,\s*gdesc\[")
+    lines = [hgmma(f) for f in shortcut]
+    print(f"[2] bottleneck_int8 SASS: the 2x2 pool kernel's 128-bit loads, stores {wide}; "
+          f"the stride shortcut's {len(shortcut)} instantiations hold "
+          f"{[len(x) for x in lines]} HGMMA, "
+          f"{[sum(bool(ss.search(ln)) for ln in x) for x in lines]} of them with A from "
+          f"shared memory, {[f.count('F2FP') for f in shortcut]} F2FP; the pool + scale "
+          f"kernel {[f.count('F2FP') for f in scale]} F2FP")
+    for label, fs in (("stride shortcut (e)", shortcut), ("K3 entry (d)", entry)):
+        if fs and hgmma(fs[0]):
+            print(f"[2]   {label}, an HGMMA: {hgmma(fs[0])[0]}")
+    check(len(pool) == 1 and wide[0] >= 4 and wide[1] >= 1,
+          "the 2x2 pool kernel loads and stores 16 bytes a thread")
+    check(len(shortcut) == 2 and all(x and all(ss.search(ln) for ln in x) for x in lines),
+          "the stride shortcut runs on bf16 wgmma with both operands from shared memory")
+    check(all("F2FP" not in f for f in shortcut) and len(scale) == 1 and "F2FP" in scale[0],
+          "the stride shortcut converts nothing to bf16; the pool + scale kernel does, once")
+    name, report = None, {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        elif name and "shortcut_kernel" in name and ("spill" in line or "Used" in line):
+            report.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    for k, v in report.items():
+        print(f"[2]   ptxas, {k}: {'; '.join(v)}")
+    check(len(report) == 2, "ptxas reported the stride shortcut's registers and spills")
+
+
 def main(argv) -> int:
     import torch
 
@@ -3042,20 +3166,7 @@ def main(argv) -> int:
         check(all(counts.values()) and n_banned == 0,
               f"{src} holds {', '.join(wants)}" + (f" and no {banned}" if banned else ""))
         if src == "bottleneck_int8":
-            # The stride blocks' launches: the pool (f) moves 16 bytes a thread each way
-            # (128-bit loads and stores), the shortcut (e) runs on bf16 wgmma.
-            funcs = {f.splitlines()[0]: f for f in sass.split("Function : ")[1:]}
-            pool = [f for k, f in funcs.items() if "avg_pool2_s8_kernel" in k]
-            shortcut = [f for k, f in funcs.items() if "shortcut_kernel" in k]
-            wide = [sum(1 for ln in f.splitlines() if op in ln and ".128" in ln)
-                    for f in pool for op in ("LDG", "STG")]
-            print(f"[2] bottleneck_int8 SASS: the 2x2 pool kernel's 128-bit loads, stores "
-                  f"{wide}; the stride shortcut's {len(shortcut)} instantiations hold "
-                  f"{[f.count('HGMMA.') for f in shortcut]} HGMMA")
-            check(len(pool) == 1 and wide[0] >= 4 and wide[1] >= 1,
-                  "the 2x2 pool kernel loads and stores 16 bytes a thread")
-            check(len(shortcut) == 2 and all("HGMMA." in f for f in shortcut),
-                  "the stride shortcut runs on bf16 wgmma")
+            stride_block_sass(sass, _build.build_log(src))
 
     # Full-f32 references: cuDNN convs and cuBLAS matmuls default to TF32 otherwise.
     torch.backends.cudnn.allow_tf32 = False

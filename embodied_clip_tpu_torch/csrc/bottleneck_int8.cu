@@ -22,11 +22,14 @@
 //                              conv shortcut (bf16 operands, f32 sum, signed s8
 //                              requant) from one read of each x8 tile
 //   (e) shortcut_kernel        the stride blocks' conv shortcut alone (d's shortcut half
-//                              at any width, the weights streamed), on the pooled input
+//                              at any width, the weights streamed), on (f')'s bf16 x0,
+//                              both operands read from shared memory
 //   (f) avg_pool2_s8_kernel    the exact 2×2 integer mean pool of an NHWC s8 tensor
+//   (f') pool2_scale_kernel    that pool of the block input, scaled and rounded to bf16
+//                              once (the shortcut's A operand), and its rows' norms
 // The stride blocks (block 0 of stages 2-4) have no TPU kernel: the JAX package leaves
 // them to XLA's s8 convolutions (embodied_clip_tpu/ops/quantize.py:545-609). The wrapper
-// fused_stride_block_int8 runs them as (a) cb1, (b) cb2, (f) on cb2's output and on the
+// fused_stride_block_int8 runs them as (a) cb1, (b) cb2, (f) on cb2's output, (f') on the
 // block input, (e), and (a) cb3 with the residual epilogue; the int8-stem options run
 // their s8 stem convs through (b) and (f).
 //
@@ -102,10 +105,8 @@
 // Outputs are deterministic: no split-K, no atomics.
 //
 // What holds it back now (tools/bench_int8_gemm.py on NVIDIA H100 80GB HBM3 at 700 W):
-// the epilogues' per-element arithmetic. The stride blocks' shortcut (e) runs at ~5% of
-// its bf16 bound (tools/bench_int8_gemm.py): its A operand is converted from s8 in
-// registers for every 128-column tile, and each 32-k group waits for the tensor cores
-// before its IEEE add. K4's launches and the residual (a) run at
+// the epilogues' per-element arithmetic (the stride blocks' shortcut (e): its design
+// note). K4's launches and the residual (a) run at
 // 15-30% of their bound, and the (b) launches (K = 1152-4608 per output) reach 46-49% of
 // the int8 peak. PERF.md §6 has the RECIP forms' times (chip_smoke.py phase 14 (a)).
 // Measured and not kept: the
@@ -788,13 +789,6 @@ __device__ __forceinline__ void wgmma_s8_n(int (&d)[48], uint64_t a, uint64_t b)
   wgmma_s8_n96(d, a, b);
 }
 
-template <int R>
-__device__ __forceinline__ void promote(float (&acc)[R], float (&d)[R]) {
-  fence_regs(d);
-#pragma unroll
-  for (int i = 0; i < R; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
-}
-
 // Two s8 (bytes 0, 1 of u) → bf16(float(x)·s) each, packed low k first: the A operand of
 // the shortcut.
 __device__ __forceinline__ uint32_t shortcut_pair(uint32_t u, float s) {
@@ -1144,96 +1138,137 @@ __global__ void __launch_bounds__(kThreads, 1) entry_kernel(const __grid_constan
   flush();
 }
 
-// (e) the stride blocks' conv shortcut: sc8 = requant_signed(bf16(float(xp)·s_in)·wsc + bsc,
-// dsc) for the pooled block input xp (M, K) s8 and wsc (K, N) bf16, K and N any multiples
-// of 16 (RN50 256→512 … 1024→2048, RN50x16 384→768 … 1536→3072). It is the shortcut half
-// of (d) with the weights streamed: at these widths wsc (up to 9 MB) is no longer resident.
-// Per 128 × 128 output tile (each consumer warpgroup 64 rows, all 128 columns), the
-// producer streams 128-k chunks of xp (128 × 128 s8) and of wsc (128 k-rows × 128 columns
-// as two 64-column N-major panels) through a 3-stage ring. Each consumer converts its rows
-// of the chunk to bf16 A fragments in registers (the reference's op order, as (d)) and
-// issues the products in 32-k groups, each summed on the tensor cores in fresh registers
-// and added to the sum with IEEE adds in k order; the groups alternate between two
-// register sets, so that group g + 1 runs on the tensor cores while group g is added.
-// ptxas gives this kernel 168 registers a thread: with one set it spilled an accumulator
-// and serialized the wgmmas (C7512), and the shortcut took 1.78 ms an encode against
-// 1.55 with two (tools/bench_int8_gemm.py, NVIDIA H100 80GB HBM3). Near-ties are
-// flagged and summed again exactly as in (d): the margin is (128 + G) · 2^-24 · S for G =
-// ceil(K / 32) groups (the argument at kTieMargin, with G free), its per-column factor
-// margin · ||wsc[:, c]||₂ / dsc computed by shortcut_margin_kernel before the launch, and
-// the exact sums read xp and the K-major copy wsct (N, K) from device memory. sc8 equals
-// the exact f32 sum's requant (f64 products and sum, rounded once) on every element.
-constexpr int kScStages = 3;
-constexpr int kScPanel = 128 * 128;            // 128 k-rows × 64 bf16 columns
-constexpr int kScStage = 128 * kBK + 2 * kScPanel;  // an xp chunk and a wsc chunk: 48 KB
+// (e) the stride blocks' conv shortcut: sc8 = requant_signed(x0 · wsc + bsc, dsc) for x0
+// (M, K) bf16, the pooled and scaled block input that (f') wrote, and wsc (K, N) bf16, K and
+// N any multiples of 16 (RN50 256→512 … 1024→2048, RN50x16 384→768 … 1536→3072); it is the
+// shortcut half of (d) with the weights streamed: at these widths wsc (up to 9 MB) is no
+// longer resident. Bound by its bf16 operations at batch 128 (RN50: 79 GFLOP over the three
+// blocks, 0.080 ms at 989 TFLOP/s).
+// Design: x0 is converted once, by (f'), so both operands come from shared memory.
+// Per 128 × 128 output tile (each consumer warpgroup 64 rows, all 128 columns; row panels
+// outer, so the blocks running at once share an x0 panel and wsc stays in L2), the producer
+// streams 64-k chunks through a 5-stage ring: x0's 128 rows × 64 k (one 128-byte swizzle row
+// of bf16, K-major) and wsc's 64 k-rows × 128 columns as two 64-column N-major panels, both
+// by TMA. Each consumer issues a chunk's two 32-k groups from shared memory by descriptor
+// (wgmma SS, the transpose bit on B: no A-fragment registers, no conversion), each summed on
+// the tensor cores in its own fresh registers, and adds them to the running f32 sum with IEEE
+// adds in k order; the first group's adds run while the tensor cores work on the second, and
+// the other warpgroup's groups fill the tensor cores while this one adds (K6/K7's schedule,
+// csrc/bottleneck_bf16.cu). Near-ties are flagged and summed again exactly as in (d): the
+// margin is (128 + G) · 2^-24 · S for G = ceil(K / 32) groups (the argument at kTieMargin,
+// with G free; the promotion interval stays 32 k), S ≤ ||x0 row||₂ · ||wsc[:, c]||₂. The row
+// norms come from (f'); the columns' factors margin · ||wsc[:, c]||₂ / dsc (rounded up,
+// widened by 2^-20 for the reciprocal form's quotient) are built once with the operands
+// (ops/kernels/bottleneck_kernel.py `shortcut_margins`). The epilogue takes the quotient by
+// the reciprocal in both forms and leaves the division to the flagged elements (see rq). The
+// exact sums, after the last tile, read x0 and the K-major copy wsct (N, K) from L2, four
+// lanes an element (exact_shortcut_group). sc8 equals the exact f32 sum's requant on every
+// element.
+// What holds it back (tools/bench_int8_gemm.py --source, the three calls of a batch-128
+// encode, NVIDIA H100 80GB HBM3 at 700 W, versions compared within one run): the exact
+// re-summation of the 0.4-1.1% of elements flagged as near-ties, about half the launch (a
+// build without it: 0.3600 against 0.6047 ms), bound by L2: each flagged element reads a
+// row of x0 and a column of wsc, at stage 4 more bytes than the product itself; and the
+// per-element epilogue (a build without its arithmetic: 0.2009 against 0.3600). Measured and
+// not kept: the next chunk's first group issued before this chunk's second is added (1.0079
+// against 1.0024 ms); a 16-k promotion interval (margin (64 + G)): 0.6067 against 0.6057;
+// warpgroup 1 started two chunks behind warpgroup 0, to stagger the epilogues: 0.5365
+// against 0.5151; one, two or eight lanes an exact sum against four: the flush 0.37 ms
+// against 0.245, 0.5804 and 0.5726 against 0.5151 and 0.5026 ms; flushing whenever a list
+// holds 512 words, or after every tile: 0.6187 and 0.8035 against 0.5015 ms.
+constexpr int kScBK = 64;                          // k per chunk: a 128-byte row of bf16
+constexpr int kScStages = 5;
+constexpr int kScA = 128 * kScBK * 2;              // an x0 chunk: 128 rows × 64 k (16 KB)
+constexpr int kScPanel = 64 * 64 * 2;              // 64 k-rows × 64 columns of wsc (8 KB)
+constexpr int kScStage = kScA + 2 * kScPanel;      // 32 KB
 constexpr int kScSmem = 1024 + kScStages * kScStage + 4 * kSlot + 4 * (2 * kTieCap + 2) +
                         8 * 2 * kScStages;
 static_assert(kScSmem <= kSmemLimit, "more shared memory than an H100 block may have");
 
 struct ShortcutParams {
-  CUtensorMap x8, wsc, sc;  // TMA descriptors (see ect_shortcut_s8)
-  const float* s_in;
+  CUtensorMap x0, wsc, sc;  // TMA descriptors (see ect_shortcut_s8)
+  const float* rnorm;       // (M) ||x0 row||₂, rounded up, from (f')
+  const float* colm;        // (N) the columns' margin factors
   const float* bsc;
   const float* dsc;
-  const float* colm;           // (N) the columns' margin factors (shortcut_margin_kernel)
-  const int8_t* x8p;           // xp (M, K) in device memory, for the exact sums
-  const __nv_bfloat16* wsct;   // wsc's K-major copy (N, K), for the exact sums
+  const __nv_bfloat16* x0p;   // x0 (M, K) in device memory, for the exact sums
+  const __nv_bfloat16* wsct;  // wsc's K-major copy (N, K), for the exact sums
   int8_t* sc8p;
   uint64_t* ties;  // the flag words: [tile][consumer thread]
   int M, K, N, chunks, n_tiles, tiles;
 };
 
-// colm[c] = margin · ||wsct[c, :]||₂ / dsc, rounded up, then widened by 2^-20 so that it
-// also bounds the margin in units of the reciprocal form's quotient. One warp a column.
-__global__ void shortcut_margin_kernel(const __nv_bfloat16* __restrict__ wsct, int K, int N,
-                                       const float* dsc, float margin, float* colm) {
-  const int c = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32, lane = threadIdx.x & 31;
-  if (c >= N) return;
-  float m = 0.0f;
-  for (int k = 8 * lane; k < K; k += 256) {
-    const int4 v = __ldg(reinterpret_cast<const int4*>(wsct + (size_t)c * K + k));
-    const uint32_t* u = reinterpret_cast<const uint32_t*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = __uint_as_float(u[i] << 16), b = __uint_as_float(u[i] & 0xFFFF0000u);
-      m = __fmaf_ru(b, b, __fmaf_ru(a, a, m));
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = __fadd_ru(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if (lane == 0)
-    colm[c] = __fmul_ru(__fdiv_ru(__fmul_ru(margin, __fsqrt_ru(m)), __ldg(dsc)), 1.000001f);
+// requant_quotient(v) and near_tie(v, margin) from one t = |v| + 0.5 (for (e)'s epilogue):
+// the requant is sign(v) · trunc(min(t, 127)), the same value; v is near a boundary when t
+// lies within margin (plus 8 rounding steps of |v|) of an integer up to 127. 2^23 + t
+// rounded to nearest or toward zero gives t's nearest integer or its integer part: exact
+// adds, and no conversion instruction (16 a clock on an SM, against 128 adds).
+__device__ __forceinline__ int8_t requant_near_tie(float v, float margin, bool& tie) {
+  const float av = fabsf(v), t = fminf(__fadd_rn(av, 0.5f), 127.5f);
+  const float n = __fsub_rn(__fadd_rn(t, 8388608.0f), 8388608.0f);
+  tie = fabsf(__fsub_rn(t, n)) <= margin + 4.8e-7f * av;
+  const int q = __float_as_int(__fadd_rz(fminf(t, 127.0f), 8388608.0f)) - 0x4B000000;
+  return static_cast<int8_t>(v < 0.0f ? -q : q);
 }
 
-// The exact shortcut sum of xp row xrow and column c (wcol = wsct + c·K), in k order,
-// rounded once to f32; its signed requant (d: dsc, or 1 / dsc with RECIP).
-template <bool RECIP>
-__device__ __noinline__ int8_t exact_shortcut_any(const int8_t* xrow, const __nv_bfloat16* wcol,
-                                                  int K, float s_in, float b, float d) {
-  double sum = 0.0;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    const int4 xv = __ldg(reinterpret_cast<const int4*>(xrow + k0));
-    int4 wv[2];
-    wv[0] = __ldg(reinterpret_cast<const int4*>(wcol + k0));
-    wv[1] = __ldg(reinterpret_cast<const int4*>(wcol + k0 + 8));
-    const int8_t* xs = reinterpret_cast<const int8_t*>(&xv);
-    const __nv_bfloat16* ws = reinterpret_cast<const __nv_bfloat16*>(wv);
+// The exact shortcut sum of x0 row xrow and column c (wcol = wsct + c·K) by the LANES
+// lanes sub = lane % LANES of a group, each summing k = 8·LANES·i + 8·sub … + 7 (so the
+// group's loads read 16·LANES contiguous bytes of each operand: whole 32-byte sectors),
+// shuffled together, rounded once to f32; its signed requant (d: dsc, or 1 / dsc with
+// RECIP), for every lane of the group. The product of two bf16 is exact in f32 (16
+// significant bits), and the f64 sum of the products is exact at these widths (they span
+// fewer than 53 bits), so the order is free: each lane keeps 8 loads of each operand in
+// flight and adds each product, converted once, into one of four partial sums. A flush is
+// bound by these loads (a row of x0 and a column of wsc from L2 for every flagged element)
+// and by the conversions (16 a clock on an SM).
+template <int LANES, bool RECIP>
+__device__ __noinline__ int8_t exact_shortcut_group(const __nv_bfloat16* xrow,
+                                                    const __nv_bfloat16* wcol, int K, float b,
+                                                    float d, int sub) {
+  double part[4] = {0.0, 0.0, 0.0, 0.0};
+  auto add8 = [](const int4& xv, const int4& wv, double& sum) {
+    const uint32_t* xs = reinterpret_cast<const uint32_t*>(&xv);
+    const uint32_t* ws = reinterpret_cast<const uint32_t*>(&wv);
 #pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const float x0 =
-          __bfloat162float(__float2bfloat16_rn(__fmul_rn(static_cast<float>(xs[k]), s_in)));
-      sum = fma(static_cast<double>(x0), static_cast<double>(__bfloat162float(ws[k])), sum);
+    for (int i = 0; i < 4; ++i) {  // two bf16 a word: the low one is k, the high one k + 1
+      sum += static_cast<double>(
+          __fmul_rn(__uint_as_float(xs[i] << 16), __uint_as_float(ws[i] << 16)));
+      sum += static_cast<double>(
+          __fmul_rn(__uint_as_float(xs[i] & 0xFFFF0000u), __uint_as_float(ws[i] & 0xFFFF0000u)));
     }
+  };
+  const int4* xq = reinterpret_cast<const int4*>(xrow) + sub;  // the group's int4 i: LANES·i + sub
+  const int4* wq = reinterpret_cast<const int4*>(wcol) + sub;
+  const int steps = K / (8 * LANES);  // whole steps of the group
+  int i = 0;
+  for (; i + 8 <= steps; i += 8) {
+    int4 xv[8], wv[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      xv[j] = __ldg(xq + LANES * (i + j));
+      wv[j] = __ldg(wq + LANES * (i + j));
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) add8(xv[j], wv[j], part[j & 3]);
   }
+  for (; i < steps; ++i) add8(__ldg(xq + LANES * i), __ldg(wq + LANES * i), part[0]);
+  if (8 * (LANES * steps + sub) < K)  // the last K mod 8·LANES (a multiple of 16)
+    add8(__ldg(xq + LANES * steps), __ldg(wq + LANES * steps), part[0]);
+  double sum = (part[0] + part[1]) + (part[2] + part[3]);
+#pragma unroll
+  for (int o = 1; o < LANES; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
   return requant_quotient(quotient<RECIP>(__double2float_rn(sum), b, d));
 }
+
+// Lanes that share one flagged element's exact sum in a flush.
+constexpr int kFlushLanes = 4;
 
 template <bool RECIP>
 __global__ void __launch_bounds__(kThreads, 1) shortcut_kernel(const __grid_constant__ ShortcutParams p) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  uint8_t* ring = base;                              // kScStages × (xp chunk, wsc panels)
+  uint8_t* ring = base;                              // kScStages × (x0 chunk, wsc panels)
   uint8_t* staging = ring + kScStages * kScStage;    // 2 warpgroups × 2 slots
   uint32_t* tie_refs = reinterpret_cast<uint32_t*>(staging + 4 * kSlot);  // 2 × kTieCap
   int* tie_count = reinterpret_cast<int*>(tie_refs + 2 * kTieCap);        // one per warpgroup
@@ -1244,7 +1279,7 @@ __global__ void __launch_bounds__(kThreads, 1) shortcut_kernel(const __grid_cons
   if (tid == 0) {
     for (int s = 0; s < kScStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 256);  // every consumer thread: each reads A from the stage
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
     }
     tie_count[0] = tie_count[1] = 0;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -1252,7 +1287,7 @@ __global__ void __launch_bounds__(kThreads, 1) shortcut_kernel(const __grid_cons
   __syncthreads();
 
   if (tid >= 256) {
-    // ---- producer warpgroup: one thread streams the xp and wsc chunks of every tile ----
+    // ---- producer warpgroup: one thread streams the x0 and wsc chunks of every tile ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid == 256) {
       int stage = 0, phase = 0;
@@ -1262,9 +1297,9 @@ __global__ void __launch_bounds__(kThreads, 1) shortcut_kernel(const __grid_cons
           mbar_wait(&empty[stage], phase ^ 1);
           mbar_expect_tx(&full[stage], kScStage);
           uint8_t* st = ring + stage * kScStage;
-          tma_load_2d(st, &p.x8, &full[stage], t * kBK, m0);
-          tma_load_2d(st + 128 * kBK, &p.wsc, &full[stage], n0, t * kBK);
-          tma_load_2d(st + 128 * kBK + kScPanel, &p.wsc, &full[stage], n0 + 64, t * kBK);
+          tma_load_2d(st, &p.x0, &full[stage], t * kScBK, m0);
+          tma_load_2d(st + kScA, &p.wsc, &full[stage], n0, t * kScBK);
+          tma_load_2d(st + kScA + kScPanel, &p.wsc, &full[stage], n0 + 64, t * kScBK);
           if (++stage == kScStages) {
             stage = 0;
             phase ^= 1;
@@ -1280,8 +1315,13 @@ __global__ void __launch_bounds__(kThreads, 1) shortcut_kernel(const __grid_cons
   const int wg = tid >> 7, lt = tid & 127, warp = lt >> 5, lane = lt & 31;
   const int t = lane & 3;
   const int rt = 16 * warp + (lane >> 2);  // rows rt and rt + 8 of this warpgroup's 64
-  const float s_in = __ldg(p.s_in), d = requant_scale<RECIP>(p.dsc);
-  float acc[64], part[64], part2[64];
+  const float d = requant_scale<RECIP>(p.dsc);
+  // The epilogue's quotient is (acc + b) · (1 / dsc) in both forms: in the division form it
+  // lies within 3 rounding steps of (acc + b) / dsc, inside near_tie's allowance of 8 for
+  // the add and the quotient, so an element whose two quotients requant apart is flagged
+  // and divided exactly in the flush. (A division an element took 16% of the launch.)
+  const float rq = requant_scale<true>(p.dsc);
+  float acc[64], part0[64], part1[64];
   int stage = 0, phase = 0, nslot = 0;
 
   auto stage_out = [&](int col0, int row0, auto write) {
@@ -1300,6 +1340,9 @@ __global__ void __launch_bounds__(kThreads, 1) shortcut_kernel(const __grid_cons
 
   // As (d)'s flush: sums the flagged elements of this warpgroup's listed words again
   // exactly and empties the list, once every TMA store the warpgroup issued has landed.
+  // Each warp takes 32 listed words at a time and shares their flagged elements out, one
+  // to each group of kFlushLanes lanes (a word may hold several; one lane summing all of
+  // a word's left the rest of its warp waiting).
   auto flush = [&]() {
     if (lt == 0) {
       bulk_wait();
@@ -1307,22 +1350,51 @@ __global__ void __launch_bounds__(kThreads, 1) shortcut_kernel(const __grid_cons
     }
     named_sync(1 + wg);
     const int listed = tie_count[wg];
-    for (int j = lt; j < listed; j += 128) {
-      const uint32_t ref = tie_refs[wg * kTieCap + j];
-      const int tile = blockIdx.x + static_cast<int>(ref >> 8) * gridDim.x;
-      const int owner = ref & 255, olane = owner & 31;
-      const int orow =
-          (tile / p.n_tiles) * 128 + 64 * wg + 16 * ((owner & 127) >> 5) + (olane >> 2);
-      const int ocol = (tile % p.n_tiles) * 128 + 2 * (olane & 3);
-      uint64_t ties = p.ties[static_cast<size_t>(tile) * 256 + owner];
-      while (ties) {
-        const int i = __ffsll(static_cast<long long>(ties)) - 1;
-        ties &= ties - 1;
-        const int row = orow + 8 * ((i >> 1) & 1), c = ocol + 8 * (i >> 2) + (i & 1);
-        if (row < p.M && c < p.N)
-          p.sc8p[static_cast<size_t>(row) * p.N + c] = exact_shortcut_any<RECIP>(
-              p.x8p + static_cast<size_t>(row) * p.K, p.wsct + static_cast<size_t>(c) * p.K, p.K,
-              s_in, __ldg(p.bsc + c), d);
+    for (int j0 = 32 * warp; j0 < listed; j0 += 128) {
+      uint64_t ties = 0;
+      int orow = 0, ocol = 0;
+      if (j0 + lane < listed) {
+        const uint32_t ref = tie_refs[wg * kTieCap + j0 + lane];
+        const int tile = blockIdx.x + static_cast<int>(ref >> 8) * gridDim.x;
+        const int owner = ref & 255, olane = owner & 31;
+        orow = (tile / p.n_tiles) * 128 + 64 * wg + 16 * ((owner & 127) >> 5) + (olane >> 2);
+        ocol = (tile % p.n_tiles) * 128 + 2 * (olane & 3);
+        ties = p.ties[static_cast<size_t>(tile) * 256 + owner];
+      }
+      // The words' flagged elements numbered in lane order: lane l's are incl - n … incl - 1.
+      const int n = __popcll(static_cast<long long>(ties));
+      int incl = n;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      const int total = __shfl_sync(0xffffffffu, incl, 31);
+      // 32 / kFlushLanes elements at a time, one a group of kFlushLanes lanes.
+      for (int e0 = 0; e0 < total; e0 += 32 / kFlushLanes) {
+        const int e = e0 + lane / kFlushLanes;
+        int src = 0;  // the lane whose word holds element e: the first with incl > e
+#pragma unroll
+        for (int step = 16; step > 0; step >>= 1)
+          if (__shfl_sync(0xffffffffu, incl, src + step - 1) <= e) src += step;
+        uint64_t w = __shfl_sync(0xffffffffu, ties, src);
+        const int rank = e - (__shfl_sync(0xffffffffu, incl, src) -
+                              __shfl_sync(0xffffffffu, n, src));
+        const int r0 = __shfl_sync(0xffffffffu, orow, src);
+        const int c0 = __shfl_sync(0xffffffffu, ocol, src);
+        for (int k = 0; k < rank; ++k) w &= w - 1;
+        const int i = __ffsll(static_cast<long long>(w)) - 1;
+        // A group past the last element sums a real row and column (row 0, column 0) and
+        // writes nothing: every lane reaches the group's shuffles.
+        const bool live = e < total && i >= 0;
+        const int row = live ? r0 + 8 * ((i >> 1) & 1) : 0;
+        const int c = live ? c0 + 8 * (i >> 2) + (i & 1) : 0;
+        const bool in = live && row < p.M && c < p.N;
+        const int8_t q = exact_shortcut_group<kFlushLanes, RECIP>(
+            p.x0p + static_cast<size_t>(in ? row : 0) * p.K,
+            p.wsct + static_cast<size_t>(in ? c : 0) * p.K, p.K, __ldg(p.bsc + (in ? c : 0)), d,
+            lane % kFlushLanes);
+        if (in && lane % kFlushLanes == 0) p.sc8p[static_cast<size_t>(row) * p.N + c] = q;
       }
     }
     named_sync(1 + wg);
@@ -1333,71 +1405,35 @@ __global__ void __launch_bounds__(kThreads, 1) shortcut_kernel(const __grid_cons
   for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++it) {
     if (tie_count[wg] > kTieCap - 128) flush();
     const int m0 = (tile / p.n_tiles) * 128, n0 = (tile % p.n_tiles) * 128;
-    float srow[2] = {0.0f, 0.0f};  // ||x0||² of rows rt and rt + 8 over this lane's k
+    // The epilogue's row norms (rows rt, rt + 8) and bias pairs (lane l: columns 2l, 2l + 1
+    // and 64 + 2l, 65 + 2l), loaded now and landing during the main loop.
+    float srow[2];
+    float2 bv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + 64 * wg + rt + 8 * h;
+      srow[h] = row < p.M ? __ldg(p.rnorm + row) : 0.0f;
+      bv[h] = load_pair(p.bsc, n0 + 64 * h + 2 * lane, p.N);
+    }
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.0f;  // 0 + the first group's sum is that sum
     for (int ch = 0; ch < p.chunks; ++ch) {
       mbar_wait(&full[stage], phase);
-      const uint8_t* xt = ring + stage * kScStage;
-      const uint64_t wdesc = smem_desc(xt + 128 * kBK, kScPanel, 1024);
-      // Group g's A fragments: row rt + 8h, k 16s + 2t (+ 8) + {0, 1} of the chunk's k16
-      // steps 2g, 2g + 1 (16-byte chunk s of a swizzled row sits at s ^ (row % 8)).
-      auto issue = [&](float (&d)[64], int g) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int s2 = 0; s2 < 2; ++s2)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = 64 * wg + rt + 8 * h, s = 2 * g + s2;
-            const uint8_t* chunk = xt + r * 128 + (((s ^ r) & 7) << 4);
-            a[s2][h] = shortcut_pair(*reinterpret_cast<const uint16_t*>(chunk + 2 * t), s_in);
-            a[s2][2 + h] =
-                shortcut_pair(*reinterpret_cast<const uint16_t*>(chunk + 8 + 2 * t), s_in);
-            srow[h] = add_squares(add_squares(srow[h], a[s2][h]), a[s2][2 + h]);
-          }
-#pragma unroll
-        for (int i = 0; i < 64; ++i) d[i] = 0.0f;
-        fence_regs(d);
-        fence_regs(a[0]);
-        fence_regs(a[1]);
-        wgmma_fence();
-        wgmma_rs<128, 1>(d, a[0], wdesc + 256 * g);
-        wgmma_rs<128, 1>(d, a[1], wdesc + 256 * g + 128);
-        wgmma_commit();
-      };
-      // Groups into two register sets in turn: group g + 1 is issued before group g is
-      // added, in k order.
-      issue(part, 0);
-      issue(part2, 1);
+      const uint8_t* st = ring + stage * kScStage;
+      const uint64_t da = smem_desc(st + wg * 64 * 128, 16, 1024);
+      const uint64_t db = smem_desc(st + kScA, kScPanel, 1024);
+      wgmma_group<128>(part0, da, db, 0);
+      wgmma_group<128>(part1, da, db, 1);
       wgmma_wait<1>();
-      fence_regs(part);
-      promote(acc, part);
-      issue(part, 2);
-      wgmma_wait<1>();
-      fence_regs(part2);
-      promote(acc, part2);
-      issue(part2, 3);
-      wgmma_wait<1>();
-      fence_regs(part);
-      promote(acc, part);
+      promote(acc, part0);
       wgmma_wait<0>();
-      fence_regs(part2);
-      promote(acc, part2);
-      mbar_arrive(&empty[stage]);  // this thread is done with the stage
+      if (lt == 0) mbar_arrive(&empty[stage]);  // this warpgroup is done with the stage
+      promote(acc, part1);
       if (++stage == kScStages) {
         stage = 0;
         phase ^= 1;
       }
     }
-    // ||x0||₂ of rows rt and rt + 8, rounded up: this lane's k, then the quad's.
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      srow[h] = __fadd_ru(srow[h], __shfl_xor_sync(0xffffffffu, srow[h], 1));
-      srow[h] = __fsqrt_ru(__fadd_ru(srow[h], __shfl_xor_sync(0xffffffffu, srow[h], 2)));
-    }
-    float2 bv[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) bv[h] = load_pair(p.bsc, n0 + 64 * h + 2 * lane, p.N);
     stage_out(n0, m0 + 64 * wg, [&](uint8_t* slot) {
       uint64_t ties = 0;  // bit i: acc[i] lies near a requant boundary
 #pragma unroll
@@ -1408,12 +1444,13 @@ __global__ void __launch_bounds__(kThreads, 1) shortcut_kernel(const __grid_cons
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int i = 4 * j + 2 * h;
-          const float v0 = quotient<RECIP>(acc[i], b.x, d);
-          const float v1 = quotient<RECIP>(acc[i + 1], b.y, d);
-          ties |= static_cast<uint64_t>(near_tie(v0, __fmul_ru(srow[h], cm.x))) << i;
-          ties |= static_cast<uint64_t>(near_tie(v1, __fmul_ru(srow[h], cm.y))) << (i + 1);
-          *reinterpret_cast<uint16_t*>(slot + sw128(rt + 8 * h, c)) =
-              pack2(requant_quotient(v0), requant_quotient(v1));
+          bool tie0, tie1;
+          const int8_t q0 = requant_near_tie(quotient<true>(acc[i], b.x, rq),
+                                             __fmul_ru(srow[h], cm.x), tie0);
+          const int8_t q1 = requant_near_tie(quotient<true>(acc[i + 1], b.y, rq),
+                                             __fmul_ru(srow[h], cm.y), tie1);
+          ties |= static_cast<uint64_t>(tie0) << i | static_cast<uint64_t>(tie1) << (i + 1);
+          *reinterpret_cast<uint16_t*>(slot + sw128(rt + 8 * h, c)) = pack2(q0, q1);
         }
       }
       p.ties[static_cast<size_t>(tile) * 256 + tid] = ties;
@@ -1422,6 +1459,77 @@ __global__ void __launch_bounds__(kThreads, 1) shortcut_kernel(const __grid_cons
     });
   }
   flush();
+}
+
+// (f') The shortcut's A operand, converted once: for an NHWC s8 block input x8 (n, H, W, C),
+// H and W even, C a multiple of 16, x0 = bf16(float(pool2(x8)) · s_in) as (M = n·H/2·W/2, C)
+// rows (pool2 as (f): the exact 2×2 integer mean, floor((Σ + 2) / 4)) and each row's
+// ||x0||₂, rounded up, for (e)'s tie margins. The squares of x0's values are multiples of
+// 2^(2e-14) below 2^(2e+17) for 2^e ≤ bf16(s_in), so their f64 sum is exact (under 2^42
+// units at any C ≤ 2^12) in any order: the norm is the correctly rounded f64 root of the
+// exact sum, rounded up to f32, a value the plain version names too. Bound by bytes (x8 read
+// once, x0 and the norms written once: 1.5 × x8's bytes); one warp a pixel, each lane 8
+// channels at a time (four 8-byte loads, one 16-byte store), the norm's sum by shuffles.
+// It replaces (f) on the block input: that wrote xp (s8), which (e) converted for every
+// output tile. (No TPU kernel: XLA's reduce_window, multiply and convert.)
+__global__ void pool2_scale_kernel(const int8_t* __restrict__ x, const float* __restrict__ s_in_p,
+                                   __nv_bfloat16* __restrict__ x0, float* __restrict__ rnorm,
+                                   int H, int W, int C, long long pixels) {
+  const float s_in = __ldg(s_in_p);
+  const int lane = threadIdx.x & 31, W2 = W / 2, H2 = H / 2;
+  const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x / 32);
+  for (long long pix = static_cast<long long>(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32;
+       pix < pixels; pix += warps) {
+    const int ox = static_cast<int>(pix % W2);
+    const long long r = pix / W2;
+    const int oy = static_cast<int>(r % H2);
+    const long long img = r / H2;
+    const int8_t* src = x + ((img * H + 2 * oy) * W + 2 * ox) * static_cast<long long>(C);
+    const size_t row = static_cast<size_t>(W) * C;
+    double sq = 0.0;
+    // 8 channels at c: the pooled, scaled, rounded values into x0; their squares into sq.
+    auto convert = [&](const uint2 (&v)[4], int c) {
+      uint32_t o[4];
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+#pragma unroll
+        for (int b = 0; b < 4; b += 2) {
+          float f[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            int s = 2;
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              s += static_cast<int8_t>((w ? v[q].y : v[q].x) >> (8 * (b + e)));
+            f[e] = __fmul_rn(__int2float_rn(s >> 2), s_in);  // floor((Σ + 2) / 4) · s_in
+          }
+          const __nv_bfloat162 pr = __floats2bfloat162_rn(f[0], f[1]);
+          const float2 back = __bfloat1622float2(pr);
+          sq = fma(static_cast<double>(back.x), static_cast<double>(back.x), sq);
+          sq = fma(static_cast<double>(back.y), static_cast<double>(back.y), sq);
+          o[2 * w + b / 2] = *reinterpret_cast<const uint32_t*>(&pr);
+        }
+      *reinterpret_cast<int4*>(x0 + pix * C + c) = make_int4(o[0], o[1], o[2], o[3]);
+    };
+    auto load = [&](uint2 (&v)[4], int c) {
+      v[0] = __ldg(reinterpret_cast<const uint2*>(src + c));
+      v[1] = __ldg(reinterpret_cast<const uint2*>(src + C + c));
+      v[2] = __ldg(reinterpret_cast<const uint2*>(src + row + c));
+      v[3] = __ldg(reinterpret_cast<const uint2*>(src + row + C + c));
+    };
+    // Two groups a turn (channels c and c + 256), both loaded before either is converted.
+    for (int c = 8 * lane; c < C; c += 512) {
+      uint2 v[2][4];
+      const bool two = c + 256 < C;
+      load(v[0], c);
+      if (two) load(v[1], c + 256);
+      convert(v[0], c);
+      if (two) convert(v[1], c + 256);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+    if (lane == 0) rnorm[pix] = __double2float_ru(__dsqrt_rn(sq));
+  }
 }
 
 // (f) The exact 2×2 integer mean pool of an NHWC s8 tensor (n, H, W, C), H and W even,
@@ -1744,18 +1852,18 @@ extern "C" int ect_stage1_entry(const void* x8, int M, int Cin, const void* k1t,
   return (int)cudaGetLastError();
 }
 
-// (e) the stride blocks' conv shortcut: sc8 (M, N) on dsc from the pooled block input
-// xp (M, K) s8 on s_in, wsc (K, N) bf16 and its K-major copy wsct (N, K); K and N
-// multiples of 16. colm is scratch of N floats and ties of ect_shortcut_ties(M, N) 8-byte
-// words, both read only by this call. recip 1 takes the requant in the reciprocal form.
-// Two launches: the columns' margin factors, then the product.
+// (e) the stride blocks' conv shortcut: sc8 (M, N) on dsc from x0 (M, K) bf16 and its row
+// norms rnorm (M) f32, both written by (f'), wsc (K, N) bf16, its K-major copy wsct (N, K)
+// and the columns' margin factors colm (N) f32 built with them; K and N multiples of 16.
+// ties is scratch of ect_shortcut_ties(M, N) 8-byte words, read only by this call. recip 1
+// takes the requant in the reciprocal form. One launch.
 extern "C" long long ect_shortcut_ties(int M, int N) {
   return (long long)((M + 127) / 128) * ((N + 127) / 128) * 256;
 }
 
-extern "C" int ect_shortcut_s8(const void* xp, int M, int K, const void* wsc, const void* wsct,
-                               int N, const void* s_in, const void* bsc, const void* dsc,
-                               void* colm, void* sc8, void* ties, int recip, int device,
+extern "C" int ect_shortcut_s8(const void* x0, const void* rnorm, int M, int K, const void* wsc,
+                               const void* wsct, int N, const void* colm, const void* bsc,
+                               const void* dsc, void* sc8, void* ties, int recip, int device,
                                void* stream) {
   if (K <= 0 || K % 16 || N <= 0 || N % 16) return kBadShape;
   int sms = 0;
@@ -1763,9 +1871,9 @@ extern "C" int ect_shortcut_s8(const void* xp, int M, int K, const void* wsc, co
   if (err != cudaSuccess) return (int)err;
   if (M <= 0) return 0;
   ShortcutParams p{};
-  CUresult r = map_s8(&p.x8, xp, M, K, kBK, 128);
+  CUresult r = encode_2d(&p.x0, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x0, M, K, 64, 128);
   if (r == CUDA_SUCCESS)
-    r = encode_2d(&p.wsc, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, wsc, K, N, 64, 128);
+    r = encode_2d(&p.wsc, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, wsc, K, N, 64, 64);
   if (r == CUDA_SUCCESS) r = map_s8(&p.sc, sc8, M, N, 128, 64);
   if (r != CUDA_SUCCESS) return kEncodeFailed + (int)r;
   static bool configured[kMaxDevices] = {};
@@ -1776,34 +1884,45 @@ extern "C" int ect_shortcut_s8(const void* xp, int M, int K, const void* wsc, co
     }
     configured[device] = true;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // (128 + G) · 2^-24 for G = ceil(K / 32) groups of 32 k (the margin's argument at
-  // kTieMargin and at shortcut_kernel).
-  const float margin = static_cast<float>(128 + (K + 31) / 32) / 16777216.0f;
-  shortcut_margin_kernel<<<(N + 7) / 8, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(wsct), K,
-                                                      N, static_cast<const float*>(dsc), margin,
-                                                      static_cast<float*>(colm));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  p.s_in = static_cast<const float*>(s_in);
+  p.rnorm = static_cast<const float*>(rnorm);
+  p.colm = static_cast<const float*>(colm);
   p.bsc = static_cast<const float*>(bsc);
   p.dsc = static_cast<const float*>(dsc);
-  p.colm = static_cast<const float*>(colm);
-  p.x8p = static_cast<const int8_t*>(xp);
+  p.x0p = static_cast<const __nv_bfloat16*>(x0);
   p.wsct = static_cast<const __nv_bfloat16*>(wsct);
   p.sc8p = static_cast<int8_t*>(sc8);
   p.ties = static_cast<uint64_t*>(ties);
   p.M = M;
   p.K = K;
   p.N = N;
-  p.chunks = (K + kBK - 1) / kBK;
+  p.chunks = (K + kScBK - 1) / kScBK;
   p.n_tiles = (N + 127) / 128;
   p.tiles = ((M + 127) / 128) * p.n_tiles;
   const int grid = p.tiles < sms ? p.tiles : sms;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (recip)
     shortcut_kernel<true><<<grid, kThreads, kScSmem, s>>>(p);
   else
     shortcut_kernel<false><<<grid, kThreads, kScSmem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// (f') x0 (n·H/2·W/2, C) bf16 = bf16(float(pool2(x8)) · s_in) and rnorm (n·H/2·W/2) f32, each
+// row's ||x0||₂ rounded up, from x8 (n, H, W, C) s8; s_in a device pointer to one float; H
+// and W even, C a multiple of 16.
+extern "C" int ect_pool2_scale_s8(const void* x8, int n, int H, int W, int C, const void* s_in,
+                                  void* x0, void* rnorm, int device, void* stream) {
+  if (H % 2 || W % 2 || C % 16 || n < 0 || H < 0 || W < 0) return kBadShape;
+  int sms = 0;
+  cudaError_t err = prepare_launch(device, &sms);
+  if (err != cudaSuccess) return (int)err;
+  const long long pixels = (long long)n * (H / 2) * (W / 2);
+  if (pixels <= 0 || C == 0) return 0;
+  const long long blocks = (pixels + 7) / 8;  // 8 warps a block, one pixel a warp
+  const int grid = static_cast<int>(blocks < 16LL * sms ? blocks : 16LL * sms);
+  pool2_scale_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x8), static_cast<const float*>(s_in),
+      static_cast<__nv_bfloat16*>(x0), static_cast<float*>(rnorm), H, W, C, pixels);
   return (int)cudaGetLastError();
 }
 
@@ -1834,7 +1953,7 @@ extern "C" const char* ect_error_string(int code) {
   if (code == kBadForm)
     return "recip: the 1x1 launch takes 1 only with out_kind 0 or 1; cb3-cb1 takes 0, 1 or 3";
   if (code == kBadShape)
-    return "shortcut: K and N must be multiples of 16; 2x2 pool: H and W even, C a multiple "
-           "of 16";
+    return "shortcut: K and N must be multiples of 16; 2x2 pool and pool + scale: H and W "
+           "even, C a multiple of 16";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -28,9 +28,10 @@ through a few device functions:
   K6  3          cb1 (a), 3×3 cb2 (b), cb3 + residual (c), each + bias + relu → bf16
   K7  3 a block  as K6; block 0's cb3 adds the conv shortcut as a second K loop
   stride block 6 cb1 (a) (left out where K4 made it), cb2 (b), the pool (f) of cb2's
-                 output and of the block input, the conv shortcut (e) on the pooled input
-                 (2 launches: its columns' tie margins, then the product), cb3 + residual
-                 + requant (a) (left out on path B, where K4 takes cb3)
+                 output, the pool + scale (f') of the block input (bf16 x0 and its rows'
+                 norms: the shortcut's A operand, converted once), the conv shortcut (e)
+                 on x0, both operands from shared memory, cb3 + residual + requant (a)
+                 (left out on path B, where K4 takes cb3)
 
 The int8 launches run s8 products on the tensor cores (wgmma), which read both operands
 K-major: they take each s8 weight's K-major copy `k…_t`, built once by the operand
@@ -42,7 +43,9 @@ a CPU tensor; on a CUDA tensor it launches or raises (odd spatial sizes and widt
 are not multiples of 16 included). Each counts its calls that launch (`.launches`), once
 per call, whatever the number of launches inside. The int8 plain
 versions use the int8 graph's primitives (`ops/int8.py`) in the TPU kernels' op order;
-the bf16 ones round to bf16 exactly where the TPU kernels do.
+the bf16 ones round to bf16 exactly where the TPU kernels do. The stride shortcut's
+near-tie margins per column (`shortcut_margins`) depend only on the fixed weights and
+scale: the operand builder computes them once, beside the K-major copies.
 
 The int8 wrappers and plain versions take `recip`, the reciprocal requant (`ops/int8.py`),
 at the requants where the TPU kernels call `_unscale`, which `ECT_RECIP_REQUANT=1` turns
@@ -119,6 +122,41 @@ def _stride_shortcut_reference(xp, wsc, bsc, s_in, dsc, recip=False):
     with full_f32():
         sc = torch.matmul(x0.float(), wsc.float())
     return requant_signed(sc + bsc, dsc, recip)
+
+
+def _f32_up(t: torch.Tensor) -> torch.Tensor:
+    """An f64 tensor rounded up to f32 (the f32 value nearest above or equal)."""
+    f = t.float()
+    up = torch.nextafter(f, torch.full_like(f, float("inf")))
+    return torch.where(f.double() < t, up, f)
+
+
+def pool2_scale_reference(x8, s_in):
+    """Plain version of (f'): x0 = bf16(float(pool2(x8)) · s_in) with the exact 2×2
+    integer pool, as the JAX graph feeds the stride shortcut (`quantize.py:572-574`), as
+    (…, H/2, W/2, C) bf16, and each row's ||x0||₂ rounded up to f32 (…, H/2, W/2). The
+    squares' f64 sum is exact (they span fewer than 53 bits), so the norm is the correctly
+    rounded f64 root of the exact sum, rounded up: one value on every device."""
+    x0 = (avg_pool_int8(x8, 2).float() * s_in).to(torch.bfloat16)
+    return x0, _f32_up(x0.double().square().sum(-1).sqrt())
+
+
+# k summed on the tensor cores before each IEEE add of the stride shortcut (e).
+SHORTCUT_GROUP_K = 32
+
+
+def shortcut_margins(wsc: torch.Tensor, dsc: torch.Tensor) -> torch.Tensor:
+    """The stride shortcut's per-column tie-margin factors (N,) f32: (4L + G) · 2^-24 ·
+    ||wsc[:, c]||₂ / dsc for L = SHORTCUT_GROUP_K and G = ceil(K / L) groups (the bound on
+    |tensor-core sum − exact sum| per unit of S = Σ|x0·w| ≤ ||x0||₂ · ||wsc[:, c]||₂ in the
+    argument at `kTieMargin` in csrc/bottleneck_int8.cu), widened by 2^-20 (the reciprocal
+    form's quotient and f64's roundings here) and rounded up. Depends only on the weights
+    and the scale: built once with the operands."""
+    k = wsc.shape[0]
+    groups = -(-k // SHORTCUT_GROUP_K)
+    margin = (4 * SHORTCUT_GROUP_K + groups) * 2.0 ** -24
+    norm = wsc.double().square().sum(0).sqrt()
+    return _f32_up(margin * norm / dsc.double() * (1 + 2.0 ** -20))
 
 
 def fused_cb3_cb1_int8_reference(x8, res8, ops, recip=False):
@@ -217,7 +255,8 @@ def _bind_int8(lib: ctypes.CDLL) -> ctypes.CDLL:
     sig = {
         "ect_conv1x1_s8": [p, i, i, p, i, p, p, p, p, p, p, i, i, i, p],
         "ect_conv3x3_s8": [p, i, i, i, i, p, i, p, p, p, p, i, i, p],
-        "ect_shortcut_s8": [p, i, i, p, p, i, p, p, p, p, p, p, i, i, p],
+        "ect_shortcut_s8": [p, p, i, i, p, p, i, p, p, p, p, p, i, i, p],
+        "ect_pool2_scale_s8": [p, i, i, i, i, p, p, p, i, p],
         "ect_avg_pool2_s8": [p, i, i, i, i, p, i, p],
         "ect_cb3_cb1_s8": [p, p, i, i, i, i] + [p] * 11 + [i, i, p],
         "ect_stage1_entry": [p, i, i, p, i, p, p, p, p, i, p, p, p, p, p, p, i, p],
@@ -345,27 +384,58 @@ def _avg_pool2(x8):
     return out
 
 
-def _shortcut(xp, ops, s_in_ptr, dsc_ptr, recip=False):
-    """(e): the stride blocks' conv shortcut on the pooled block input xp (…, Cin): sc8
-    (…, Cout) on dsc, equal to `_shortcut_reference` on every element; returns (sc8, the
-    near-tie flag words: one set bit per element summed again exactly)."""
-    dev = xp.device
+def _pool2_scale(x8, s_in_ptr):
+    """(f'): the shortcut's A operand from the NHWC s8 block input x8 (H, W even, C a
+    multiple of 16): (x0 (n, H/2, W/2, C) bf16, its rows' norms (n, H/2, W/2) f32), equal
+    to `pool2_scale_reference` on every element."""
+    n, h, w, c = x8.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"2x2 pool + scale: H and W must be even, got {tuple(x8.shape)}")
+    _check_s8("pool + scale input", x8, x8.device)
+    x0 = torch.empty((n, h // 2, w // 2, c), dtype=torch.bfloat16, device=x8.device)
+    rnorm = torch.empty((n, h // 2, w // 2), dtype=torch.float32, device=x8.device)
+    _call(_lib().ect_pool2_scale_s8, x8.data_ptr(), n, h, w, c, s_in_ptr, x0.data_ptr(),
+          rnorm.data_ptr(), *_stream(x8))
+    return x0, rnorm
+
+
+def _shortcut_margins(ops: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The columns' tie-margin factors `wsc_m` (`shortcut_margins`), built once by the
+    operand builder of `ops/quantize.py`; never made here, per call."""
+    t = ops.get("wsc_m")
+    if t is None or tuple(t.shape) != (ops["wsc"].shape[-1],):
+        raise ValueError("ops have no tie margins wsc_m of the shortcut: build them with "
+                         "the operand builders of ops/quantize.py")
+    return t
+
+
+def _shortcut(x0, rnorm, ops, dsc_ptr, recip=False):
+    """(e): the stride blocks' conv shortcut on (f')'s x0 (…, Cin) bf16 and row norms
+    rnorm (…): sc8 (…, Cout) on dsc, equal to `_shortcut_reference` of the pooled s8 input
+    on every element; returns (sc8, the near-tie flag words: one set bit per element summed
+    again exactly). ops["wsc_m"] must be `shortcut_margins` of wsc and the scale at
+    dsc_ptr."""
+    dev = x0.device
     wsc, wsct, bsc = ops["wsc"], ops["wsc_t"], ops["bsc"]
     cin, cout = wsc.shape
-    if xp.shape[-1] != cin or cin % 16 or cout % 16:
-        raise ValueError(f"shortcut: xp {tuple(xp.shape)} and wsc {tuple(wsc.shape)} must "
-                         "chain, with widths that are multiples of 16")
+    if x0.shape[-1] != cin or rnorm.shape != x0.shape[:-1] or cin % 16 or cout % 16:
+        raise ValueError(f"shortcut: x0 {tuple(x0.shape)}, rnorm {tuple(rnorm.shape)} and "
+                         f"wsc {tuple(wsc.shape)} must chain, with widths that are "
+                         "multiples of 16")
+    m = x0.numel() // cin
+    _check_bf16("x0", x0, dev, x0.shape)
+    _check_f32("rnorm", rnorm, dev, m)
     _check_bf16("wsc", wsc, dev, (cin, cout))
     _check_bf16("wsc_t", wsct, dev, (cout, cin))
     _check_f32("bsc", bsc, dev, cout)
-    m = xp.numel() // cin
+    colm = _shortcut_margins(ops)
+    _check_f32("wsc_m", colm, dev, cout)
     lib = _lib()
-    sc8 = torch.empty((*xp.shape[:-1], cout), dtype=torch.int8, device=dev)
-    colm = torch.empty(cout, dtype=torch.float32, device=dev)  # the columns' tie margins
+    sc8 = torch.empty((*x0.shape[:-1], cout), dtype=torch.int8, device=dev)
     ties = torch.empty(lib.ect_shortcut_ties(m, cout), dtype=torch.int64, device=dev)
-    _call(lib.ect_shortcut_s8, xp.data_ptr(), m, cin, wsc.data_ptr(), wsct.data_ptr(), cout,
-          s_in_ptr, bsc.data_ptr(), dsc_ptr, colm.data_ptr(), sc8.data_ptr(), ties.data_ptr(),
-          int(recip), *_stream(xp))
+    _call(lib.ect_shortcut_s8, x0.data_ptr(), rnorm.data_ptr(), m, cin, wsc.data_ptr(),
+          wsct.data_ptr(), cout, colm.data_ptr(), bsc.data_ptr(), dsc_ptr, sc8.data_ptr(),
+          ties.data_ptr(), int(recip), *_stream(x0))
     return sc8, ties
 
 
@@ -543,7 +613,8 @@ def fused_stride_block_int8(x8: torch.Tensor, ops: Dict[str, torch.Tensor], reci
     x8 (N, H, W, Cin) s8 on scl[0], H and W even; ops from
     `ops/quantize.stride_block_int8_operands`: k1 (Cin, Cm), s1, b1, k2 (3, 3, Cm, Cm), s2,
     b2, k3 (Cm, C), s3, b3, the K-major copies k1_t, k2_t, k3_t, the bf16 shortcut wsc
-    (Cin, C) with its K-major copy wsc_t and bias bsc, scl = [s_in, r2, r3, r_res, r_out].
+    (Cin, C) with its K-major copy wsc_t, its tie margins wsc_m and bias bsc, scl = [s_in,
+    r2, r3, r_res, r_out].
     In the JAX graph's op order: cb1 + requant on r2; the 3×3 cb2 at the input resolution
     + requant on r3; the exact 2×2 integer pool of that and of x8; the conv shortcut of
     the pooled x8 (bf16 operands, f32 sum) + signed requant on r_res; cb3 + bias +
@@ -582,7 +653,8 @@ def fused_stride_block_int8(x8: torch.Tensor, ops: Dict[str, torch.Tensor], reci
     q2 = torch.empty((n, h, w, cm), dtype=torch.int8, device=dev)
     _conv3x3(q1, k2t, ops["s2"], ops["b2"], _ptr(scl, 2), q2, recip=recip)
     o8 = _avg_pool2(q2)
-    id8, _ = _shortcut(_avg_pool2(x8), ops, _ptr(scl, 0), _ptr(scl, 3), recip)
+    x0, rnorm = _pool2_scale(x8, _ptr(scl, 0))
+    id8, _ = _shortcut(x0, rnorm, ops, _ptr(scl, 3), recip)
     if cb3:
         out = torch.empty(id8.shape, dtype=out_dtype, device=dev)
         _conv1x1(o8, _kmajor_copy(ops, "k3"), ops["s3"], ops["b3"], _ptr(scl, 4), out,

@@ -340,13 +340,15 @@ def stride_block_int8_operands(q: Dict[str, Any], name: str,
     """Operands of `fused_stride_block_int8` for stride block `name` on input scale s_in:
     k1 (Cin, Cm), s1, b1, k2 (3, 3, Cm, Cm), s2, b2, k3 (Cm, C), s3, b3 and their K-major
     copies k1_t, k2_t, k3_t; the bf16 shortcut wsc (Cin, C) with its K-major copy wsc_t
-    (the exact re-summation of near-ties reads a column as a row) and bsc; scl = [s_in,
-    r2, r3, r_res (down.out), r_out]."""
+    (the exact re-summation of near-ties reads a column as a row), its columns' near-tie
+    margins wsc_m (`BK.shortcut_margins` on r_res) and bsc; scl = [s_in, r2, r3, r_res
+    (down.out), r_out]."""
     a = q["act_scales"]
     cb1, cb2, cb3 = (q[f"{name}/{c}"] for c in ("cb1", "cb2", "cb3"))
     down = q["fp"][f"{name}/down"]
     s2, s3 = a[f"{name}/cb2.in"], a[f"{name}/cb3.in"]
     wsc = down["kernel"][0, 0].to(torch.bfloat16).contiguous()
+    r_res = a[f"{name}/down.out"]
     return _with_kmajor({
         "k1": cb1["kernel_q"][0, 0].contiguous(), "s1": s_in * cb1["w_scale"],
         "b1": cb1["bias"],
@@ -354,7 +356,8 @@ def stride_block_int8_operands(q: Dict[str, Any], name: str,
         "k3": cb3["kernel_q"][0, 0].contiguous(), "s3": s3 * cb3["w_scale"],
         "b3": cb3["bias"],
         "wsc": wsc, "wsc_t": wsc.t().contiguous(), "bsc": down["bias"],
-        "scl": torch.stack([s_in, s2, s3, a[f"{name}/down.out"], a[f"{name}.out"]]).float(),
+        "wsc_m": BK.shortcut_margins(wsc, r_res.float()),
+        "scl": torch.stack([s_in, s2, s3, r_res, a[f"{name}.out"]]).float(),
     }, "k1", "k2", "k3")
 
 

@@ -192,21 +192,29 @@ def stride_block_disagreement(x8, ops, recip=False, out_dtype=None, cb3=True, q1
     `fused_stride_block_int8(x8, ops, recip, out_dtype, cb3, q1)`: the kernel's (o8, id8)
     (a launch with `cb3` False) against the plain version's, o8 to be equal on every
     element and id8 within ≤1 s8 step on ≤0.5% (the plain shortcut's f32 sum order);
-    with `cb3`, the kernel's output against the plain cb3 of the kernel's own o8 and id8
-    (the kernel is deterministic, so those are the inputs its cb3 had inside the whole
-    call), to be equal. Returns {"o8_equal", "id8_step", "id8_share", "cb3_equal" (None
-    without `cb3`), "out" (the kernel's output; (o8, id8) without `cb3`), "plain" (the
-    plain version's)}. Launches the block once more with `cb3`."""
+    id8 against the exact sum's requant (`_shortcut_reference` of the pooled input, which
+    the kernel's shortcut equals on every element; the plain version's f32 product may
+    differ from it on a near-tie); with `cb3`, the kernel's output against the plain cb3
+    of the kernel's own o8 and id8 (the kernel is deterministic, so those are the inputs
+    its cb3 had inside the whole call), to be equal. Returns {"o8_equal", "id8_step",
+    "id8_share", "id8_exact", "cb3_equal" (None without `cb3`), "out" (the kernel's
+    output; (o8, id8) without `cb3`), "plain" (the plain version's)}. Launches the block
+    once more with `cb3`."""
     import torch
 
+    from embodied_clip_tpu_torch.ops.int8 import avg_pool_int8
     from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
 
     out_dtype = torch.int8 if out_dtype is None else out_dtype
     o8, id8 = BK.fused_stride_block_int8(x8, ops, recip, cb3=False, q1=q1)
     want = BK.fused_stride_block_int8_reference(x8, ops, recip, cb3=False, q1=q1)
+    scl = ops["scl"]
+    exact = BK._shortcut_reference(avg_pool_int8(x8, 2), ops["wsc"], ops["bsc"], scl[0],
+                                   scl[3], recip)
     d = (id8.int() - want[1].int()).abs()
     res = {"o8_equal": bool(torch.equal(o8, want[0])), "id8_step": int(d.max()),
-           "id8_share": float((d != 0).float().mean()), "cb3_equal": None,
+           "id8_share": float((d != 0).float().mean()),
+           "id8_exact": bool(torch.equal(id8, exact)), "cb3_equal": None,
            "out": (o8, id8), "plain": want}
     if cb3:
         got = BK.fused_stride_block_int8(x8, ops, recip, out_dtype, q1=q1)

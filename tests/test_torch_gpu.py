@@ -894,20 +894,28 @@ def test_stride_shortcut_exact_on_planted_near_ties(cuda, cin, cout, recip):
     """The stride blocks' shortcut launch (e) where the tensor cores' sum order decides
     the requant, planted as `test_stage1_entry_shortcut_exact_on_planted_near_ties`: on
     1/16 of the elements the exact quotient lies on a boundary or 2^-20 … 2^-9 from one.
-    sc8 bit-equal to `_shortcut_reference`; enough tiles that a warpgroup flags more
-    words than its list holds (4096) and sums near-ties again mid-launch."""
+    The row that carries the plant (wsc[k] = 2, x[k] = t) sits where the launch's groups
+    and chunks meet, by base row: k = 0 (the first 32-k group of the first 64-k chunk),
+    31 and 32 (the ends of a chunk's two groups), 63 (the last group of a chunk), 64 (the
+    next chunk) and Cin - 1 (the last group of the sum); consecutive rows fill both
+    warpgroups of each tile. x0 and its row norms come from (f') on a block input whose 2×2
+    pool is the planted rows. sc8 bit-equal to `_shortcut_reference`; enough tiles that a
+    warpgroup flags more words than its list holds (4096) and sums near-ties again
+    mid-launch."""
     rng = np.random.RandomState(7)
     nbase, steps = 16, 100
     s_in, dsc = 2.0 ** -4, 2.0 ** -3
+    carriers = sorted({0, 31, 32, 63, 64, cin - 1} & set(range(cin)))
     wsc = torch.from_numpy(rng.randn(cin, cout) * 2.0 ** -rng.randint(1, 13, (cin, cout)))
     wsc = wsc.to(torch.bfloat16)
-    wsc[0] = 2.0
+    wsc[carriers] = 2.0
     base = torch.from_numpy(rng.randint(40, 128, (nbase, cin))).to(torch.int8)
+    base[:, carriers] = 0
+    carrier = torch.tensor([carriers[i % len(carriers)] for i in range(nbase)])
     xp = base.repeat_interleave(steps, 0)
-    xp[:, 0] = torch.arange(steps, dtype=torch.int8).repeat(nbase)
-    x0 = base.double() * s_in
-    x0[:, 0] = 0.0
-    e_base = (x0 @ wsc.double())[torch.arange(cout) % nbase, torch.arange(cout)]
+    xp[torch.arange(nbase * steps), carrier.repeat_interleave(steps)] = torch.arange(
+        steps, dtype=torch.int8).repeat(nbase)
+    e_base = (base.double() * s_in @ wsc.double())[torch.arange(cout) % nbase, torch.arange(cout)]
     deltas = torch.tensor([0.0] + [sg * 2.0 ** -e for e in (20, 17, 15, 12, 9) for sg in (1, -1)],
                           dtype=torch.float64)
     nq = torch.from_numpy(rng.randint(-110, 11, cout)).double()
@@ -919,11 +927,16 @@ def test_stride_shortcut_exact_on_planted_near_ties(cuda, cin, cout, recip):
     per_block = 40 if cin >= 384 else 160
     reps = -(-per_block * sms * 128 * 128 // (nbase * steps * cout))
     xp = xp.repeat(reps, 1).to(cuda)
-    ops = {"wsc": wsc.to(cuda).contiguous(), "wsc_t": wsc.t().contiguous().to(cuda),
-           "bsc": bsc.to(cuda)}
+    x8 = xp[:, None, None, :].repeat(1, 2, 2, 1).contiguous()  # pools back to xp exactly
+    wsc = wsc.to(cuda).contiguous()
     scl = torch.tensor([s_in, dsc], device=cuda)
-    sc8, ties = BK._shortcut(xp, ops, BK._ptr(scl, 0), BK._ptr(scl, 1), recip)
+    ops = {"wsc": wsc, "wsc_t": wsc.t().contiguous(), "bsc": bsc.to(cuda),
+           "wsc_m": BK.shortcut_margins(wsc, scl[1])}
+    x0, rnorm = BK._pool2_scale(x8, BK._ptr(scl, 0))
+    sc8, ties = BK._shortcut(x0, rnorm, ops, BK._ptr(scl, 1), recip)
     torch.cuda.synchronize()
+    want_x0, want_rnorm = BK.pool2_scale_reference(x8, scl[0])
+    assert torch.equal(x0, want_x0) and torch.equal(rnorm, want_rnorm)
     want = BK._shortcut_reference(xp, ops["wsc"], ops["bsc"], scl[0], scl[1], recip)
     tiles = ties.numel() // 256
     words = ties.reshape(tiles, 256)[::sms, :128]
@@ -931,7 +944,23 @@ def test_stride_shortcut_exact_on_planted_near_ties(cuda, cin, cout, recip):
     v = ((xp.double() * s_in).to(torch.bfloat16).double() @ ops["wsc"].double()).float()
     y = ((v + ops["bsc"]) / scl[1]).abs() - 0.5
     assert float(((y - y.round()).abs() < 2.0 ** -8).double().mean()) >= 0.9 / nbase
-    assert torch.equal(sc8, want), C.step_diff(sc8, want)
+    assert torch.equal(sc8.reshape(want.shape), want), C.step_diff(sc8.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("shape", [(128, 56, 56, 256), (128, 28, 28, 512), (128, 14, 14, 1024),
+                                   (8, 96, 96, 384), (3, 14, 14, 2048), (1, 2, 2, 16)])
+@pytest.mark.parametrize("s_in", [2.0 / 127, 0.0137])
+def test_pool2_scale_kernel_equals_plain_version(cuda, shape, s_in):
+    """The pool + scale launch (f') alone: x0 and the row norms bit-equal to
+    `pool2_scale_reference` on s8 of either sign, RN50's three stride-block inputs at
+    batch 128 among the shapes."""
+    x8 = torch.from_numpy(np.random.RandomState(14).randint(-128, 128, shape)
+                          .astype(np.int8)).to(cuda)
+    s = torch.tensor([s_in], dtype=torch.float32, device=cuda)
+    x0, rnorm = BK._pool2_scale(x8, s.data_ptr())
+    torch.cuda.synchronize()
+    want_x0, want_rnorm = BK.pool2_scale_reference(x8, s[0])
+    assert torch.equal(x0, want_x0) and torch.equal(rnorm, want_rnorm)
 
 
 @pytest.mark.parametrize("shape", [(8, 56, 56, 128), (2, 112, 112, 64), (3, 14, 14, 2048),
@@ -972,6 +1001,8 @@ def test_stride_block_kernels_reject_what_they_cannot_take(cuda):
         fn(x8[:, :7].contiguous(), ops)
     with pytest.raises(ValueError, match="even"):
         BK._avg_pool2(x8[:, :, :7].contiguous())
+    with pytest.raises(ValueError, match="even"):
+        BK._pool2_scale(x8[:, :, :7].contiguous(), ops["scl"].data_ptr())
     bad, x40 = _stride_case(np.random.RandomState(13), 40, 32, 128, 2, 8, cuda)
     with pytest.raises(ValueError, match="multiple of 16"):
         fn(x40, bad)

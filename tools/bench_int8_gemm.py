@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time each launch of the int8 bottleneck kernels (`embodied_clip_tpu_torch/csrc/
 bottleneck_int8.cu`: (a) 1×1, (b) 3×3, (c) cb3·cb1, (d) K3's entry, (e) the stride
-blocks' conv shortcut, (f) the 2×2 pool) on the main path, on one NVIDIA GPU.
+blocks' conv shortcut, (f) the 2×2 pool, (f') the pool + scale of the stride blocks'
+input, the shortcut's bf16 operand) on the main path, on one NVIDIA GPU.
 
     python3 tools/bench_int8_gemm.py [--source a.cu,b.cu]
 
@@ -23,8 +24,8 @@ golden_frames(32) (`bench.py`'s recipe); the frames are golden_frames(128). The 
     bound (its s8 operations at the dense int8 peak and bf16 ones at the bf16 peak,
     against its bytes, each input, weight and output once, at the memory rate); beside
     each 1×1 launch `torch._int_mm` on the same (M, K) × (K, N), and beside (d) and (e)
-    `torch.matmul` of the shortcut's bf16 product, as yardsticks for the GEMM alone (the
-    port never calls them);
+    `torch.matmul` of the shortcut's bf16 product (f32 out, no requant), as yardsticks for
+    the GEMM alone (the port never calls them);
   * sums the launches per encode by the path and the wrapper that made them (K3, K5
     and the stride blocks on path A; K3, K4 and the stride blocks on path B), and each
     stride-block launch kind over the three blocks.
@@ -50,7 +51,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 YARDSTICKS = {"a": "torch._int_mm", "d": "torch.matmul (bf16 shortcut)",
               "e": "torch.matmul (bf16 shortcut)"}
 NAMES = {"a": "1x1", "b": "3x3", "c": "cb3·cb1", "d": "K3 entry", "e": "shortcut",
-         "f": "2x2 pool"}
+         "f": "2x2 pool", "f'": "pool + scale"}
 # Card → (device-memory bytes/s, dense int8 operations/s, dense bf16 FLOP/s), NVIDIA data
 # sheets.
 CARDS = (("H100 PCIe", 2.0e12, 1513e12, 756e12), ("H100 NVL", 3.9e12, 1671e12, 835e12),
@@ -91,9 +92,15 @@ class Launch:
             self.outs = (torch.empty_like(res8),
                          torch.empty((*x8.shape[:-1], k1t.shape[0]), dtype=torch.int8,
                                      device=x8.device))
-        elif step == "e":
-            self.outs = (torch.empty((*x8.shape[:-1], args[1]["wsc"].shape[-1]),
+        elif step == "e":  # x8 is (f')'s x0 here
+            self.outs = (torch.empty((*x8.shape[:-1], args[2]["wsc"].shape[-1]),
                                      dtype=torch.int8, device=x8.device),)
+        elif step == "f'":
+            n, h, w, c = x8.shape
+            self.outs = (torch.empty((n, h // 2, w // 2, c), dtype=torch.bfloat16,
+                                     device=x8.device),
+                         torch.empty((n, h // 2, w // 2), dtype=torch.float32,
+                                     device=x8.device))
         elif step == "f":
             n, h, w, c = x8.shape
             self.outs = (torch.empty((n, h // 2, w // 2, c), dtype=torch.int8,
@@ -103,12 +110,13 @@ class Launch:
         self.scratch = None
 
     def weight(self):
-        """The K-major weight (cb3's for (c), cb1a's for (d)), (e)'s bf16 wsc; (f) none."""
+        """The K-major weight (cb3's for (c), cb1a's for (d)), (e)'s bf16 wsc; (f), (f')
+        none."""
         if self.step == "d":
             return self.args[1]["k1a_t"]
         if self.step == "e":
-            return self.args[1]["wsc"]
-        if self.step == "f":
+            return self.args[2]["wsc"]
+        if self.step in ("f", "f'"):
             return None
         return self.args[2] if self.step == "c" else self.args[1]
 
@@ -131,7 +139,7 @@ class Launch:
             return m, (x.shape[-1], w.shape[0], self.args[5].shape[0])  # (Cm, C, C1)
         if self.step == "e":
             return m, tuple(w.shape)  # (Cin, Cout)
-        if self.step == "f":
+        if self.step in ("f", "f'"):
             return m, (x.shape[-1],)
         return m, (w.shape[1], w.shape[0])  # (K, N)
 
@@ -146,10 +154,10 @@ class Launch:
         if self.step == "c":
             cm, c, c1 = dims
             return 2 * m * (cm * c + c * c1), 0, nbytes + m * c + cm * c + c * c1
-        if self.step == "e":
+        if self.step == "e":  # x0 (bf16) and its norms, wsc, its margins and bias, sc8
             cin, cout = dims
-            return 0, 2 * m * cin * cout, nbytes + 2 * cin * cout + 4 * cout
-        if self.step == "f":
+            return 0, 2 * m * cin * cout, nbytes + m * cin + 4 * m + 2 * cin * cout + 8 * cout
+        if self.step in ("f", "f'"):
             return 0, 0, nbytes
         k, n = dims
         res = self.kw.get("res")
@@ -175,18 +183,22 @@ class Launch:
                                        dsc, q1.data_ptr(), sc8.data_ptr(),
                                        self.scratch.data_ptr(), *stream)
         elif self.step == "e":
-            xp, ops, s_in, dsc, recip = self.args
+            x0, rnorm, ops, dsc, recip = self.args
             m, (cin, cout) = self.shapes()
-            if self.scratch is None:  # the columns' tie margins, the near-tie flag words
-                self.scratch = (torch.empty(cout, dtype=torch.float32, device=dev),
-                                torch.empty(lib.ect_shortcut_ties(m, cout), dtype=torch.int64,
-                                            device=dev))
-            colm, ties = self.scratch
-            err = lib.ect_shortcut_s8(xp.data_ptr(), m, cin, ops["wsc"].data_ptr(),
-                                      ops["wsc_t"].data_ptr(), cout, s_in,
-                                      ops["bsc"].data_ptr(), dsc, colm.data_ptr(),
-                                      self.outs[0].data_ptr(), ties.data_ptr(), int(recip),
-                                      *stream)
+            if self.scratch is None:  # the near-tie flag words
+                self.scratch = torch.empty(lib.ect_shortcut_ties(m, cout), dtype=torch.int64,
+                                           device=dev)
+            err = lib.ect_shortcut_s8(x0.data_ptr(), rnorm.data_ptr(), m, cin,
+                                      ops["wsc"].data_ptr(), ops["wsc_t"].data_ptr(), cout,
+                                      ops["wsc_m"].data_ptr(), ops["bsc"].data_ptr(), dsc,
+                                      self.outs[0].data_ptr(), self.scratch.data_ptr(),
+                                      int(recip), *stream)
+        elif self.step == "f'":
+            x8, s_in = self.args
+            n, h, w, c = x8.shape
+            err = lib.ect_pool2_scale_s8(x8.data_ptr(), n, h, w, c, s_in,
+                                         self.outs[0].data_ptr(), self.outs[1].data_ptr(),
+                                         *stream)
         elif self.step == "f":
             n, h, w, c = self.args[0].shape
             err = lib.ect_avg_pool2_s8(self.args[0].data_ptr(), n, h, w, c,
@@ -230,7 +242,7 @@ def record(BK, encoders, frames):
 
     launches, calls, current = [], [], {}
     steps = {"_conv1x1": "a", "_conv3x3": "b", "_cb3_cb1": "c", "_stage1_entry": "d",
-             "_shortcut": "e", "_avg_pool2": "f"}
+             "_shortcut": "e", "_avg_pool2": "f", "_pool2_scale": "f'"}
     saved = {n: getattr(BK, n) for n in (*steps, "fused_stage1_int8", "fused_cb3_cb1_int8",
                                          "fused_resblocks_int8", "fused_stride_block_int8")}
 
@@ -385,10 +397,14 @@ def main(argv) -> int:
                 x8, kt = ln.args[0], ln.args[1]
                 a2 = x8.reshape(-1, x8.shape[-1])
                 entry["yardstick_ms"] = cuda_ms(lambda: torch._int_mm(a2, kt.t()))
-            elif ln.step in ("d", "e"):  # the shortcut's bf16 product alone
+            elif ln.step == "d":  # the shortcut's bf16 product alone
                 x8, ops = ln.args[0], ln.args[1]
                 a16 = (x8.reshape(-1, x8.shape[-1]).float() * ops["scl"][0]).to(torch.bfloat16)
                 entry["yardstick_ms"] = cuda_ms(lambda: torch.matmul(a16, ops["wsc"]))
+            elif ln.step == "e":
+                x0, wsc = ln.args[0], ln.args[2]["wsc"]
+                a16 = x0.reshape(-1, x0.shape[-1])
+                entry["yardstick_ms"] = cuda_ms(lambda: torch.matmul(a16, wsc))
 
     sources = opts.source.split(",") if opts.source else [str(_build.CSRC / "bottleneck_int8.cu")]
     libs, reports = {}, {}
