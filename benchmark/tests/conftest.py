@@ -1,0 +1,43 @@
+"""Shared fixtures of the benchmark's CPU tests: cells resolved from the repository's
+files, cut to a size a CPU test run holds (the port's `clip_rn_tiny` encoder, a few
+small frames, a short window). Run: `python -m pytest benchmark/tests -q`."""
+
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[2]
+if str(REPO) not in sys.path:
+    sys.path.insert(0, str(REPO))
+
+TINY_MODEL = {"stage_sizes": [1, 1, 1, 1], "width": 8, "heads": 4, "output_dim": 16,
+              "image_size": 128}
+SEED = 2 ** 31 + 4242
+
+
+def tiny(name: str):
+    """The cell `name`, resolved from its files, at a CPU test's size."""
+    import torch
+
+    from benchmark.harness.cell import resolve
+
+    torch.set_num_threads(4)
+    cell = resolve(name)
+    cfg = dict(cell.config, calibration_frames=4, calibration_hw=[60, 60])
+    if cfg["program"]["encoder"].startswith("clip"):
+        cfg["model"] = TINY_MODEL
+        cfg["program"] = dict(cfg["program"], encoder="clip_rn_tiny")
+    cell.config = cfg
+    if cell.traffic["driver"] == "encode":
+        cell.traffic = dict(cell.traffic, batch=4, pool=2, frame_hw=[60, 60],
+                            warmup_units=1, trace_skip=1, trace_units=2)
+    else:
+        cell.traffic = dict(cell.traffic, env_batch=4, rollout_len=8, hidden=32,
+                            trace_skip=1, trace_units=1)
+    return cell
+
+
+@pytest.fixture
+def tiny_cell():
+    return tiny
