@@ -24,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from embodied_clip_tpu_torch.models.stages import StagesMixin
+from embodied_clip_tpu_torch.utils.profiling import span
 
 __all__ = ["ModifiedResNet", "AttentionPool2d", "CLIPBottleneck", "CLIP_RESNET_CONFIGS"]
 
@@ -119,12 +120,13 @@ class ModifiedResNet(StagesMixin, nn.Module):
 
     def forward(self, x):
         # NHWC → an NCHW view whose memory is channels-last: no copy for NHWC input.
-        x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
-            memory_format=torch.channels_last)
-        x = F.relu(_conv_bn(x, self.conv1, self.bn1))
-        x = F.relu(_conv_bn(x, self.conv2, self.bn2))
-        x = F.relu(_conv_bn(x, self.conv3, self.bn3))
-        return self.run_stages(self.avgpool(x))
+        with span("bf16.stem"):
+            x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+            x = F.relu(_conv_bn(x, self.conv1, self.bn1))
+            x = F.relu(_conv_bn(x, self.conv2, self.bn2))
+            x = self.avgpool(F.relu(_conv_bn(x, self.conv3, self.bn3)))
+        return self.run_stages(x)
 
 
 class AttentionPool2d(nn.Module):

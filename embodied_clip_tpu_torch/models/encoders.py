@@ -27,16 +27,19 @@ import torch.nn as nn
 
 from embodied_clip_tpu_torch.models.clip import (
     CLIPViTVisual,
+    CLIPVisual,
     _device,
     clip_visual,
     image_size_of,
     init_weights_,
 )
+from embodied_clip_tpu_torch.models.clip_resnet import ModifiedResNet
 from embodied_clip_tpu_torch.models.clip_vit import CLIP_VIT_CONFIGS
 from embodied_clip_tpu_torch.models.convert import load_torch_checkpoint, visual_state_dict
 from embodied_clip_tpu_torch.models.resnet import RESNET_CONFIGS, ResNet
 from embodied_clip_tpu_torch.ops.fold_bn import fold_conv_bn_state_dict
 from embodied_clip_tpu_torch.ops.preprocess import make_preprocessor
+from embodied_clip_tpu_torch.utils.profiling import span
 
 __all__ = ["EncoderSpec", "FrozenEncoder", "build_encoder", "ENCODER_SPECS"]
 
@@ -115,19 +118,34 @@ class FrozenEncoder:
             # full-precision plain path.
             self.preprocess = dataclasses.replace(self.preprocess, use_kernel=True)
 
+    def _input(self, frames) -> torch.Tensor:
+        """The frames on the device, preprocessed: the spans `encode.to_device` and
+        `encode.preprocess`."""
+        with span("encode.to_device"):
+            frames = _frames(frames).to(self.device)
+        with span("encode.preprocess"):
+            return self.preprocess(frames)
+
     @torch.inference_mode()
     def encode(self, frames) -> Dict[str, torch.Tensor]:
         """uint8 NHWC frames (any HxW), or the flat (n, h, w*3) view, as a tensor or
-        a numpy array → feature dict on the encoder's device."""
-        x = self.preprocess(_frames(frames).to(self.device))
-        if self.spec.family == "imagenet":
-            conv = self.module(x)
-            return {"imagenet_conv": conv, "imagenet_avgpool": _avgpool(conv)}
-        feats = self.module(x)
-        if "conv" not in feats:  # a ViT
-            return {"clip_embed": feats["embed"]}
-        return {"clip_conv": feats["conv"], "clip_avgpool": feats["avgpool"],
-                "clip_attnpool": feats["embed"]}
+        a numpy array → feature dict on the encoder's device. One `encode` span, with
+        `encode.to_device`, `.preprocess`, `.trunk` and `.heads` inside (a ViT's tower
+        is all trunk)."""
+        with span("encode"):
+            x = self._input(frames)
+            if isinstance(self.module, CLIPViTVisual):
+                with span("encode.trunk"):
+                    return {"clip_embed": self.module(x)["embed"]}
+            with span("encode.trunk"):
+                # CLIPVisual's trunk alone: its forward adds the heads.
+                conv = (ModifiedResNet.forward(self.module, x)
+                        if isinstance(self.module, CLIPVisual) else self.module(x))
+            with span("encode.heads"):
+                if self.spec.family == "imagenet":
+                    return {"imagenet_conv": conv, "imagenet_avgpool": _avgpool(conv)}
+                return {"clip_conv": conv, "clip_avgpool": _avgpool(conv),
+                        "clip_attnpool": self.module.attnpool(conv)}
 
     def fold_bn(self, fused_bottlenecks: bool = True) -> "FrozenEncoder":
         """A new encoder with frozen BN folded into the conv weights (ops/fold_bn.py):
@@ -245,11 +263,14 @@ class _QuantizedCLIPEncoder(_QuantizedEncoder):
     def encode(self, frames) -> Dict[str, torch.Tensor]:
         from embodied_clip_tpu_torch.ops.quantize import quantized_trunk_apply
 
-        x = self.preprocess(_frames(frames).to(self.device))
-        conv = quantized_trunk_apply(self.qtrunk, x, self.stage_sizes,
-                                     out_dtype=self.dtype, **self.kernels)
-        return {"clip_conv": conv, "clip_avgpool": _avgpool(conv),
-                "clip_attnpool": self.module.attnpool(conv)}
+        with span("encode"):
+            x = self._input(frames)
+            with span("encode.trunk"):
+                conv = quantized_trunk_apply(self.qtrunk, x, self.stage_sizes,
+                                             out_dtype=self.dtype, **self.kernels)
+            with span("encode.heads"):
+                return {"clip_conv": conv, "clip_avgpool": _avgpool(conv),
+                        "clip_attnpool": self.module.attnpool(conv)}
 
 
 class _QuantizedViTEncoder(_QuantizedEncoder):
@@ -264,10 +285,12 @@ class _QuantizedViTEncoder(_QuantizedEncoder):
     def encode(self, frames) -> Dict[str, torch.Tensor]:
         from embodied_clip_tpu_torch.ops.quantize_vit import quantized_vit_apply
 
-        x = self.preprocess(_frames(frames).to(self.device))
-        return {"clip_embed": quantized_vit_apply(self.qtrunk, x, self.num_heads,
-                                                  self.layers, out_dtype=self.dtype,
-                                                  **self.kernels)}
+        with span("encode"):
+            x = self._input(frames)
+            with span("encode.trunk"):
+                return {"clip_embed": quantized_vit_apply(self.qtrunk, x, self.num_heads,
+                                                          self.layers, out_dtype=self.dtype,
+                                                          **self.kernels)}
 
 
 class _QuantizedResNetEncoder(_QuantizedEncoder):
@@ -283,10 +306,13 @@ class _QuantizedResNetEncoder(_QuantizedEncoder):
     def encode(self, frames) -> Dict[str, torch.Tensor]:
         from embodied_clip_tpu_torch.ops.quantize import quantized_resnet_apply
 
-        x = self.preprocess(_frames(frames).to(self.device))
-        conv = quantized_resnet_apply(self.qtrunk, x, self.stage_sizes, self.block,
-                                      out_dtype=self.dtype, **self.kernels)
-        return {"imagenet_conv": conv, "imagenet_avgpool": _avgpool(conv)}
+        with span("encode"):
+            x = self._input(frames)
+            with span("encode.trunk"):
+                conv = quantized_resnet_apply(self.qtrunk, x, self.stage_sizes, self.block,
+                                              out_dtype=self.dtype, **self.kernels)
+            with span("encode.heads"):
+                return {"imagenet_conv": conv, "imagenet_avgpool": _avgpool(conv)}
 
 
 def _module_state_dict(spec: EncoderSpec, sd) -> Dict[str, torch.Tensor]:

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from embodied_clip_tpu_torch.models.clip_resnet import _bn, _conv, _conv_bn
 from embodied_clip_tpu_torch.models.stages import StagesMixin
+from embodied_clip_tpu_torch.utils.profiling import span
 
 __all__ = ["ResNet", "Bottleneck", "BasicBlock", "RESNET_CONFIGS"]
 
@@ -116,10 +117,11 @@ class ResNet(StagesMixin, nn.Module):
 
     def forward(self, x):
         # NHWC → an NCHW view whose memory is channels-last: no copy for NHWC input.
-        x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
-            memory_format=torch.channels_last)
-        x = F.relu(_conv_bn(x, self.conv1, self.bn1))
-        return self.run_stages(F.max_pool2d(x, 3, 2, 1))
+        with span("bf16.stem"):
+            x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+            x = F.max_pool2d(F.relu(_conv_bn(x, self.conv1, self.bn1)), 3, 2, 1)
+        return self.run_stages(x)
 
 
 RESNET_CONFIGS = {

@@ -17,7 +17,8 @@ again after the residual add (so the two bf16 routes are not bit-equal; each is 
 f32). The kernels' operands — 1×1 weights as (Cin, Cout), 3×3 as HWIO, in the trunk's
 dtype, biases f32 — are built once, on first use, and dropped when a state_dict loads.
 On CPU tensors the kernels' wrappers take their plain versions, so the same dispatch
-runs everywhere.
+runs everywhere. Each step of the fused route is a span (`bf16.stage1`, `bf16.bottleneck`,
+`bf16.block`; the trunks' stems open `bf16.stem`): `utils/profiling.py`.
 """
 
 from __future__ import annotations
@@ -28,8 +29,12 @@ import torch
 import torch.nn as nn
 
 from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
+from embodied_clip_tpu_torch.utils.profiling import span
 
 __all__ = ["StagesMixin"]
+
+# The span of each step of the fused plan (the stem's is `bf16.stem`).
+_SPANS = {"stage1": "bf16.stage1", "bottleneck": "bf16.bottleneck", "module": "bf16.block"}
 
 
 def _pointwise(conv: nn.Conv2d) -> torch.Tensor:
@@ -110,10 +115,11 @@ class StagesMixin:
             return x.permute(0, 2, 3, 1).contiguous()
         x = x.permute(0, 2, 3, 1)  # NHWC: a view of channels-last memory
         for kind, mod, ops in self._operands():
-            if kind == "stage1":
-                x = BK.fused_stage1(x, ops["blocks"], ops["shortcut"])
-            elif kind == "bottleneck":
-                x = BK.fused_bottleneck(x, **ops)
-            else:
-                x = mod(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            with span(_SPANS[kind]):
+                if kind == "stage1":
+                    x = BK.fused_stage1(x, ops["blocks"], ops["shortcut"])
+                elif kind == "bottleneck":
+                    x = BK.fused_bottleneck(x, **ops)
+                else:
+                    x = mod(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         return x.contiguous()

@@ -76,6 +76,7 @@ from embodied_clip_tpu_torch.ops.int8 import (
     requant,
     requant_signed,
 )
+from embodied_clip_tpu_torch.utils import profiling
 
 __all__ = ["fused_stage1_int8", "fused_cb3_cb1_int8", "fused_resblocks_int8",
            "fused_stage1_int8_reference", "fused_cb3_cb1_int8_reference",
@@ -432,11 +433,62 @@ def _shortcut(x0, rnorm, ops, dsc_ptr, recip=False):
     _check_f32("wsc_m", colm, dev, cout)
     lib = _lib()
     sc8 = torch.empty((*x0.shape[:-1], cout), dtype=torch.int8, device=dev)
-    ties = torch.empty(lib.ect_shortcut_ties(m, cout), dtype=torch.int64, device=dev)
+    words = lib.ect_shortcut_ties(m, cout)
+    # While a profiler session records, the flag words are held for a count
+    # (`fused_stride_block_int8`): they come from the recorder's arena.
+    ties = profiling.buffer(words, torch.int64, dev)
+    if ties is None:
+        ties = torch.empty(words, dtype=torch.int64, device=dev)
     _call(lib.ect_shortcut_s8, x0.data_ptr(), rnorm.data_ptr(), m, cin, wsc.data_ptr(),
           wsct.data_ptr(), cout, colm.data_ptr(), bsc.data_ptr(), dsc_ptr, sc8.data_ptr(),
           ties.data_ptr(), int(recip), *_stream(x0))
     return sc8, ties
+
+
+def _popcount(words: torch.Tensor) -> int:
+    """Set bits of an int64 tensor, by a byte table."""
+    table = torch.tensor([bin(b).count("1") for b in range(256)], dtype=torch.int32,
+                         device=words.device)
+    return int(table[words.contiguous().view(torch.uint8).long()].sum())
+
+
+def _tail_near_ties(words: torch.Tensor, row0: int, col0: int, m: int, n: int) -> int:
+    """Set bits of (e)'s flag words (row tiles, column tiles, 256) whose first tile sits
+    at output (row0, col0), counting only the bits of elements inside (m, n): word
+    `tid` of a tile holds rows r, r + 8 (r = 64·(tid / 128) + 16·(tid % 128 / 32) +
+    (tid % 32) / 4) and columns c + 8j, c + 8j + 1 (c = 2·(tid % 4), j < 16); bit 4j +
+    2h + e is (r + 8h, c + 8j + e), as `csrc/bottleneck_int8.cu`'s flush decodes it."""
+    rt, ct, _ = words.shape
+    dev = words.device
+    tid = torch.arange(256, device=dev)
+    lane = tid % 32
+    rows = (row0 + 128 * torch.arange(rt, device=dev)[:, None, None] + 64 * (tid // 128)
+            + 16 * (tid % 128 // 32) + lane // 4)                               # (rt, 1, 256)
+    cols = col0 + 128 * torch.arange(ct, device=dev)[None, :, None] + 2 * (lane % 4)
+    h = torch.arange(2, device=dev)
+    j = torch.arange(16, device=dev)
+    e = torch.arange(2, device=dev)
+    row_ok = (rows[..., None] + 8 * h) < m                                      # (rt, 1, 256, 2)
+    col_ok = (cols[..., None, None] + 8 * j[:, None] + e) < n                   # (1, ct, 256, 16, 2)
+    ok = (col_ok[..., :, None, :] & row_ok[..., None, :, None]).reshape(rt, ct, 256, 64)
+    bits = (words[..., None] >> torch.arange(64, device=dev)) & 1
+    return int((bits.bool() & ok).sum())
+
+
+def shortcut_near_ties(ties: torch.Tensor, m: int, n: int) -> int:
+    """The elements of an (m, n) shortcut output that (e) flagged as near-ties and summed
+    again exactly: the set bits of its flag words `ties` (`ect_shortcut_ties(m, n)`
+    int64 words, 256 a 128×128 tile, every word written by the launch), the bits of rows
+    at or past m, and of columns at or past n, left out."""
+    n_tiles = -(-n // 128)
+    words = ties.view(-1, n_tiles, 256)
+    full_r, full_c = m // 128, n // 128
+    total = _popcount(words[:full_r, :full_c])
+    if full_c < n_tiles:
+        total += _tail_near_ties(words[:full_r, full_c:], 0, 128 * full_c, m, n)
+    if full_r < words.shape[0]:
+        total += _tail_near_ties(words[full_r:], 128 * full_r, 0, m, n)
+    return total
 
 
 ENTRY_WIDTHS = {16: 64, 64: 256, 96: 384}  # K3's entry: Cin (= Cm) → Cout
@@ -628,7 +680,9 @@ def fused_stride_block_int8(x8: torch.Tensor, ops: Dict[str, torch.Tensor], reci
     exact sum's requant on every element (its near-ties summed again exactly), from which
     the plain graph's full-f32 product may differ by one step on a near-tie, so id8 and
     the output are held at ≤1 s8 step on ≤0.5% of elements, K3's contract. `recip` takes all four requants in the reciprocal form, as the XLA graph
-    does."""
+    does. While a profiler session records, the counters `sb.shortcut_elements` and
+    `sb.near_tie_elements` (the shortcut's flagged near-ties, `shortcut_near_ties`,
+    counted from the held flag words when the session is read) grow by each call's."""
     if _cuda_input("fused_stride_block_int8", x8):
         return fused_stride_block_int8_reference(x8, ops, recip, out_dtype, cb3, q1)
     if out_dtype not in _OUT_KIND:
@@ -654,7 +708,10 @@ def fused_stride_block_int8(x8: torch.Tensor, ops: Dict[str, torch.Tensor], reci
     _conv3x3(q1, k2t, ops["s2"], ops["b2"], _ptr(scl, 2), q2, recip=recip)
     o8 = _avg_pool2(q2)
     x0, rnorm = _pool2_scale(x8, _ptr(scl, 0))
-    id8, _ = _shortcut(x0, rnorm, ops, _ptr(scl, 3), recip)
+    id8, ties = _shortcut(x0, rnorm, ops, _ptr(scl, 3), recip)
+    m, cout = x0.numel() // cin, id8.shape[-1]
+    if profiling.hold("sb.near_tie_elements", shortcut_near_ties, ties, m, cout):
+        profiling.count("sb.shortcut_elements", m * cout)
     if cb3:
         out = torch.empty(id8.shape, dtype=out_dtype, device=dev)
         _conv1x1(o8, _kmajor_copy(ops, "k3"), ops["s3"], ops["b3"], _ptr(scl, 4), out,

@@ -33,6 +33,9 @@ block 0 (`fused_stride_block_int8`) and the int8-stem options' s8 stem convs
 the stride blocks) is what a quantized encoder runs; `PATH_B` swaps K5 for K4. What the
 kernels do not cover (the stem1/stem2 convs) runs as plain torch: cuDNN for the convs of
 bf16 operands; the plain graph's s8 convs go through `torch._int_mm` (+ im2col).
+Each piece is a span (`utils/profiling.py`): `int8.stem` (stem1-3, K2), `int8.stage1`
+(K3), `int8.stride_block`, `int8.resblocks` (K5), `int8.cb3_cb1` (K4) and `int8.block`
+(a block of the plain graph).
 Three options change what the graph computes, each the JAX package's trace-time
 environment variable as a keyword, defaulting as JAX does:
 
@@ -76,6 +79,7 @@ from embodied_clip_tpu_torch.ops.int8 import (
 )
 from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
 from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
+from embodied_clip_tpu_torch.utils.profiling import span
 
 __all__ = ["calibrate_trunk", "quantize_trunk", "quantized_trunk_apply",
            "calibrate_resnet_trunk", "quantize_resnet_trunk", "quantized_resnet_apply",
@@ -469,12 +473,14 @@ def quantized_trunk_apply(q: Dict[str, Any], x: torch.Tensor, stage_sizes: Seque
         int4_stage1 = 0
 
     s_in = a["stem.out"]
-    t8 = _stem(q, x, s_in, kernel_stem, int8_stem, rq, kernel_stride_blocks)
+    with span("int8.stem"):
+        t8 = _stem(q, x, s_in, kernel_stem, int8_stem, rq, kernel_stride_blocks)
 
     blocks = list(_block_names(stage_sizes))
     if kernel_stage1 and stage_sizes[0] == 3:
-        t8 = BK.fused_stage1_int8(t8, _cached(q, ("stage1",),
-                                              lambda: stage1_int8_operands(q)), recip=rq)
+        with span("int8.stage1"):
+            t8 = BK.fused_stage1_int8(t8, _cached(q, ("stage1",),
+                                                  lambda: stage1_int8_operands(q)), recip=rq)
         s_in = a["layer1_2.out"]
         blocks = blocks[3:]
 
@@ -499,9 +505,11 @@ def quantized_trunk_apply(q: Dict[str, Any], x: torch.Tensor, stage_sizes: Seque
             s_next = torch.ones_like(s_in) if is_final else a[f"{names[-1]}.out"]
             ops, scl = _cached(q, ("resblocks", tuple(names)),
                                lambda: resblocks_int8_operands(q, names, s_in, s_next))
-            if is_final:
-                return BK.fused_resblocks_int8(t8, ops, scl, out_dtype=out_dtype, recip=rq)
-            t8 = BK.fused_resblocks_int8(t8, ops, scl, recip=rq)
+            with span("int8.resblocks"):
+                if is_final:
+                    return BK.fused_resblocks_int8(t8, ops, scl, out_dtype=out_dtype,
+                                                   recip=rq)
+                t8 = BK.fused_resblocks_int8(t8, ops, scl, recip=rq)
             s_in = s_next
             i += run
             continue
@@ -516,8 +524,9 @@ def quantized_trunk_apply(q: Dict[str, Any], x: torch.Tensor, stage_sizes: Seque
                           lambda: stride_block_int8_operands(q, name, s_in))
             block = (BK.fused_stride_block_int8 if kernel_stride_blocks
                      else BK.fused_stride_block_int8_reference)
-            out = block(t8, ops, recip=rq, out_dtype=out_dtype if is_last else torch.int8,
-                        cb3=not fuse, q1=q1_carry)
+            with span("int8.stride_block"):
+                out = block(t8, ops, recip=rq, out_dtype=out_dtype if is_last else torch.int8,
+                            cb3=not fuse, q1=q1_carry)
             q1_carry = None
             if is_last:
                 return out
@@ -528,26 +537,30 @@ def quantized_trunk_apply(q: Dict[str, Any], x: torch.Tensor, stage_sizes: Seque
             o8, id8 = out
             r_res = a[f"{name}/down.out"]
         else:
-            o8, id8, r_res, s3 = _stride1_block(q, name, t8, s_in, q1_carry, int4_stage1, rq)
-            q1_carry = None
-        if fuse:
-            next_name = blocks[i + 1][0]
-            ops = _cached(q, ("cb3_cb1", name, next_name),
-                          lambda: cb3_cb1_operands(q, name, next_name, r_res))
+            with span("int8.block"):
+                o8, id8, r_res, s3 = _stride1_block(q, name, t8, s_in, q1_carry,
+                                                    int4_stage1, rq)
+                q1_carry = None
+                if not fuse:
+                    o = _qconv(q[f"{name}/cb3"], o8, s3)
+                    identity = id8.float() * r_res
+                    if is_last:
+                        return torch.relu(o + identity).to(out_dtype)
+                    if int4_stage1 in (1, 2) and name.startswith("layer1_"):
+                        t8, s_in = requant_u4(o + identity, a[f"{name}.out"], rq)
+                    else:
+                        s_in = a[f"{name}.out"]
+                        # The block relu is the clip at 0.
+                        t8 = requant(o + identity, s_in, rq)
+                    i += 1
+                    continue
+        # fuse: K4 takes this block's cb3 with the next block's cb1.
+        next_name = blocks[i + 1][0]
+        ops = _cached(q, ("cb3_cb1", name, next_name),
+                      lambda: cb3_cb1_operands(q, name, next_name, r_res))
+        with span("int8.cb3_cb1"):
             t8, q1_carry = BK.fused_cb3_cb1_int8(o8, id8, ops, recip=rq)
-            s_in = a[f"{name}.out"]
-            i += 1
-            continue
-
-        o = _qconv(q[f"{name}/cb3"], o8, s3)
-        identity = id8.float() * r_res
-        if is_last:
-            return torch.relu(o + identity).to(out_dtype)
-        if int4_stage1 in (1, 2) and name.startswith("layer1_"):
-            t8, s_in = requant_u4(o + identity, a[f"{name}.out"], rq)
-        else:
-            s_in = a[f"{name}.out"]
-            t8 = requant(o + identity, s_in, rq)  # the block relu is the clip at 0
+        s_in = a[f"{name}.out"]
         i += 1
     raise ValueError(f"stage_sizes {tuple(stage_sizes)} leave no block after stage 1")
 

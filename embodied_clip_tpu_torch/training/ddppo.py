@@ -10,7 +10,9 @@ same GLOBAL env slice JAX takes, and each process computes the loss over its sha
 that slice, a sum over its elements divided by the global denominators (summed over
 processes, with the advantage statistics). The gradients are summed over processes, then
 clipped by their global norm and applied: the JAX update for any process count, any m
-and any B, uneven ones included.
+and any B, uneven ones included. An update is one span, `update`, with `update.gae` and
+each minibatch's `update.loss`, `update.backward`, `update.allreduce` and
+`update.optimizer` inside (`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from embodied_clip_tpu_torch.parallel import mesh
 from embodied_clip_tpu_torch.training.optim import ClippedAdam
 from embodied_clip_tpu_torch.training.ppo import PPOConfig, Rollout, compute_gae, ppo_loss
 from embodied_clip_tpu_torch.training.rollout import ActState, collect_rollout, init_act_state
+from embodied_clip_tpu_torch.utils.profiling import span
 
 __all__ = ["DDPPOConfig", "DDPPOLearner", "iter_minibatches", "ppo_update"]
 
@@ -63,26 +66,33 @@ def ppo_update(policy, tx: ClippedAdam, cfg: DDPPOConfig, rollout: Rollout,
     holds the envs `own` (a slice of the `global_batch` envs of all processes). Returns
     the last minibatch's loss metrics (global)."""
     ppo = cfg.ppo
-    advantages, returns = compute_gae(rollout.rewards, rollout.values, rollout.dones,
-                                      last_value, ppo.gamma, ppo.gae_lambda,
-                                      valid=rollout.valid)
-    params = list(policy.parameters())
-    metrics = {}
-    for _ in range(ppo.epochs):
-        for sl in _minibatch_slices(global_batch, cfg.num_minibatches):
-            lo = min(max(sl.start, own.start), own.stop) - own.start
-            hi = max(min(sl.stop, own.stop), own.start) - own.start
-            loss, metrics = ppo_loss(policy, rollout.envs(slice(lo, hi)),
-                                     advantages[:, lo:hi], returns[:, lo:hi], ppo,
-                                     reduce=mesh.all_sum)
-            for p in params:
-                p.grad = None
-            loss.backward()
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-            mesh.all_sum_(grads)
-            tx.step(grads)
-    names = list(metrics)
-    summed = mesh.all_sum(torch.stack([metrics[k] for k in names]))
+    with span("update"):
+        with span("update.gae"):
+            advantages, returns = compute_gae(rollout.rewards, rollout.values, rollout.dones,
+                                              last_value, ppo.gamma, ppo.gae_lambda,
+                                              valid=rollout.valid)
+        params = list(policy.parameters())
+        metrics = {}
+        for _ in range(ppo.epochs):
+            for sl in _minibatch_slices(global_batch, cfg.num_minibatches):
+                lo = min(max(sl.start, own.start), own.stop) - own.start
+                hi = max(min(sl.stop, own.stop), own.start) - own.start
+                with span("update.loss"):
+                    loss, metrics = ppo_loss(policy, rollout.envs(slice(lo, hi)),
+                                             advantages[:, lo:hi], returns[:, lo:hi], ppo,
+                                             reduce=mesh.all_sum)
+                with span("update.backward"):
+                    for p in params:
+                        p.grad = None
+                    loss.backward()
+                with span("update.allreduce"):
+                    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                             for p in params]
+                    mesh.all_sum_(grads)
+                with span("update.optimizer"):
+                    tx.step(grads)
+        names = list(metrics)
+        summed = mesh.all_sum(torch.stack([metrics[k] for k in names]))
     return dict(zip(names, summed))
 
 

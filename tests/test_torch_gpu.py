@@ -30,6 +30,7 @@ from embodied_clip_tpu_torch.parity import (
     golden_frames,
     stage1_block_disagreements,
 )
+from embodied_clip_tpu_torch.utils import profiling
 
 import torch_int8_cases as C
 
@@ -887,23 +888,15 @@ def test_stride_block_kernel_matches_plain_version(cuda, cin, cm, cout, n, h, re
     assert float(d.max()) <= 1.01 * float(scl[3]) + 2 ** -7 * float(want_conv.float().abs().max())
 
 
-@pytest.mark.parametrize("cin,cout", [(64, 128), (256, 512), (512, 1024), (1024, 2048),
-                                      (384, 768), (768, 1536), (1536, 3072)])
-@pytest.mark.parametrize("recip", [False, True])
-def test_stride_shortcut_exact_on_planted_near_ties(cuda, cin, cout, recip):
-    """The stride blocks' shortcut launch (e) where the tensor cores' sum order decides
-    the requant, planted as `test_stage1_entry_shortcut_exact_on_planted_near_ties`: on
-    1/16 of the elements the exact quotient lies on a boundary or 2^-20 … 2^-9 from one.
-    The row that carries the plant (wsc[k] = 2, x[k] = t) sits where the launch's groups
-    and chunks meet, by base row: k = 0 (the first 32-k group of the first 64-k chunk),
-    31 and 32 (the ends of a chunk's two groups), 63 (the last group of a chunk), 64 (the
-    next chunk) and Cin - 1 (the last group of the sum); consecutive rows fill both
-    warpgroups of each tile. x0 and its row norms come from (f') on a block input whose 2×2
-    pool is the planted rows. sc8 bit-equal to `_shortcut_reference`; enough tiles that a
-    warpgroup flags more words than its list holds (4096) and sums near-ties again
-    mid-launch."""
+PLANT_BASE_ROWS = 16
+
+
+def _planted_shortcut(cin, cout, steps=100):
+    """The stride shortcut's planted near-ties (`test_stride_shortcut_exact_on_planted_
+    near_ties` says how): PLANT_BASE_ROWS × `steps` pooled s8 rows xp (on the CPU), the
+    bf16 weights wsc, the bias bsc, s_in and dsc."""
     rng = np.random.RandomState(7)
-    nbase, steps = 16, 100
+    nbase = PLANT_BASE_ROWS
     s_in, dsc = 2.0 ** -4, 2.0 ** -3
     carriers = sorted({0, 31, 32, 63, 64, cin - 1} & set(range(cin)))
     wsc = torch.from_numpy(rng.randn(cin, cout) * 2.0 ** -rng.randint(1, 13, (cin, cout)))
@@ -921,11 +914,31 @@ def test_stride_shortcut_exact_on_planted_near_ties(cuda, cin, cout, recip):
     nq = torch.from_numpy(rng.randint(-110, 11, cout)).double()
     v0 = nq + 0.5 + deltas[torch.arange(cout) % len(deltas)]
     bsc = (v0 * dsc - e_base).float()
+    return xp, wsc, bsc, s_in, dsc
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 128), (256, 512), (512, 1024), (1024, 2048),
+                                      (384, 768), (768, 1536), (1536, 3072)])
+@pytest.mark.parametrize("recip", [False, True])
+def test_stride_shortcut_exact_on_planted_near_ties(cuda, cin, cout, recip):
+    """The stride blocks' shortcut launch (e) where the tensor cores' sum order decides
+    the requant, planted as `test_stage1_entry_shortcut_exact_on_planted_near_ties`: on
+    1/16 of the elements the exact quotient lies on a boundary or 2^-20 … 2^-9 from one.
+    The row that carries the plant (wsc[k] = 2, x[k] = t) sits where the launch's groups
+    and chunks meet, by base row: k = 0 (the first 32-k group of the first 64-k chunk),
+    31 and 32 (the ends of a chunk's two groups), 63 (the last group of a chunk), 64 (the
+    next chunk) and Cin - 1 (the last group of the sum); consecutive rows fill both
+    warpgroups of each tile. x0 and its row norms come from (f') on a block input whose 2×2
+    pool is the planted rows. sc8 bit-equal to `_shortcut_reference`; enough tiles that a
+    warpgroup flags more words than its list holds (4096) and sums near-ties again
+    mid-launch."""
+    xp, wsc, bsc, s_in, dsc = _planted_shortcut(cin, cout)
+    nbase = PLANT_BASE_ROWS
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     # Tiles enough for a warpgroup to flag more than 4096 words: 40 a block at the wide
     # widths, 160 at the narrow ones, whose short sums flag fewer near-ties.
     per_block = 40 if cin >= 384 else 160
-    reps = -(-per_block * sms * 128 * 128 // (nbase * steps * cout))
+    reps = -(-per_block * sms * 128 * 128 // (xp.shape[0] * cout))
     xp = xp.repeat(reps, 1).to(cuda)
     x8 = xp[:, None, None, :].repeat(1, 2, 2, 1).contiguous()  # pools back to xp exactly
     wsc = wsc.to(cuda).contiguous()
@@ -945,6 +958,38 @@ def test_stride_shortcut_exact_on_planted_near_ties(cuda, cin, cout, recip):
     y = ((v + ops["bsc"]) / scl[1]).abs() - 0.5
     assert float(((y - y.round()).abs() < 2.0 ** -8).double().mean()) >= 0.9 / nbase
     assert torch.equal(sc8.reshape(want.shape), want), C.step_diff(sc8.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("cin,cm,cout", [(256, 128, 512), (1024, 512, 2048)])
+def test_near_tie_counter_equals_a_plain_count(cuda, cin, cm, cout):
+    """The stride block's counters on the planted near-ties (`_planted_shortcut`), 29 × 4 ×
+    4 pooled rows (464: a tail row tile), read after a profiler session:
+    `sb.near_tie_elements` equals the shortcut's flag words counted bit by bit on the
+    output's elements (`torch_int8_cases.plain_near_ties`), `sb.shortcut_elements` the
+    output's size; the block's output is the same with the session on."""
+    xp, wsc, bsc, s_in, dsc = _planted_shortcut(cin, cout)
+    n = 29
+    m = n * 16
+    x8 = (xp[:m].reshape(n, 4, 4, cin).repeat_interleave(2, 1).repeat_interleave(2, 2)
+          .contiguous().to(cuda))
+    ops, _ = _stride_case(np.random.RandomState(cin), cin, cm, cout, 1, 2, cuda)
+    scl = ops["scl"].clone()
+    scl[0], scl[3] = s_in, dsc
+    wsc = wsc.to(cuda).contiguous()
+    ops = dict(ops, scl=scl, wsc=wsc, wsc_t=wsc.t().contiguous(), bsc=bsc.to(cuda),
+               wsc_m=BK.shortcut_margins(wsc, scl[3]))
+    x0, rnorm = BK._pool2_scale(x8, BK._ptr(scl, 0))
+    _, ties = BK._shortcut(x0, rnorm, ops, BK._ptr(scl, 3))
+    want = C.plain_near_ties(ties, m, cout)
+    assert want > 0 and BK.shortcut_near_ties(ties, m, cout) == want
+    untraced = BK.fused_stride_block_int8(x8, ops)
+    with profiling.span("between"):  # a span with the profiler off: the next session is new
+        pass
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        traced = BK.fused_stride_block_int8(x8, ops)
+    rec = profiling.recorded()
+    assert rec.counters == {"sb.near_tie_elements": want, "sb.shortcut_elements": m * cout}
+    assert torch.equal(traced, untraced)
 
 
 @pytest.mark.parametrize("shape", [(128, 56, 56, 256), (128, 28, 28, 512), (128, 14, 14, 1024),

@@ -178,3 +178,27 @@ def step_diff(got, want):
     d = np.abs(got - want)
     return int(d.max()), float((d != 0).mean())
 
+
+
+def shortcut_tie_elements(n_words: int, n: int):
+    """The (row, column) of every bit of the stride shortcut's (e) flag words for an
+    output of width n, as its flush decodes them (`csrc/bottleneck_int8.cu`): arrays of
+    shape (n_words, 64). Word w is thread w % 256 of tile w // 256 (tiles row-major over
+    128-column tiles); bit 4j + 2h + e of thread t is row 64·(t / 128) + 16·(t % 128 / 32)
+    + (t % 32) / 4 + 8h and column 2·(t % 4) + 8j + e of its tile."""
+    n_tiles = -(-n // 128)
+    tile, t = np.divmod(np.arange(n_words), 256)
+    lane = t % 32
+    r0 = (tile // n_tiles) * 128 + 64 * (t // 128) + 16 * (t % 128 // 32) + lane // 4
+    c0 = (tile % n_tiles) * 128 + 2 * (lane % 4)
+    b = np.arange(64)
+    return r0[:, None] + 8 * ((b >> 1) & 1), c0[:, None] + 8 * (b >> 2) + (b & 1)
+
+
+def plain_near_ties(ties: torch.Tensor, m: int, n: int) -> int:
+    """The set bits of (e)'s flag words on elements inside the (m, n) output, decoded
+    bit by bit."""
+    words = ties.cpu().numpy().view(np.uint64)
+    rows, cols = shortcut_tie_elements(words.size, n)
+    bits = (words[:, None] >> np.arange(64, dtype=np.uint64)) & np.uint64(1)
+    return int((bits.astype(bool) & (rows < m) & (cols < n)).sum())
