@@ -21,7 +21,7 @@ the key "_operands".
 `quantized_trunk_apply` is the dispatch of `quantize.py:381-610`. Four of its kernel
 switches are the JAX keyword arguments under the port's names:
 
-  kernel_stem      (pallas_stem)       K2 stem3_requant_pool_int8
+  kernel_stem      (pallas_stem)       K2 stem3_requant_pool_int8 (stem12 ahead of it)
   kernel_stage1    (pallas_stage1)     K3 fused_stage1_int8
   kernel_resblocks (pallas_resblocks)  K5 fused_resblocks_int8 on identity runs
   fuse_pointwise   (fuse_pointwise)    K4 fused_cb3_cb1_int8 at block boundaries
@@ -30,10 +30,14 @@ The fifth, `kernel_stride_blocks`, has no JAX counterpart: it runs what the JAX 
 leaves to XLA's s8 convolutions on the port's own launches, each later stage's stride
 block 0 (`fused_stride_block_int8`) and the int8-stem options' s8 stem convs
 (`conv3x3_int8`). With all of them off it is the plain graph. `PATH_A` (K2 + K3 + K5 +
-the stride blocks) is what a quantized encoder runs; `PATH_B` swaps K5 for K4. What the
-kernels do not cover (the stem1/stem2 convs) runs as plain torch: cuDNN for the convs of
-bf16 operands; the plain graph's s8 convs go through `torch._int_mm` (+ im2col).
-Each piece is a span (`utils/profiling.py`): `int8.stem` (stem1-3, K2), `int8.stage1`
+the stride blocks) is what a quantized encoder runs; `PATH_B` swaps K5 for K4. Under
+`kernel_stem` the default stem's stem1 and stem2 run on the stem12 launch
+(`stem_kernel.stem12_f32`, f32 FMA) ahead of K2 where it takes the stem's widths
+(`_stem12_takes`), on any frames.
+What the kernels do not cover runs as plain torch: cuDNN for the other convs of bf16
+operands; the plain graph's s8 convs go through `torch._int_mm` (+ im2col).
+Each piece is a span (`utils/profiling.py`): `int8.stem` (stem1-3, K2; inside it
+`int8.stem12`, the stem12 launch), `int8.stage1`
 (K3), `int8.stride_block`, `int8.resblocks` (K5), `int8.cb3_cb1` (K4) and `int8.block`
 (a block of the plain graph).
 Three options change what the graph computes, each the JAX package's trace-time
@@ -421,31 +425,47 @@ def _s8_stem_conv(q, name, t8, in_scale, out_scale, recip, pool, kernel):
     return avg_pool_int8(out, 2) if pool else out
 
 
+def _stem12_takes(q) -> bool:
+    """Whether the stem12 launch takes this trunk's default stem: widths 3 → C → C with C
+    one K2 takes."""
+    k1, k2 = q["fp"]["stem1"]["kernel"], q["fp"]["stem2"]["kernel"]
+    c = k1.shape[-1]
+    return (tuple(k1.shape) == (3, 3, 3, c) and c in SK.STEM12_WIDTHS
+            and tuple(k2.shape) == (3, 3, c, c))
+
+
 def _stem(q, x, s_in, kernel_stem, int8_stem, recip, kernel_s8=False):
     """The stem's s8 output (N, H/4, W/4, C) on s_in: `quantize.py:445-493`. `kernel_s8`
-    runs the int8-stem options' s8 convs through `conv3x3_int8`."""
+    runs the int8-stem options' s8 convs through `conv3x3_int8`. Under `kernel_stem` the
+    default stem runs stem12 (`_fp_conv`'s stem1 → stem2 → bf16 route) where
+    `_stem12_takes`, then K2 where stem2's output has even H and W."""
     a = q["act_scales"]
     if int8_stem not in INT8_STEMS:
         raise ValueError(f"int8_stem must be one of {INT8_STEMS}, got {int8_stem!r}")
-    if int8_stem == "full":
+    if kernel_stem and int8_stem == "off" and _stem12_takes(q):
+        s1, s2, s3 = q["fp"]["stem1"], q["fp"]["stem2"], q["fp"]["stem3"]
+        with span("int8.stem12"):
+            t = SK.stem12_f32(x, s1["kernel"], s1["bias"], s2["kernel"],
+                              s2["bias"], ops=_cached(q, ("stem12",), lambda: SK.stem12_weights(
+                                  s1["kernel"], s1["bias"], s2["kernel"], s2["bias"])))
+        if t.shape[1] % 2 == 0 and t.shape[2] % 2 == 0:
+            return SK.stem3_requant_pool_int8(
+                t, s3["kernel"], s3["bias"], s_in, recip=recip,
+                wmat=_cached(q, ("stem3",), lambda: SK.stem3_weight_matrix(s3["kernel"])))
+    elif int8_stem == "full":
         # stem1 stays a bf16 conv (its output unrounded, as XLA leaves it) whose epilogue
         # writes s8; stem2 and stem3 are s8 convs.
         s1, s2 = a["stem1.out"], a["stem2.out"]
         t8 = requant(_fp_conv(q, "stem1", x, 2, relu=False), s1, recip)
         t8 = _s8_stem_conv(q, "stem2", t8, s1, s2, recip, False, kernel_s8)
         return _s8_stem_conv(q, "stem3", t8, s2, s_in, recip, True, kernel_s8)
-    t = _fp_conv(q, "stem1", x, 2)
-    t = _fp_conv(q, "stem2", t)
-    if int8_stem == "stem3":
-        s2 = a["stem2.out"]
-        t8 = requant(t, s2, recip)
-        return _s8_stem_conv(q, "stem3", t8, s2, s_in, recip, True, kernel_s8)
-    if kernel_stem and t.shape[1] % 2 == 0 and t.shape[2] % 2 == 0:
-        sub = q["fp"]["stem3"]
-        return SK.stem3_requant_pool_int8(
-            t.to(torch.bfloat16).contiguous(), sub["kernel"], sub["bias"], s_in,
-            wmat=_cached(q, ("stem3",), lambda: SK.stem3_weight_matrix(sub["kernel"])),
-            recip=recip)
+    else:
+        t = _fp_conv(q, "stem1", x, 2)
+        t = _fp_conv(q, "stem2", t)
+        if int8_stem == "stem3":
+            s2 = a["stem2.out"]
+            t8 = requant(t, s2, recip)
+            return _s8_stem_conv(q, "stem3", t8, s2, s_in, recip, True, kernel_s8)
     return avg_pool_int8(requant(_fp_conv(q, "stem3", t, relu=False), s_in, recip), 2)
 
 

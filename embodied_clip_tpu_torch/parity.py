@@ -19,7 +19,8 @@ import numpy as np
 
 __all__ = ["golden_frames", "cosine_distance", "verify_encoder_parity", "bf16_disagreement",
            "bf16_share_limit", "stage1_block_disagreements", "stride_block_disagreement",
-           "BF16_KERNEL_RTOL", "BF16_KERNEL_SHARE", "BF16_SHARE_REF_TERMS"]
+           "stem12_step_disagreement", "BF16_KERNEL_RTOL", "BF16_KERNEL_SHARE",
+           "BF16_SHARE_REF_TERMS", "STEM12_SHARE", "STEM12_STEPS"]
 
 # K6/K7 vs their plain versions, both bf16 with f32 accumulation: at most 1% of output
 # elements differ, each by at most two bf16 steps (rtol 2⁻⁶) with atol 2⁻⁶ × the
@@ -41,6 +42,15 @@ __all__ = ["golden_frames", "cosine_distance", "verify_encoder_parity", "bf16_di
 BF16_KERNEL_RTOL = 2.0 ** -6
 BF16_KERNEL_SHARE = 0.01
 BF16_SHARE_REF_TERMS = 9 * 512
+
+# The stem12 launch vs its plain version (`stem12_step_disagreement`): the same f32
+# products of the same bf16-rounded operands, summed in another order only (about 1e-7 of
+# the terms' scale against bf16's 2^-8 step), so at most 0.1% of the bf16 outputs differ,
+# each by at most one step. Near a cancellation (an output close to zero, at ReLU's edge)
+# that difference is many steps of the tiny value, so a step is counted at no less than
+# the output's RMS.
+STEM12_SHARE = 1e-3
+STEM12_STEPS = 1.0
 
 
 def golden_frames(n: int = 8, size: int = 300, seed: int = 0) -> np.ndarray:
@@ -159,6 +169,20 @@ def bf16_disagreement(got, want):
     rms = want.square().mean().sqrt()
     allow = BF16_KERNEL_RTOL * (want.abs() + rms)
     return float((diff != 0).float().mean()), float((diff / allow).max())
+
+
+def stem12_step_disagreement(got, want):
+    """(share of elements that differ, worst difference in bf16 steps) of two tensors on
+    the bf16 grid, a difference counted in steps at the larger of |got|, |want| and
+    RMS(want); the stem12 contract holds when the share is ≤ STEM12_SHARE and the worst
+    ≤ STEM12_STEPS."""
+    import torch
+
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    mag = torch.maximum(torch.maximum(got.abs(), want.abs()), want.square().mean().sqrt())
+    step = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+    return float((diff != 0).float().mean()), float((diff / step).max())
 
 
 def bf16_share_limit(blocks) -> float:

@@ -1,8 +1,8 @@
-"""The port's CUDA kernels (K1–K7) on the card, each held to its plain PyTorch
-version at small shapes and at the main path's widths, with the JAX package's contracts
-(K6/K7: `parity.bf16_disagreement`); the DD-PPO iteration and the host act steps with
-the encoder on the card; a batch-8 `clip_rn50` extraction in bf16 and int8 against f32,
-and a probe-trainer epoch on the card against the CPU.
+"""The port's CUDA kernels (K1–K7, the stem12 launch, the stride blocks) on the card, each
+held to its plain PyTorch version at small shapes and at the main path's widths, with the
+JAX package's contracts (K6/K7: `parity.bf16_disagreement`); the DD-PPO iteration and
+the host act steps with the encoder on the card; a batch-8 `clip_rn50` extraction in
+bf16 and int8 against f32, and a probe-trainer epoch on the card against the CPU.
 
 Marked `gpu`: each test skips where no CUDA device is present (decided inside the
 test). This file imports no JAX, so it runs on a machine without it:
@@ -13,6 +13,7 @@ test). This file imports no JAX, so it runs on a machine without it:
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from embodied_clip_tpu_torch import constants
 from embodied_clip_tpu_torch.models.clip_resnet import ModifiedResNet
@@ -25,10 +26,13 @@ from embodied_clip_tpu_torch.ops.kernels import preprocess_kernel as K
 from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
 from embodied_clip_tpu_torch.parity import (
     BF16_KERNEL_SHARE,
+    STEM12_SHARE,
+    STEM12_STEPS,
     bf16_disagreement,
     cosine_distance,
     golden_frames,
     stage1_block_disagreements,
+    stem12_step_disagreement,
 )
 from embodied_clip_tpu_torch.utils import profiling
 
@@ -130,6 +134,103 @@ def test_stem3_kernel_rejects_widths_it_cannot_take(cuda, cin, cout):
         SK.stem3_requant_pool_int8(x, torch.zeros((3, 3, cin, cout), device=cuda),
                                    torch.zeros(cout, device=cuda), 0.01)
     assert SK.stem3_requant_pool_int8.launches == before
+
+
+# (c, dtype, n, h, w): the width-16 trunk's, RN50's and RN50x16's stem widths, on bf16
+# and f32 frames, at batch 1 and 224² and at batch 3 and a non-square even size (26 × 43
+# outputs: partial tiles both ways, an odd width).
+@pytest.mark.parametrize("c", [8, 32, 48])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,h,w", [(1, 224, 224), (3, 52, 86)])
+def test_stem12_kernel_matches_plain_version(cuda, c, dtype, n, h, w):
+    """stem12 vs its plain version (the int8 graph's stem1 → stem2 → bf16 on the card):
+    the kernel forms the same f32 products of the same bf16-rounded operands, and only the
+    order of the f32 sums may differ (about 1e-7 of the terms' scale, against bf16's 2^-8
+    step), so the bf16 outputs are equal on ≥99.9% of elements and never more than 1 step
+    apart, a step counted at no less than the output's RMS (`parity.STEM12_*`: near
+    ReLU's edge that difference is many steps of a value close to zero). One launch a
+    call; a second launch is bit-equal."""
+    rng = np.random.RandomState(c + n)
+    x = _t(rng.randn(n, h, w, 3).astype(np.float32), cuda, dtype)
+    k1 = _t(rng.randn(3, 3, 3, c).astype(np.float32) * 0.3, cuda)
+    b1 = _t(rng.randn(c).astype(np.float32) * 0.1, cuda)
+    k2 = _t(rng.randn(3, 3, c, c).astype(np.float32) / np.sqrt(9 * c), cuda)
+    b2 = _t(rng.randn(c).astype(np.float32) * 0.1, cuda)
+    before = SK.stem12_f32.launches
+    got = SK.stem12_f32(x, k1, b1, k2, b2)
+    assert SK.stem12_f32.launches == before + 1
+    again = SK.stem12_f32(x, k1, b1, k2, b2, ops=SK.stem12_weights(k1, b1, k2, b2))
+    torch.cuda.synchronize()
+    assert SK.stem12_f32.launches == before + 2
+    want = SK.stem12_f32_reference(x, k1, b1, k2, b2)
+    assert got.shape == want.shape == (n, h // 2, w // 2, c) and got.dtype == torch.bfloat16
+    share, steps = stem12_step_disagreement(got, want)
+    assert share <= STEM12_SHARE and steps <= STEM12_STEPS, (share, steps)
+    assert 0.2 < float((want.float() > 0).float().mean()) < 0.8  # ReLU leaves work to compare
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("c,shape,k1_cin,k2_cin,match", [
+    (16, (1, 32, 32, 3), 3, 16, "C in"),
+    (64, (1, 32, 32, 3), 3, 64, "C in"),
+    (96, (1, 32, 32, 3), 3, 96, "C in"),
+    (32, (1, 32, 32, 4), 4, 32, r"\(N, H, W, 3\)"),
+    (32, (32, 32, 3), 3, 32, r"\(N, H, W, 3\)"),
+    (32, (1, 32, 32, 3), 4, 32, "kernels"),
+    (32, (1, 32, 32, 3), 3, 16, "kernels")])
+def test_stem12_kernel_rejects_what_it_cannot_take(cuda, c, shape, k1_cin, k2_cin, match):
+    """stem12 takes C 8, 32 or 48 and (N, H, W, 3) frames with (3, 3, 3, C) and (3, 3, C,
+    C) kernels; anything else raises, naming what it takes, and launches nothing."""
+    x = torch.zeros(shape, dtype=torch.bfloat16, device=cuda)
+    k1 = torch.zeros((3, 3, k1_cin, c), device=cuda)
+    before = SK.stem12_f32.launches
+    with pytest.raises(ValueError, match=match):
+        SK.stem12_f32(x, k1, torch.zeros(c, device=cuda),
+                      torch.zeros((3, 3, k2_cin, c), device=cuda), torch.zeros(c, device=cuda))
+    assert SK.stem12_f32.launches == before
+
+
+def _one_element_in(x):
+    """x's values in a contiguous tensor that starts one element into its storage."""
+    y = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+    return y.copy_(x)
+
+
+# Frames the launch does not read as they are, and the copy the wrapper launches on
+# instead (`stem_kernel._stem12_frames`).
+FRAME_FORMS = {
+    "float16": lambda x: (x.half(), x.half().to(torch.bfloat16)),
+    "strided": lambda x: (x[:, :, ::2], x[:, :, ::2].contiguous()),
+    "offset": lambda x: (_one_element_in(x), x),
+    "odd H and W": lambda x: (x[:, 1:, 3:], F.pad(x[:, 1:, 3:], (0, 0, 0, 1, 0, 1))),
+}
+
+
+@pytest.mark.parametrize("form", list(FRAME_FORMS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stem12_kernel_takes_any_frames(cuda, form, dtype):
+    """Half-precision, strided, misaligned (a bf16 batch 2 bytes past a 4-byte boundary)
+    and odd-sized frames take the launch: one launch a call, bit-equal to the launch on
+    the copy `_stem12_frames` makes (`.to(bf16)`, `.contiguous()`, a clone, a zero row and
+    column at the bottom and right), and within the stem12 contract of the plain version
+    on the frames as given (⌈H/2⌉ × ⌈W/2⌉ outputs)."""
+    rng = np.random.RandomState(11)
+    x0 = _t(rng.randn(2, 40, 58, 3).astype(np.float32), cuda, dtype)
+    x, copy = FRAME_FORMS[form](x0)
+    c = 32
+    k1 = _t(rng.randn(3, 3, 3, c).astype(np.float32) * 0.3, cuda)
+    b1 = _t(rng.randn(c).astype(np.float32) * 0.1, cuda)
+    k2 = _t(rng.randn(3, 3, c, c).astype(np.float32) / np.sqrt(9 * c), cuda)
+    b2 = _t(rng.randn(c).astype(np.float32) * 0.1, cuda)
+    before = SK.stem12_f32.launches
+    got = SK.stem12_f32(x, k1, b1, k2, b2)
+    torch.cuda.synchronize()
+    assert SK.stem12_f32.launches == before + 1
+    assert torch.equal(got, SK.stem12_f32(copy, k1, b1, k2, b2))
+    want = SK.stem12_f32_reference(x, k1, b1, k2, b2)
+    assert got.shape == want.shape == (2, (x.shape[1] + 1) // 2, (x.shape[2] + 1) // 2, c)
+    share, steps = stem12_step_disagreement(got, want)
+    assert share <= STEM12_SHARE and steps <= STEM12_STEPS, (share, steps)
 
 
 # (n, h, cin, cm, cout): RN50's stage 1 (small, 56², and the main path's widths at batch
@@ -350,9 +451,9 @@ def test_int8_kernels_in_the_reciprocal_form_match_plain_versions(cuda, kernel, 
 
 def test_int8_trunk_paths_on_the_card(cuda, monkeypatch):
     """A width-16 trunk with stage sizes (3, 2, 2, 2), quantized on the card: path A
-    (K2, K3, K5 with the gate lowered) and path B (K2, K3, K4) are bit-identical, and
-    both stay within 1e-3 cosine of the plain graph (K2 skips the graph's bf16
-    rounding of the stem3 conv)."""
+    (stem12, K2, K3, K5 with the gate lowered) and path B (stem12, K2, K3, K4) are
+    bit-identical, and both stay within 1e-3 cosine of the plain graph (K2 skips the
+    graph's bf16 rounding of the stem3 conv)."""
     monkeypatch.setattr(Q, "PALLAS_RESBLOCKS_MIN_CM", 1)
     torch.manual_seed(0)
     stage_sizes = (3, 2, 2, 2)
@@ -360,7 +461,7 @@ def test_int8_trunk_paths_on_the_card(cuda, monkeypatch):
     sd = {k: v.to(cuda) for k, v in sd.items()}
     x = _t(np.random.RandomState(5).randn(2, 64, 64, 3).astype(np.float32), cuda)
     q = Q.quantize_trunk(sd, stage_sizes, x)
-    counted = (SK.stem3_requant_pool_int8, BK.fused_stage1_int8,
+    counted = (SK.stem12_f32, SK.stem3_requant_pool_int8, BK.fused_stage1_int8,
                BK.fused_resblocks_int8, BK.fused_cb3_cb1_int8)
     outs, launches = {}, {}
     for path, switches in (("A", Q.PATH_A), ("B", Q.PATH_B), ("off", Q.KERNELS_OFF)):
@@ -368,7 +469,7 @@ def test_int8_trunk_paths_on_the_card(cuda, monkeypatch):
         outs[path] = Q.quantized_trunk_apply(q, x, stage_sizes, torch.float32, **switches)
         torch.cuda.synchronize()
         launches[path] = [f.launches - b for f, b in zip(counted, before)]
-    assert launches == {"A": [1, 1, 3, 0], "B": [1, 1, 0, 5], "off": [0, 0, 0, 0]}
+    assert launches == {"A": [1, 1, 1, 3, 0], "B": [1, 1, 1, 0, 5], "off": [0, 0, 0, 0, 0]}
     assert torch.equal(outs["A"], outs["B"])
     assert bool(torch.isfinite(outs["A"]).all()) and outs["A"].shape == (2, 2, 2, 512)
     assert cosine_distance(outs["A"], outs["off"]) <= 1e-3
@@ -376,20 +477,23 @@ def test_int8_trunk_paths_on_the_card(cuda, monkeypatch):
 
 def test_int8_rn50x16_paths_on_the_card(cuda):
     """`clip_rn50x16` int8 on the card at its full widths (384 px, random weights):
-    path A (K2 + K5 on stages 2-4) and path B (K2 + K4 at every block boundary, stage 1's
-    C = 384 and stage 4's C = 3072 included) are bit-identical and within 1e-3 cosine of
-    the plain int8 graph (K2 skips the graph's bf16 rounding of the stem3 conv)."""
+    path A (stem12, K2 + K5 on stages 2-4) and path B (stem12, K2 + K4 at every block
+    boundary, stage 1's C = 384 and stage 4's C = 3072 included) are bit-identical and
+    within 1e-3 cosine of the plain int8 graph (K2 skips the graph's bf16 rounding of the
+    stem3 conv)."""
     enc = build_encoder("clip_rn50x16", dtype=torch.bfloat16, device="cuda").fold_bn()
     qenc = enc.quantize(golden_frames(4))
     frames = golden_frames(2, size=384)
-    counted = (SK.stem3_requant_pool_int8, BK.fused_resblocks_int8, BK.fused_cb3_cb1_int8)
+    counted = (SK.stem12_f32, SK.stem3_requant_pool_int8, BK.fused_resblocks_int8,
+               BK.fused_cb3_cb1_int8)
     outs, launches = {}, {}
     for path, switches in (("A", Q.PATH_A), ("B", Q.PATH_B), ("off", Q.KERNELS_OFF)):
         before = [f.launches for f in counted]
         outs[path] = qenc.with_kernels(**switches).encode(frames)
         torch.cuda.synchronize()
         launches[path] = [f.launches - b for f, b in zip(counted, before)]
-    assert launches == {"A": [1, 3, 0], "B": [1, 0, 6 + 8 + 18 + 8 - 1], "off": [0, 0, 0]}
+    assert launches == {"A": [1, 1, 3, 0], "B": [1, 1, 0, 6 + 8 + 18 + 8 - 1],
+                        "off": [0, 0, 0, 0]}
     conv = outs["A"]["clip_conv"]
     assert conv.shape == (2, 12, 12, 3072) and bool(torch.isfinite(conv.float()).all())
     assert all(torch.equal(outs["A"][k], outs["B"][k]) for k in outs["A"])
