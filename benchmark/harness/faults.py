@@ -34,9 +34,12 @@ def _alter_first(out):
     return out
 
 
-# Where each configuration family's features are produced.
-PRODUCERS = {"clip": ("embodied_clip_tpu_torch.ops.quantize", "quantized_trunk_apply"),
-             "imagenet": ("embodied_clip_tpu_torch.models.resnet.ResNet", "forward")}
+def _producer(config: dict):
+    """Where the configuration's features are produced: its `producer`, `module:qualname`
+    (as a layer file names a span), as `(module or class path, attribute)`."""
+    mod, qual = config["producer"].split(":")
+    owner, _, attr = qual.rpartition(".")
+    return (f"{mod}.{owner}" if owner else mod), attr
 
 
 def altered_answer(cell):
@@ -45,7 +48,7 @@ def altered_answer(cell):
     if cell.traffic["driver"] == "ddppo":
         return _patched("embodied_clip_tpu_torch.training.frames.FrameEncoder", "__call__",
                         lambda f: lambda self, frames: _alter_first(f(self, frames)))
-    return _patched(*PRODUCERS[cell.config["family"]],
+    return _patched(*_producer(cell.config),
                     lambda f: lambda *a, **k: _alter_first(f(*a, **k)))
 
 

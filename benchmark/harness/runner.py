@@ -14,6 +14,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from benchmark.harness import device as card
@@ -86,6 +87,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
     """One run: returns (the result line without its checks, the checks)."""
     dev = torch.device(device)
     started = time.time() if started is None else started
+    if "host_threads" in cell.traffic:   # the process's CPU thread pool, where the mix sets it
+        torch.set_num_threads(cell.traffic["host_threads"])
     t_harness = time.time()
     driver = module("drivers", cell.traffic["driver"]).Driver(cell, seed, dev, control)
     driver.setup()
@@ -165,7 +168,10 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
                 raise RuntimeError(f"cell {cell.name} lists {m['name']}, which its driver "
                                    f"does not measure")
             result["metrics"][m["name"]] = {"value": e2e[m["name"]], "unit": m["unit"]}
-    log(f"[bench] window {elapsed:.3f} s, {n} units; peak memory {memory_peak} B; "
+    q = 1e3 * np.percentile(unit_times, [50, 95, 99, 100])
+    log(f"[bench] window {elapsed:.3f} s, {n} units (ms a unit: p50 {q[0]:.4f}, p95 "
+        f"{q[1]:.4f}, p99 {q[2]:.4f}, max {q[3]:.4f}; "
+        f"{torch.get_num_threads()} CPU threads); peak memory {memory_peak} B; "
         f"{card.power_limit()}; peaks: {card.PEAK_SOURCE}")
 
     driver.release()

@@ -2,12 +2,17 @@
 
 The distributions are a frozen copy of the port's `models/clip.init_weights_` and
 `models/policy.ActorCritic.init_weights` (flax's defaults: conv, dense and GRU input
-kernels truncated LeCun-normal, embeddings and the attention pool's positional
-embedding N(0, 1/width), GRU biases zero), with three departures. The GRU's recurrent
+kernels truncated LeCun-normal, the attention's fused in-projection as a dense of
+fan-in width, embeddings, the positional embeddings, a ViT's class embedding and
+projection N(0, 1/width), GRU biases zero), with three departures. The GRU's recurrent
 kernel is truncated LeCun-normal rather than orthogonal. So that the folding of batch
-norm and every bias are exercised rather than multiplied by one and added as zero,
-batch norm's scale and variance are U(0.9, 1.1) and its shift and mean N(0, 0.05^2),
-and conv and dense biases N(0, 0.02^2), as in a trained network.
+norm, the affine of layer norm and every bias are exercised rather than multiplied by
+one and added as zero, batch norm's and layer norm's scales and batch norm's variance
+are U(0.9, 1.1), their shifts and batch norm's mean N(0, 0.05^2), and conv, dense and
+in-projection biases N(0, 0.02^2), as in a trained network.
+
+A module draws only for the parameters it holds, in module order, so adding a kind of
+module leaves every draw of a model without it bit-identical.
 """
 
 from __future__ import annotations
@@ -48,9 +53,22 @@ def _plan(module: nn.Module):
             out += [(mod.weight_ih, "trunc", (1.0 / mod.input_size) ** 0.5 / _TRUNC_STD, 0.0),
                     (mod.weight_hh, "trunc", (1.0 / mod.hidden_size) ** 0.5 / _TRUNC_STD, 0.0),
                     (mod.bias_ih, "zero", 0, 0), (mod.bias_hh, "zero", 0, 0)]
-        elif "positional_embedding" in own:
-            pos = own["positional_embedding"]
-            out.append((pos, "normal", 0.0, pos.shape[-1] ** -0.5))
+        elif isinstance(mod, nn.LayerNorm):
+            out += [(mod.weight, "uniform", 1 - BN_SPREAD, 1 + BN_SPREAD),
+                    (mod.bias, "normal", 0.0, BN_SHIFT)]
+        elif "in_proj_weight" in own:
+            w = own["in_proj_weight"]   # (3 width, width): q, k and v of one input
+            out += [(w, "trunc", (1.0 / w.shape[1]) ** 0.5 / _TRUNC_STD, 0.0),
+                    (own["in_proj_bias"], "normal", 0.0, BIAS_STD)]
+        else:
+            # Free parameters of the module that owns them, N(0, 1/width): the
+            # positional embedding (tokens, width), the class embedding (width,) and
+            # the projection (width, output).
+            for name, width_axis in (("positional_embedding", -1), ("class_embedding", -1),
+                                     ("proj", 0)):
+                if name in own:
+                    t = own[name]
+                    out.append((t, "normal", 0.0, t.shape[width_axis] ** -0.5))
     return out
 
 

@@ -13,6 +13,8 @@ if str(REPO) not in sys.path:
 
 TINY_MODEL = {"stage_sizes": [1, 1, 1, 1], "width": 8, "heads": 4, "output_dim": 16,
               "image_size": 128}
+VIT_TINY = {"patch_size": 16, "width": 32, "layers": 2, "heads": 4, "output_dim": 16,
+            "image_size": 64}   # the port's `clip_vit_tiny`
 SEED = 2 ** 31 + 4242
 
 

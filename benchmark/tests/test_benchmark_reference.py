@@ -9,7 +9,13 @@ from benchmark.harness.compare import cosine_distances
 from benchmark.harness.frames import golden_frames
 from benchmark.harness.program import build_encoder
 from benchmark.harness.weights import fill_, seeded_generator
-from benchmark.reference import clip_modified_resnet, preprocess, torchvision_resnet
+from benchmark.reference import (
+    clip_modified_resnet,
+    clip_vision_transformer,
+    preprocess,
+    torchvision_resnet,
+)
+from benchmark.tests.conftest import VIT_TINY
 
 CASES = {
     "clip_rn_tiny": (clip_modified_resnet, "clip", {"stage_sizes": [1, 1, 1, 1], "width": 8,
@@ -18,6 +24,7 @@ CASES = {
                   "heads": 32, "output_dim": 1024, "image_size": 224}, 1),
     "imagenet_rn50": (torchvision_resnet, "imagenet", {"stage_sizes": [3, 4, 6, 3],
                       "width": 64, "image_size": 224}, 1),
+    "clip_vit_tiny": (clip_vision_transformer, "clip", VIT_TINY, 8),
 }
 
 

@@ -45,3 +45,22 @@ def test_preprocess_bytes_at_batch_128(name):
     assert w["preprocess"]["bytes"] == pytest.approx(73.1e6, rel=1e-3)
     trunk = f"{cfg['precision']['stage_convs']}_trunk"
     assert set(w) >= {"preprocess", trunk, "model"}
+
+
+def test_vit_l14_336_macs_per_frame():
+    # openai/CLIP's ViT-L/14@336px: width 1,024, 24 blocks, 16 heads, patch 14 at 336 px
+    # (577 tokens), output 768; bf16 denses, f32 attention products and projection.
+    model = {"patch_size": 14, "width": 1024, "layers": 24, "heads": 16, "output_dim": 768,
+             "image_size": 336}
+    precision = {"patch_embed": "bf16", "denses": "bf16", "attention": "f32",
+                 "activations": "bf16", "proj": "f32", "outputs": "bf16"}
+    vit = module("work", "clip_vision_transformer")
+    trunk, attention, tokens = vit.per_frame(model, precision)
+    assert tokens == 577
+    gmac = sum(trunk.ops.values()) / 2e9
+    assert 190 <= gmac <= 192 and gmac == pytest.approx(190.96, abs=0.005)
+    assert attention.ops["f32"] / 2 == 24 * 2 * 577 ** 2 * 1024   # q.k^T and p.v
+    w = vit.work({"model": model, "precision": precision}, 128, (300, 300))
+    # A fused attention launch reads q, k, v and writes its output once: 14.5 GB a batch.
+    assert w["attention"]["bytes"] == 128 * 24 * 4 * 577 * 1024 * 2
+    assert w["model"] == w["vit_trunk"]

@@ -33,7 +33,7 @@ def test_the_new_metrics():
     assert [m["name"] for m in NEW] == [
         "int8_stem_roofline", "k3_roofline", "stride_blocks_roofline", "k5_roofline",
         "near_tie_pct.encode", "k7_roofline", "k6_roofline", "bf16_stride_blocks_roofline",
-        "h2d_ms.act", "dispatch_idle_pct.act", "env_step_ms.train", "policy_ms.train",
+        "bf16_stem_roofline", "h2d_ms.act", "dispatch_idle_pct.act", "env_step_ms.train", "policy_ms.train",
         "optimizer_ms.train", "env_idle_pct.train"]
 
 
@@ -119,7 +119,9 @@ def test_stream_roofline_reads_the_cells_work(monkeypatch):
     ("clip_rn50_int8", {"int8_stem": 0.543, "k3": 0.0931, "stride_blocks": 0.3191,
                         "k5": 0.2825}),
     ("imagenet_rn50_bf16", {"bf16_stem": 0.0305, "k7": 0.1729, "bf16_stride_blocks": 0.2893,
-                            "k6": 0.5652})])
+                            "k6": 0.5652}),
+    ("clip_rn50_bf16", {"bf16_stem": 0.0926, "k7": 0.1729, "bf16_stride_blocks": 0.5586,
+                        "k6": 0.5652})])
 def test_launch_kinds_add_up_to_the_trunk(name, least_ms):
     cfg = _config(name)
     kinds = module("work", "launch_kinds").work(cfg, 128, (300, 300))
@@ -134,3 +136,61 @@ def test_launch_kinds_add_up_to_the_trunk(name, least_ms):
     # Every kind is bound by its operations at this batch.
     for k in kinds.values():
         assert k["bytes"] / 3.35e12 < least_seconds(k)
+
+
+# The parent commit's kinds of the two configurations that had them (batch 128, 300x300),
+# copied from its `launch_kinds.work`: keying the kinds by the trunk's path moved none.
+PARENT_KINDS = {
+    "clip_rn50_int8": {
+        "int8_stem": {"ops": {"f32": 32369541120.0, "bf16": 59190018048.0}, "bytes": 64282304.0},
+        "k3": {"ops": {"int8": 157840048128.0, "bf16": 13153337344.0}, "bytes": 128679936.0},
+        "stride_blocks": {"ops": {"int8": 473520144384.0, "bf16": 78920024064.0},
+                          "bytes": 280412160.0},
+        "k5": {"ops": {"int8": 559016837120.0}, "bytes": 207994880.0}},
+    "imagenet_rn50_bf16": {
+        "bf16_stem": {"ops": {"bf16": 30211571712.0}, "bytes": 89934208.0},
+        "k7": {"ops": {"bf16": 170993385472.0}, "bytes": 257327104.0},
+        "bf16_stride_blocks": {"ops": {"bf16": 286085087232.0}, "bytes": 555319296.0},
+        "k6": {"ops": {"bf16": 559016837120.0}, "bytes": 390299648.0}}}
+
+
+@pytest.mark.parametrize("name", list(PARENT_KINDS))
+def test_launch_kinds_of_the_existing_configs_are_the_parents(name):
+    assert module("work", "launch_kinds").work(_config(name), 128, (300, 300)) == \
+        PARENT_KINDS[name]
+
+
+def test_clip_bf16_gets_the_kinds_its_spans_time():
+    int8, bf16 = _config("clip_rn50_int8"), _config("clip_rn50_bf16")
+    kinds = module("work", "launch_kinds").work(bf16, 128, (300, 300))
+    assert list(kinds) == ["bf16_stem", "k7", "bf16_stride_blocks", "k6"]
+    assert set(kinds["k6"]["ops"]) == {"bf16"}
+    # The same shapes as the int8 trunk: only the precisions differ, kind for kind.
+    same = module("work", "launch_kinds").work(int8, 128, (300, 300))
+    for a, b in zip(kinds.values(), same.values()):
+        assert sum(a["ops"].values()) == sum(b["ops"].values())
+    readers = {m["name"]: m for m in BENCH["per_layer"]}
+    for metric in ("k7_roofline", "k6_roofline", "bf16_stride_blocks_roofline",
+                   "bf16_stem_roofline", "bf16_trunk_roofline"):
+        assert "clip_rn50_bf16.encode_b128" in readers[metric]["workloads"]
+
+
+def test_unit_kinds_skips_a_family_without_kinds(monkeypatch, tmp_path):
+    # A benchmark whose first cell is a ViT, which has no launch kinds: the search
+    # passes over it to the cell whose work the view holds.
+    vit = {"name": "vit", "work": "clip_vision_transformer",
+           "model": {"patch_size": 16, "width": 32, "layers": 1, "heads": 4,
+                     "output_dim": 16, "image_size": 64}}
+    (tmp_path / "vit.json").write_text(json.dumps(vit))
+    bf16 = REPO / "benchmark" / "configs" / "clip_rn50_bf16.json"
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps({
+        "configs": [{"name": "vit", "file": "vit.json"},
+                    {"name": "clip_rn50_bf16", "file": str(bf16)}],
+        "workloads": [{"config": "vit", "traffic": "encode_b128"},
+                      {"config": "clip_rn50_bf16", "traffic": "encode_b128"}]}))
+    monkeypatch.setattr(P, "REPO", tmp_path)
+    cfg = _config("clip_rn50_bf16")
+    args = (cfg, 128, (300, 300))
+    view = _view(work=module("work", cfg["work"]).work(*args))
+    assert P.unit_kinds(view) == module("work", "launch_kinds").work(*args)
+    assert P.unit_kinds(_view(work={"model": {"ops": {}, "bytes": 0.0}})) is None

@@ -8,17 +8,23 @@ kinds add up to it.
 precision of one unit of `batch` frames and its bytes: the weights once, and each run
 of consecutive blocks of the kind reading its input and writing its output once (the
 activations between blocks in the stage convs' precision, the trunk's last output in the
-outputs' precision). Kinds: CLIP's `int8_stem` (stem1-3), `k3` (stage 1), `stride_blocks`
-(block 0 of each later stage) and `k5` (the other blocks); torchvision's `bf16_stem` (the
-7×7 conv), `k7`, `bf16_stride_blocks` and `k6`, likewise.
+outputs' precision). The kinds follow the trunk's path, its family and the precision of
+its stage convs, as the spans that time them do: the int8 CLIP trunk's `int8_stem`
+(stem1-3, `int8.stem`), `k3` (stage 1), `stride_blocks` (block 0 of each later stage) and
+`k5` (the other blocks); a bf16 trunk's `bf16_stem` (CLIP's stem1-3 or torchvision's 7×7
+conv, `bf16.stem`), `k7`, `bf16_stride_blocks` (`bf16.block`) and `k6`, likewise. A
+family without an entry (a ViT) has no kinds.
 """
 
 from __future__ import annotations
 
 from benchmark.work.common import BYTES, Layer
 
-KINDS = {"clip_modified_resnet": ("int8_stem", "k3", "stride_blocks", "k5"),
-         "torchvision_resnet": ("bf16_stem", "k7", "bf16_stride_blocks", "k6")}
+_BF16 = ("bf16_stem", "k7", "bf16_stride_blocks", "k6")
+# {work family: {stage convs' precision: (stem, stage 1, stride blocks, the rest)}}
+KINDS = {"clip_modified_resnet": {"int8": ("int8_stem", "k3", "stride_blocks", "k5"),
+                                  "bf16": _BF16},
+         "torchvision_resnet": {"bf16": _BF16}}
 
 
 def _stem(config: dict) -> Layer:
@@ -37,7 +43,7 @@ def _stem(config: dict) -> Layer:
 def work(config: dict, batch: int, frame_hw) -> dict:
     model, precision = config["model"], config["precision"]
     clip = config["work"] == "clip_modified_resnet"
-    stem_kind, stage1, stride_kind, identity = KINDS[config["work"]]
+    stem_kind, stage1, stride_kind, identity = KINDS[config["work"]][precision["stage_convs"]]
     w, size = model["width"], model["image_size"]
     act, out = BYTES[precision["stage_convs"]], BYTES[precision["outputs"]]
     conv, short = precision["stage_convs"], precision["shortcut_convs"]
