@@ -12,8 +12,9 @@ Phases:
      s8 wgmma (IGMMA) beside bf16 wgmma (HGMMA: K3's shortcut) and no dp4a (IDP.4A),
      its stride shortcut (e) bf16 wgmma with both operands from shared memory and no
      float → bf16 conversion (that is (f')'s, once), its 2×2 pool kernel (f) 128-bit
-     loads and stores (the shortcut's registers and spills printed), and that of
-     `preprocess` (K1) the 1-D bulk copy (UBLKCP);
+     loads and stores (the shortcut's registers and spills printed), that of
+     `preprocess` (K1) the 1-D bulk copy (UBLKCP), and that of `attention_bf16` bf16 wgmma
+     (HGMMA) and no mma.sync (HMMA);
   3. hold kernel K1 (fused preprocess) to its plain PyTorch version on the card:
      bit-equal at the main path's shape (golden_frames(128), 300x300 → 224), f32 and
      bf16; ≤1.5 uint8 LSB with <1e-3 of pixels flipped at batches 128, 1 and 5, on a
@@ -204,7 +205,14 @@ Phases:
      timed and within VIT_INT8_COSINE_LIMIT; (d) `imagenet_rn50` int8 in both forms
      within IMAGENET_INT8_COSINE_LIMITS, beside its graph with bf16-rounded stem and
      shortcut convs (before they were repaired);
- 15. check that no process the script started is left, then print {"kernels": [...]}
+ 15. the fused attention launch (`ops/kernels/attention_kernel.py`, `csrc/attention_bf16.cu`):
+     held to its plain version (`attention_plain`) at ViT-L/14@336px's shapes (batch 8
+     and 128, T = 577, 16 heads) and ViT-B/32's (batch 128, T = 50, 12 heads), each also
+     beside the float64 softmax of the same bf16 inputs; timed at batch 128 against the
+     plain attention path (`attention_core`) and its bound; then one batch-8
+     `clip_vit_l14_336` bf16 encode (24 launches, the attention's counters) against
+     the f32 encoder of the same weights;
+ 16. check that no process the script started is left, then print {"kernels": [...]}
      (each K2-K5 and stride-block row with its reciprocal form's numbers and every
      kernel's launches per phase-14 encode; the stem12 and stride-block rows marked as
      having no TPU kernel) and the last line {"ok": true, "device": {...}}.
@@ -1727,11 +1735,13 @@ def vit_work(name: str, n: int):
 
 def counted_kernels():
     """{name: wrapper} of every kernel whose launches the script counts."""
+    from embodied_clip_tpu_torch.ops.kernels import attention_kernel as AK
     from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
     from embodied_clip_tpu_torch.ops.kernels import preprocess_kernel as K
     from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
 
     return {"fused_preprocess": K.fused_preprocess, "fused_stage1": BK.fused_stage1,
+            "attention_bf16": AK.attention_bf16,
             "fused_bottleneck": BK.fused_bottleneck,
             "stem12_f32": SK.stem12_f32,
             "stem3_requant_pool_int8": SK.stem3_requant_pool_int8,
@@ -1804,6 +1814,8 @@ def check_vit(card, smi, reqs, x128):
                   and bool(torch.isfinite(o["clip_embed"].float()).all()),
                   f"clip_vit_b32 {label} response for batch {n}")
         want = {"fused_preprocess": len(REQUESTS)}
+        if label == "bf16":  # the int8 tower keeps attention_core
+            want["attention_bf16"] = 12 * len(REQUESTS)
         check(got == want, f"clip_vit_b32 {label} launches {got}, expected {want}")
         out["launches_per_request"][label] = {k: v // len(REQUESTS) for k, v in got.items()}
         cos = cosine_distance(enc.encode(g8)["clip_embed"], ref["clip_embed"])
@@ -1840,6 +1852,138 @@ def check_vit(card, smi, reqs, x128):
               f"{bound[label] / min(ms):.1%} of it); {smi}")
     out["bound_ms_batch128"] = bound
     out["tflop_batch128"] = (dense + other) / 1e12
+    return out
+
+
+def attention_row_gap(a, b):
+    """The largest relative L2 gap of a row (one token of one frame) of `a` from `b`."""
+    a, b = a.double(), b.double()
+    return float(((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def attention_exact(qkv, heads):
+    """softmax(q kᵀ / √64) v in float64 of the bf16 inputs, (N, T, C)."""
+    n, t, c3 = qkv.shape
+    c = c3 // 3
+    q, k, v = (x.reshape(n, t, heads, 64).transpose(1, 2).double() for x in qkv.split(c, -1))
+    out = ((q @ k.transpose(-1, -2)) / 8.0).softmax(dim=-1) @ v
+    return out.transpose(1, 2).reshape(n, t, c)
+
+
+def attention_inputs(n, t, heads, seed):
+    """Seeded (N, T, 3C) bf16 in-projection outputs whose logits spread as a trained
+    ViT's do (q and k of std 1.7: logits of std ~2.9), v of unit scale."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = 64 * heads
+    x = torch.randn((n, t, 3 * c), generator=gen, device="cuda")
+    x[..., :2 * c] *= 1.7
+    return x.to(torch.bfloat16)
+
+
+# The kernel against its plain version: the same roundings, apart from the exponential
+# (ex2.approx against torch.exp, a few f32 ulps, which can flip a bf16 probability by one
+# step) and the f32 sums' order; so a row may differ by a bf16 step on a few elements.
+# 2^-8, one bf16 step on every element of a row, is the limit.
+ATTENTION_ROW_LIMIT = 2.0 ** -8
+
+
+def check_attention(card, smi):
+    """Phase 15: the fused attention launch at the ViTs' shapes against its plain
+    version, its time at batch 128 beside the plain attention path and its bound, and a
+    batch-8 ViT-L/14@336px bf16 encode."""
+    import torch
+
+    from embodied_clip_tpu_torch.models.encoders import build_encoder
+    from embodied_clip_tpu_torch.models.transformer import attention_core
+    from embodied_clip_tpu_torch.ops.int8 import full_f32
+    from embodied_clip_tpu_torch.ops.kernels import attention_kernel as AK
+    from embodied_clip_tpu_torch.parity import cosine_distance, golden_frames
+    from embodied_clip_tpu_torch.utils import profiling
+
+    _, mem_bps, _, bf16_peak, _ = card
+    out = {"held": {}, "times": {}}
+    for n, t, heads in ((8, 577, 16), (128, 577, 16), (128, 50, 12), (3, 17, 4)):
+        qkv = attention_inputs(n, t, heads, seed=n * 1000 + t)
+        AK.attention_bf16.launches = 0
+        got = AK.attention_bf16(qkv, heads)
+        torch.cuda.synchronize()
+        plain = AK.attention_plain(qkv, heads)
+        gap = attention_row_gap(got, plain.float())
+        exact = {}
+        if n * t <= 8 * 577:   # the float64 logits of batch 128 would take 11 GB
+            e = attention_exact(qkv, heads)
+            exact = {"kernel": attention_row_gap(got, e), "plain": attention_row_gap(plain, e)}
+        flips = float((got != plain).float().mean())
+        out["held"][f"{n}x{t}x{heads}"] = {"row_gap": gap, "differing": flips, **{
+            f"exact_gap_{k}": v for k, v in exact.items()}}
+        print(f"[15] attention ({n}, {t}, {heads} heads): kernel vs attention_plain, largest "
+              f"row gap {gap:.3e} (limit {ATTENTION_ROW_LIMIT:.3e}), {flips:.3%} of elements "
+              f"differ" + (f"; vs the float64 softmax: kernel {exact['kernel']:.3e}, plain "
+                           f"{exact['plain']:.3e}" if exact else "") +
+              f"; {AK.attention_bf16.launches} launch")
+        check(AK.attention_bf16.launches == 1 and gap <= ATTENTION_ROW_LIMIT,
+              f"attention kernel within {ATTENTION_ROW_LIMIT:g} of its plain version at "
+              f"({n}, {t}, {heads})")
+        if exact:
+            check(exact["kernel"] <= 1.25 * exact["plain"] + 1e-4,
+                  "the kernel no farther from the float64 softmax than its plain version")
+        if n == 128:
+            c = 64 * heads
+            q, k, v = qkv.chunk(3, dim=-1)
+            ops = 4.0 * n * t * t * c
+            nbytes = 4.0 * n * t * c * 2
+            bound = max(ops / bf16_peak, nbytes / mem_bps) * 1e3
+            times = {"kernel": [], "plain_path": []}
+            for label in ("kernel", "plain_path", "plain_path", "kernel"):
+                fn = ((lambda: AK.attention_bf16(qkv, heads)) if label == "kernel" else
+                      (lambda: attention_core(q, k, v, heads, torch.bfloat16)))
+                times[label].append(cuda_ms(fn, 20 if label == "kernel" else 3))
+            issued = AK.issued_macs(n, t, c)
+            useful = AK.useful_macs(n, t, c)
+            ms = min(times["kernel"])
+            row = {"ms": ms, "plain_path_ms": min(times["plain_path"]), "bound_ms": bound,
+                   "bound_by": "bytes" if nbytes / mem_bps > ops / bf16_peak else "operations",
+                   "useful_tflops": 2 * useful / ms / 1e9,
+                   "issued_tflops": 2 * issued / ms / 1e9,
+                   "pad_pct": 100.0 * (1 - useful / issued), "all_ms": times}
+            out["times"][f"{n}x{t}x{heads}"] = row
+            print(f"[15] attention ({n}, {t}, {heads} heads) a layer: kernel "
+                  f"{', '.join(f'{m:.4f}' for m in times['kernel'])} ms, the plain path "
+                  f"(attention_core) {', '.join(f'{m:.3f}' for m in times['plain_path'])} ms; "
+                  f"bound {bound:.4f} ms ({row['bound_by']}), {bound / ms:.1%} of it; "
+                  f"{row['useful_tflops']:.1f} TFLOP/s useful, {row['issued_tflops']:.1f} "
+                  f"issued ({row['pad_pct']:.1f}% padding); {smi}")
+        del qkv
+        torch.cuda.empty_cache()
+
+    # One batch-8 ViT-L/14@336px request in bf16 (24 launches) against the f32 encoder
+    # of the same weights (TF32 off), and the spans' counters of that encode.
+    g8 = golden_frames(8)
+    enc = build_encoder("clip_vit_l14_336", dtype=torch.bfloat16, device="cuda")
+    with full_f32():
+        ref = build_encoder("clip_vit_l14_336", dtype=torch.float32,
+                            device="cuda").encode(g8)["clip_embed"]
+    _, got = launches_of(lambda: enc.encode(g8))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        emb = enc.encode(g8)["clip_embed"]
+        torch.cuda.synchronize()
+    rec = profiling.recorded()
+    stats = rec.by_name()
+    cos = cosine_distance(emb, ref)
+    out["vit_l14_336"] = {"launches": got, "cosine_vs_f32": cos, "counters": rec.counters,
+                          "attn_core_stream_ms": 1e3 * (stats["attn.core"].stream_s or 0),
+                          "trunk_stream_ms": 1e3 * (stats["encode.trunk"].stream_s or 0)}
+    print(f"[15] clip_vit_l14_336 bf16, 8 frames: launches {got}; clip_embed {tuple(emb.shape)} "
+          f"vs the f32 encoder: cosine {cos:.3e} (limit {COSINE_LIMIT:g}); counters "
+          f"{rec.counters}; attn.core {out['vit_l14_336']['attn_core_stream_ms']:.3f} of "
+          f"encode.trunk's {out['vit_l14_336']['trunk_stream_ms']:.3f} stream ms")
+    check(got == {"fused_preprocess": 1, "attention_bf16": 24} and tuple(emb.shape) == (8, 768)
+          and cos <= COSINE_LIMIT and rec.counters.get("attn.issued_macs", 0) >=
+          rec.counters.get("attn.useful_macs", 1) > 0,
+          "clip_vit_l14_336 bf16 encode: launches, shape, cosine and counters")
     return out
 
 
@@ -3213,11 +3357,13 @@ def main(argv) -> int:
     # K6/K7's GEMM runs on bf16 wgmma: its SASS holds HGMMA and no mma.sync (HMMA); K2's
     # conv on bf16 wgmma (HGMMA); K3-K5's s8 products on s8 wgmma (IGMMA) and K3's
     # shortcut on bf16 wgmma (HGMMA), with no dp4a on the CUDA cores (IDP.4A); K1 stages
-    # its input bands with the 1-D bulk copy (UBLKCP).
+    # its input bands with the 1-D bulk copy (UBLKCP); the attention launch runs both
+    # products on bf16 wgmma.
     for src, wants, banned in (("bottleneck_bf16", ("HGMMA.",), "HMMA."),
                                ("stem_int8", ("HGMMA.",), "HMMA."),
                                ("bottleneck_int8", ("IGMMA", "HGMMA."), "IDP.4A"),
-                               ("preprocess", ("UBLKCP",), None)):
+                               ("preprocess", ("UBLKCP",), None),
+                               ("attention_bf16", ("HGMMA.",), "HMMA.")):
         sass = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump",
                                "-sass", str(_build.library_path(src))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
@@ -3509,7 +3655,10 @@ def main(argv) -> int:
     options = check_int8_options(qenc, iqenc, iref, f32_ref, g8, g128, x128, card, smi)
     print(f"[14] phase 14 took {time.perf_counter() - t0:.1f} s")
 
-    # -- 15. results ---------------------------------------------------------------------
+    # -- 15. the fused attention launch ----------------------------------------------------
+    attention = check_attention(card, smi)
+
+    # -- 16. results ---------------------------------------------------------------------
     src = "embodied_clip_tpu_torch/csrc/"
     pallas = "embodied_clip_tpu/ops/pallas/"
     rows = [{
@@ -3628,6 +3777,7 @@ def main(argv) -> int:
     print(json.dumps({"probing": probing}))
     print(json.dumps({"int8_options": {k: v for k, v in options.items() if k != "kernels"},
                       "card": smi}))
+    print(json.dumps({"attention": attention, "card": smi}))
     check(not descendants(), f"every process the script started has ended, left: "
                              f"{descendants()}")
     print(json.dumps({"kernels": rows}))

@@ -36,7 +36,7 @@ from embodied_clip_tpu_torch.models.transformer import MultiHeadAttention
 __all__ = ["CLIP", "CLIPVisual", "CLIPViTVisual", "clip_visual", "build_clip",
            "build_visual", "image_size_of", "init_weights_", "CLIP_MODELS"]
 
-CLIP_MODELS = ("RN50", "RN50x16", "ViT-B/32")
+CLIP_MODELS = ("RN50", "RN50x16", "ViT-B/32", "ViT-L/14@336px")
 
 
 def image_size_of(name: str) -> int:

@@ -52,6 +52,7 @@ CLIP_TEXT_CONFIGS = {
     "RN50": dict(width=512, layers=12, num_heads=8, output_dim=1024),
     "RN50x16": dict(width=768, layers=12, num_heads=12, output_dim=768),
     "ViT-B/32": dict(width=512, layers=12, num_heads=8, output_dim=512),
+    "ViT-L/14@336px": dict(width=768, layers=12, num_heads=12, output_dim=768),
     # Smoke-scale text towers for the smoke-scale visuals (the port's CPU tests and CPU
     # runs; not paper models, and not in the JAX package's table).
     "RNtiny": dict(width=32, layers=2, num_heads=4, output_dim=16),

@@ -1,5 +1,7 @@
 """CLIP ViT visual tower, ViT-B/32 of `BASELINE.json`'s model set (port of
-`embodied_clip_tpu/models/clip_vit.py`).
+`embodied_clip_tpu/models/clip_vit.py`), and ViT-L/14@336px, which the port adds
+(openai/CLIP's `_MODELS["ViT-L/14@336px"]`: CLIP's largest released visual tower, the
+vision encoder of LLaVA-1.5-style agents).
 
 Patch embed (no bias) → [class token; patches] + positional embedding → ln_pre →
 pre-LN transformer → ln_post on the class token → projection into the shared embedding
@@ -10,7 +12,9 @@ The patch embed is the JAX package's stride-P VALID conv computed as a matmul of
 P×P patches with the (width, P·P·3) weight: the same products, and no cuDNN conv, whose
 TF32 default would touch the f32 path. `x + pos` stays in the compute dtype, ln_pre is
 cast to it, and ln_post of the class token stays f32 into the f32 projection
-(`clip_vit.py:43-48`).
+(`clip_vit.py:43-48`). The forward is three spans inside the encoder's `encode.trunk`:
+`vit.embed` (patch embed, class token, positional add, ln_pre), `vit.blocks` and
+`vit.head` (ln_post, projection).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from embodied_clip_tpu_torch.models.transformer import Transformer, layer_norm_f32
+from embodied_clip_tpu_torch.utils.profiling import span
 
 __all__ = ["VisionTransformer", "CLIP_VIT_CONFIGS", "patch_embed"]
 
@@ -52,16 +57,25 @@ class VisionTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC image batch → (n, output_dim) in the compute dtype."""
-        x = patch_embed(x.to(self.dtype), self.conv1.weight)
-        cls = self.class_embedding.expand(x.shape[0], 1, -1)
-        x = torch.cat([cls, x], dim=1) + self.positional_embedding
-        x = self.transformer(layer_norm_f32(x, self.ln_pre).to(self.dtype))
-        return torch.matmul(layer_norm_f32(x[:, 0], self.ln_post), self.proj).to(self.dtype)
+        with span("vit.embed"):
+            x = patch_embed(x.to(self.dtype), self.conv1.weight)
+            cls = self.class_embedding.expand(x.shape[0], 1, -1)
+            x = torch.cat([cls, x], dim=1) + self.positional_embedding
+            x = layer_norm_f32(x, self.ln_pre).to(self.dtype)
+        with span("vit.blocks"):
+            x = self.transformer(x)
+        with span("vit.head"):
+            return torch.matmul(layer_norm_f32(x[:, 0], self.ln_post),
+                                self.proj).to(self.dtype)
 
 
 CLIP_VIT_CONFIGS = {
     "ViT-B/32": dict(patch_size=32, width=768, layers=12, num_heads=12, output_dim=512,
                      image_size=224),
+    # The port's own entry (the JAX package lists ViT-B/32 only): 577 tokens of width
+    # 1,024, 24 blocks of 16 heads of 64, output 768.
+    "ViT-L/14@336px": dict(patch_size=14, width=1024, layers=24, num_heads=16,
+                           output_dim=768, image_size=336),
     # Smoke-scale ViT (full code path, CPU-test cost; not a paper model).
     "ViTtiny": dict(patch_size=16, width=32, layers=2, num_heads=4, output_dim=16,
                     image_size=64),

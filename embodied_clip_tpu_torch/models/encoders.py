@@ -47,7 +47,7 @@ __all__ = ["EncoderSpec", "FrozenEncoder", "build_encoder", "ENCODER_SPECS"]
 @dataclasses.dataclass(frozen=True)
 class EncoderSpec:
     family: str  # 'imagenet' | 'clip': the preprocess constant set and key prefix
-    arch: str    # 'resnet18' | 'resnet50' | 'RN50' | 'RN50x16' | 'ViT-B/32' | '*tiny'
+    arch: str    # a key of RESNET_CONFIGS, CLIP_RESNET_CONFIGS or CLIP_VIT_CONFIGS
 
 
 ENCODER_SPECS = {
@@ -56,6 +56,7 @@ ENCODER_SPECS = {
     "clip_rn50": EncoderSpec("clip", "RN50"),
     "clip_rn50x16": EncoderSpec("clip", "RN50x16"),
     "clip_vit_b32": EncoderSpec("clip", "ViT-B/32"),
+    "clip_vit_l14_336": EncoderSpec("clip", "ViT-L/14@336px"),
     # Smoke-scale CLIP ResNet/ViT (full code path, CPU-test cost; not paper models).
     "clip_rn_tiny": EncoderSpec("clip", "RNtiny"),
     "clip_vit_tiny": EncoderSpec("clip", "ViTtiny"),

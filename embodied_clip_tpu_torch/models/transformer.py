@@ -13,6 +13,13 @@ dtype; the attention logits are the f32-accumulated product of the compute-dtype
 (the operands upcast to f32: a product of two bf16 values is exact in f32, in TF32
 too), scaled, masked and softmaxed in f32, cast to the dtype, then multiplied by v with
 f32 accumulation and cast; the dense layers and QuickGELU run in the compute dtype.
+
+On the card in bf16, unmasked attention with heads of width 64 (the ViTs') runs as one
+fused launch instead (`ops/kernels/attention_kernel.py`: f32 logits and softmax
+statistics, the unnormalised probabilities rounded to bf16 for the p·v product); the CPU,
+f32, the text tower's causal mask and the int8 ViT keep `attention_core`. The core is the
+span `attn.core` either way; the launch adds the counters `attn.useful_macs` and
+`attn.issued_macs` (`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -23,6 +30,9 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from embodied_clip_tpu_torch.ops.kernels import attention_kernel as AK
+from embodied_clip_tpu_torch.utils.profiling import count, span
 
 __all__ = ["quick_gelu", "attention_core", "MultiHeadAttention", "ResidualAttentionBlock",
            "Transformer", "layer_norm_f32"]
@@ -59,7 +69,8 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads:
 
 class MultiHeadAttention(nn.Module):
     """`torch.nn.MultiheadAttention`'s parameters (fused in-proj, out-proj), with the
-    JAX package's precision policy."""
+    JAX package's precision policy; the core on the fused launch where it takes the
+    call (`AK.kernel_takes`)."""
 
     def __init__(self, width: int, num_heads: int, dtype=torch.float32):
         super().__init__()
@@ -70,8 +81,16 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
-        q, k, v = qkv.chunk(3, dim=-1)
-        return self.out_proj(attention_core(q, k, v, self.num_heads, self.dtype, mask))
+        with span("attn.core"):
+            if AK.kernel_takes(qkv, self.num_heads, mask):
+                n, t, c3 = qkv.shape
+                count("attn.useful_macs", AK.useful_macs(n, t, c3 // 3))
+                count("attn.issued_macs", AK.issued_macs(n, t, c3 // 3))
+                out = AK.attention_bf16(qkv, self.num_heads)
+            else:
+                q, k, v = qkv.chunk(3, dim=-1)
+                out = attention_core(q, k, v, self.num_heads, self.dtype, mask)
+        return self.out_proj(out)
 
 
 class ResidualAttentionBlock(nn.Module):

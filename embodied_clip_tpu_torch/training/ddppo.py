@@ -12,7 +12,8 @@ processes, with the advantage statistics). The gradients are summed over process
 clipped by their global norm and applied: the JAX update for any process count, any m
 and any B, uneven ones included. An update is one span, `update`, with `update.gae` and
 each minibatch's `update.loss`, `update.backward`, `update.allreduce` and
-`update.optimizer` inside (`utils/profiling.py`).
+`update.optimizer` inside (`utils/profiling.py`), and, across processes, the counter
+`allreduce.bytes`: the bytes each gradient all-reduce carries.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from embodied_clip_tpu_torch.parallel import mesh
 from embodied_clip_tpu_torch.training.optim import ClippedAdam
 from embodied_clip_tpu_torch.training.ppo import PPOConfig, Rollout, compute_gae, ppo_loss
 from embodied_clip_tpu_torch.training.rollout import ActState, collect_rollout, init_act_state
-from embodied_clip_tpu_torch.utils.profiling import span
+from embodied_clip_tpu_torch.utils.profiling import count, span
 
 __all__ = ["DDPPOConfig", "DDPPOLearner", "iter_minibatches", "ppo_update"]
 
@@ -88,6 +89,9 @@ def ppo_update(policy, tx: ClippedAdam, cfg: DDPPOConfig, rollout: Rollout,
                 with span("update.allreduce"):
                     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                              for p in params]
+                    if mesh.world_size() > 1:
+                        count("allreduce.bytes",
+                              sum(g.numel() * g.element_size() for g in grads))
                     mesh.all_sum_(grads)
                 with span("update.optimizer"):
                     tx.step(grads)

@@ -1193,3 +1193,58 @@ def test_int8_path_a_runs_no_im2col_and_no_int_mm(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert BK.fused_stride_block_int8.launches == before + 3 and calls == []
     assert cosine_distance(got, off) <= 1e-3
+
+
+# -- the fused attention launch (ops/kernels/attention_kernel.py) -------------------------
+# The kernel against its plain version: the same tiling and roundings apart from the
+# exponential (ex2.approx against torch.exp, a few f32 ulps, which can flip a bf16
+# probability by one step) and the order of the f32 sums, so a row may differ by a bf16
+# step on a few of its elements. The limit on a row's relative L2 gap is 2^-8, one bf16
+# step on every element (chip_smoke.ATTENTION_ROW_LIMIT).
+ATTENTION_ROW_LIMIT = 2.0 ** -8
+
+
+def _attention_qkv(n, t, heads, dev, seed):
+    """Seeded bf16 in-projection outputs: q and k of std 1.7 (logits of std ~2.9), v of
+    unit scale."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = 64 * heads
+    x = torch.randn((n, t, 3 * c), generator=gen, device=dev)
+    x[..., :2 * c] *= 1.7
+    return x.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,t,heads", [(8, 577, 16), (128, 577, 16), (128, 50, 12),
+                                       (3, 1, 2), (5, 129, 3)])
+def test_attention_kernel_matches_plain(cuda, n, t, heads):
+    """ViT-L/14@336px's shapes at batch 8 and 128, ViT-B/32's at batch 128, and ragged
+    edges (one token; a second query tile of one row)."""
+    from embodied_clip_tpu_torch.ops.kernels import attention_kernel as AK
+
+    qkv = _attention_qkv(n, t, heads, cuda, seed=n + t)
+    before = AK.attention_bf16.launches
+    got = AK.attention_bf16(qkv, heads)
+    torch.cuda.synchronize()
+    assert AK.attention_bf16.launches == before + 1
+    want = AK.attention_plain(qkv, heads)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, t, 64 * heads)
+    gap = ((got.double() - want.double()).norm(dim=-1) / want.double().norm(dim=-1)).max()
+    assert float(gap) <= ATTENTION_ROW_LIMIT
+
+
+def test_vit_l14_336_encode_on_the_card_matches_the_cpu():
+    """`build_encoder("clip_vit_l14_336")` in bf16 on the card, through `FrozenEncoder.encode`
+    (K1 to 336, the attention launch in each of the 24 blocks), against the f32 encoder of
+    the same seed-0 weights on the CPU: within 1e-3 cosine (the north star)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from embodied_clip_tpu_torch.ops.kernels import attention_kernel as AK
+
+    frames = golden_frames(2)
+    cpu = build_encoder("clip_vit_l14_336", torch.float32, device="cpu").encode(frames)
+    before = AK.attention_bf16.launches
+    card = build_encoder("clip_vit_l14_336", torch.bfloat16, device="cuda").encode(frames)
+    torch.cuda.synchronize()
+    assert AK.attention_bf16.launches == before + 24
+    assert card["clip_embed"].shape == (2, 768) and card["clip_embed"].dtype == torch.bfloat16
+    assert cosine_distance(card["clip_embed"].cpu(), cpu["clip_embed"]) <= 1e-3

@@ -256,3 +256,38 @@ def test_rollout_and_update_spans():
     for s in rec.spans:
         assert s.root == (roots[0].id if s.name.startswith("rollout") else roots[1].id)
         assert s.parent in (None, s.root)
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_allreduce_bytes_counts_each_gradient_all_reduce(world, monkeypatch):
+    """`allreduce.bytes` is counted only across processes: the bytes of every gradient,
+    once for each minibatch's all-reduce (the collective itself stubbed out here)."""
+    from embodied_clip_tpu_torch.envs.gridworld import GridNavEnv
+    from embodied_clip_tpu_torch.models.policy import ActorCritic
+    from embodied_clip_tpu_torch.parallel import mesh
+    from embodied_clip_tpu_torch.training.ddppo import DDPPOConfig, DDPPOLearner
+    from embodied_clip_tpu_torch.training.ppo import PPOConfig
+
+    summed = []
+    monkeypatch.setattr(mesh, "world_size", lambda: world)
+    monkeypatch.setattr(mesh, "all_sum_", lambda ts: summed.append(list(ts)))
+    env = GridNavEnv(size=5, max_steps=16)
+    obs_shape = env.reset(torch.Generator().manual_seed(0), 1)[1]["visual"].shape[1:]
+    policy = ActorCritic(env.num_actions, tuple(obs_shape), goal_kind="object_embed",
+                         num_goal_classes=env.num_classes, hidden=16)
+    learner = DDPPOLearner(env, policy, DDPPOConfig(
+        rollout_len=4, env_batch=4, num_minibatches=2, ppo=PPOConfig(epochs=2)),
+        device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    act = learner.init(gen)
+    _end_session()
+    with _session():
+        learner.train_iteration(act, gen)
+    counters = recorded().counters
+    per_call = sum(p.numel() * p.element_size() for p in policy.parameters())
+    assert len(summed) == 4 and all(sum(g.numel() * g.element_size() for g in gs) == per_call
+                                    for gs in summed)
+    if world == 1:
+        assert "allreduce.bytes" not in counters
+    else:
+        assert counters["allreduce.bytes"] == 4 * per_call
