@@ -210,9 +210,19 @@ Phases:
      and 128, T = 577, 16 heads) and ViT-B/32's (batch 128, T = 50, 12 heads), each also
      beside the float64 softmax of the same bf16 inputs; timed at batch 128 against the
      plain attention path (`attention_core`) and its bound; then one batch-8
-     `clip_vit_l14_336` bf16 encode (24 launches, the attention's counters) against
-     the f32 encoder of the same weights;
- 16. check that no process the script started is left, then print {"kernels": [...]}
+     `clip_vit_l14_336` bf16 encode (24 attention launches beside phase 16's, the
+     attention's counters) against the f32 encoder of the same weights;
+ 16. the per-element launches of the ViT blocks (`ops/kernels/pointwise_kernel.py`,
+     `csrc/pointwise_bf16.cu`): QuickGELU bit-exact to `quick_gelu` on all 65,536 bf16
+     values and on hidden tensors of ViT-L/14@336px's and ViT-B/32's batch-128 shapes;
+     the LayerNorm, alone and after the residual add, within
+     `parity.layer_norm_step_disagreement`'s contract (one bf16 step on ≤0.1%) of
+     `layer_norm_f32(x, ln).to(bf16)` at those shapes, the text tower's width 512 and
+     ragged widths and rows, the sum bit-exact; each timed at ViT-L/14@336px's batch 128 beside its bytes bound and the plain chain,
+     their sum over a batch-128 encode within 25 ms; a batch-128 `clip_vit_l14_336`
+     encode with the launches and with the plain chains, in turns; the launches (49
+     LayerNorm, 24 QuickGELU) and the `pw.*` counters of a batch-8 encode;
+ 17. check that no process the script started is left, then print {"kernels": [...]}
      (each K2-K5 and stride-block row with its reciprocal form's numbers and every
      kernel's launches per phase-14 encode; the stem12 and stride-block rows marked as
      having no TPU kernel) and the last line {"ok": true, "device": {...}}.
@@ -1737,11 +1747,13 @@ def counted_kernels():
     """{name: wrapper} of every kernel whose launches the script counts."""
     from embodied_clip_tpu_torch.ops.kernels import attention_kernel as AK
     from embodied_clip_tpu_torch.ops.kernels import bottleneck_kernel as BK
+    from embodied_clip_tpu_torch.ops.kernels import pointwise_kernel as PK
     from embodied_clip_tpu_torch.ops.kernels import preprocess_kernel as K
     from embodied_clip_tpu_torch.ops.kernels import stem_kernel as SK
 
     return {"fused_preprocess": K.fused_preprocess, "fused_stage1": BK.fused_stage1,
-            "attention_bf16": AK.attention_bf16,
+            "attention_bf16": AK.attention_bf16, "layer_norm_bf16": PK.layer_norm_bf16,
+            "quick_gelu_bf16": PK.quick_gelu_bf16,
             "fused_bottleneck": BK.fused_bottleneck,
             "stem12_f32": SK.stem12_f32,
             "stem3_requant_pool_int8": SK.stem3_requant_pool_int8,
@@ -1814,8 +1826,8 @@ def check_vit(card, smi, reqs, x128):
                   and bool(torch.isfinite(o["clip_embed"].float()).all()),
                   f"clip_vit_b32 {label} response for batch {n}")
         want = {"fused_preprocess": len(REQUESTS)}
-        if label == "bf16":  # the int8 tower keeps attention_core
-            want["attention_bf16"] = 12 * len(REQUESTS)
+        if label == "bf16":  # the int8 tower keeps attention_core and the plain chains
+            want.update({k: v * len(REQUESTS) for k, v in vit_pointwise_launches(12).items()})
         check(got == want, f"clip_vit_b32 {label} launches {got}, expected {want}")
         out["launches_per_request"][label] = {k: v // len(REQUESTS) for k, v in got.items()}
         cos = cosine_distance(enc.encode(g8)["clip_embed"], ref["clip_embed"])
@@ -1853,6 +1865,13 @@ def check_vit(card, smi, reqs, x128):
     out["bound_ms_batch128"] = bound
     out["tflop_batch128"] = (dense + other) / 1e12
     return out
+
+
+def vit_pointwise_launches(layers: int) -> dict:
+    """Launches of one bf16 ViT encode of `layers` blocks: the attention, ln_1 and ln_2
+    (with the residual add) a block and ln_pre, QuickGELU a block."""
+    return {"attention_bf16": layers, "layer_norm_bf16": 2 * layers + 1,
+            "quick_gelu_bf16": layers}
 
 
 def attention_row_gap(a, b):
@@ -1980,10 +1999,163 @@ def check_attention(card, smi):
           f"vs the f32 encoder: cosine {cos:.3e} (limit {COSINE_LIMIT:g}); counters "
           f"{rec.counters}; attn.core {out['vit_l14_336']['attn_core_stream_ms']:.3f} of "
           f"encode.trunk's {out['vit_l14_336']['trunk_stream_ms']:.3f} stream ms")
-    check(got == {"fused_preprocess": 1, "attention_bf16": 24} and tuple(emb.shape) == (8, 768)
+    check(got == {"fused_preprocess": 1, **vit_pointwise_launches(24)}
+          and tuple(emb.shape) == (8, 768)
           and cos <= COSINE_LIMIT and rec.counters.get("attn.issued_macs", 0) >=
           rec.counters.get("attn.useful_macs", 1) > 0,
           "clip_vit_l14_336 bf16 encode: launches, shape, cosine and counters")
+    return out
+
+
+def check_pointwise(card, smi):
+    """Phase 16: the per-element launches of the ViT blocks (`ops/kernels/pointwise_kernel.py`)
+    against their plain chains: QuickGELU bit-exact on every bf16 value and on hidden
+    tensors of ViT-L/14@336px's and ViT-B/32's batch-128 shapes; the LayerNorm, alone and
+    after the residual add (the sum bit-exact), within the LN contract at those shapes, the
+    text tower's width and ragged widths and rows; each launch timed at ViT-L/14@336px's
+    batch 128 beside its bytes bound and the plain chain; a batch-128 encode with the
+    launches and with the plain chains, in turns; the launches and counters of a batch-8
+    `clip_vit_l14_336` bf16 encode."""
+    import torch
+    import torch.nn as nn
+
+    from embodied_clip_tpu_torch.models.encoders import build_encoder
+    from embodied_clip_tpu_torch.ops.kernels import pointwise_kernel as PK
+    from embodied_clip_tpu_torch.parity import (LN_SHARE, LN_STEPS, golden_frames,
+                                                layer_norm_step_disagreement)
+    from embodied_clip_tpu_torch.utils import profiling
+
+    mem_bps = card[1]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    out = {"quick_gelu": {}, "layer_norm": {}, "times": {}}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    every = torch.arange(-32768, 32768, device=dev).to(torch.int16).view(torch.bfloat16)
+    want = PK.quick_gelu(every)
+    nan = torch.isnan(want)
+    got = PK.quick_gelu_bf16(every)
+    differ = int(((got.view(torch.int16) != want.view(torch.int16)) & ~nan).sum()
+                 + (nan & ~torch.isnan(got)).sum())
+    out["quick_gelu"]["every_bf16_value_differing"] = differ
+    print(f"[16] QuickGELU on all 65,536 bf16 values: {differ} differ from quick_gelu "
+          f"({int(nan.sum())} NaN in, NaN out)")
+    check(differ == 0, "QuickGELU bit-exact to quick_gelu on every bf16 value")
+    for shape in ((128, 577, 4096), (128, 50, 3072), (3, 7, 24)):
+        y = (randn(*shape, scale=1.5) - 0.3).to(torch.bfloat16)
+        before = PK.quick_gelu_bf16.launches
+        same = torch.equal(PK.quick_gelu_bf16(y), PK.quick_gelu(y))
+        out["quick_gelu"][str(shape)] = same
+        print(f"[16] QuickGELU {shape}: {'bit-exact' if same else 'DIFFERS'}")
+        check(same and PK.quick_gelu_bf16.launches == before + 1,
+              f"QuickGELU bit-exact to quick_gelu at {shape}, one launch")
+        del y
+
+    def layer_norm(c):
+        ln = nn.LayerNorm(c, device=dev).requires_grad_(False)
+        ln.weight.copy_(1 + randn(c, scale=0.1))
+        ln.bias.copy_(randn(c, scale=0.05))
+        return ln
+
+    for rows, c in (((128, 577), 1024), ((128, 50), 768), ((3, 77), 512), ((7,), 32),
+                    ((5,), 520), ((13,), 4096), ((1,), 8)):
+        ln = layer_norm(c)
+        x = (randn(*rows, c, scale=1.5) + randn(*rows, 1, scale=0.5)).to(torch.bfloat16)
+        d = randn(*rows, c, scale=0.5).to(torch.bfloat16)
+        before = PK.layer_norm_bf16.launches
+        got = PK.layer_norm_bf16(x, ln)
+        s_got, y_got = PK.layer_norm_bf16(x, ln, d)
+        torch.cuda.synchronize()
+        want = PK.layer_norm_plain(x, ln)
+        s_want, y_want = PK.layer_norm_plain(x, ln, d)
+        row = {"sum_bit_exact": torch.equal(s_got, s_want),
+               "alone": layer_norm_step_disagreement(got, want),
+               "residual": layer_norm_step_disagreement(y_got, y_want)}
+        key = f"{rows}x{c}"
+        out["layer_norm"][key] = row
+        print(f"[16] LayerNorm {(*rows, c)}: (share differing, worst in bf16 steps) alone "
+              f"{row['alone']}, after the residual add {row['residual']} (limits {LN_SHARE:g}, "
+              f"{LN_STEPS:g}); the sum {'bit-exact' if row['sum_bit_exact'] else 'DIFFERS'}")
+        check(row["sum_bit_exact"] and PK.layer_norm_bf16.launches == before + 2
+              and all(row[k][0] <= LN_SHARE and row[k][1] <= LN_STEPS
+                      for k in ("alone", "residual")),
+              f"LayerNorm within the LN contract of its plain chain at {key}, the residual "
+              f"sum bit-exact, one launch a call")
+        del x, d, got, s_got, y_got, want, s_want, y_want
+
+    # Times at ViT-L/14@336px's batch 128, each in turns with its plain chain.
+    n, t, c = 128, 577, 1024
+    ln = layer_norm(c)
+    x = (randn(n, t, c, scale=1.5) + randn(n, t, 1, scale=0.5)).to(torch.bfloat16)
+    d = randn(n, t, c, scale=0.5).to(torch.bfloat16)
+    h = (randn(n, t, 4 * c, scale=1.5) - 0.3).to(torch.bfloat16)
+    cases = {
+        "layer_norm": (lambda: PK.layer_norm_bf16(x, ln), lambda: PK.layer_norm_plain(x, ln),
+                       4 * x.numel()),
+        "layer_norm_residual": (lambda: PK.layer_norm_bf16(x, ln, d),
+                                lambda: PK.layer_norm_plain(x, ln, d), 8 * x.numel()),
+        "quick_gelu": (lambda: PK.quick_gelu_bf16(h), lambda: PK.quick_gelu(h),
+                       4 * h.numel())}
+    for name, (kernel, plain, nbytes) in cases.items():
+        times = {"kernel": [], "plain": []}
+        for label in ("kernel", "plain", "plain", "kernel"):
+            times[label].append(cuda_ms(kernel if label == "kernel" else plain,
+                                        20 if label == "kernel" else 5))
+        ms, bound = min(times["kernel"]), nbytes / mem_bps * 1e3
+        out["times"][name] = {"ms": ms, "plain_ms": min(times["plain"]), "bound_ms": bound,
+                              "bytes": nbytes, "all_ms": times}
+        print(f"[16] {name} ({n}, {t}, {c if 'layer' in name else 4 * c}) bf16: kernel "
+              f"{', '.join(f'{m:.4f}' for m in times['kernel'])} ms, the plain chain "
+              f"{', '.join(f'{m:.4f}' for m in times['plain'])} ms; bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.0f} MB), {bound / ms:.1%} of it; {smi}")
+    tm = {k: v["ms"] for k, v in out["times"].items()}
+    batch_ms = 25 * tm["layer_norm"] + 24 * (tm["layer_norm_residual"] + tm["quick_gelu"])
+    batch_bound = (25 * cases["layer_norm"][2] + 24 * (cases["layer_norm_residual"][2]
+                                                       + cases["quick_gelu"][2])) / mem_bps * 1e3
+    out["batch_ms"], out["batch_bound_ms"] = batch_ms, batch_bound
+    print(f"[16] the launches of one batch-128 ViT-L/14@336px encode (25 LayerNorms, 24 "
+          f"with the residual add, 24 QuickGELUs): {batch_ms:.3f} ms, bound "
+          f"{batch_bound:.3f} ms")
+    check(batch_ms <= 25.0, f"the launches of a batch-128 encode within 25 ms ({batch_ms:.3f})")
+    del x, d, h
+
+    # The encode: batch 128 with the launches and with the plain chains, in turns; then
+    # the launches and counters of a batch-8 request.
+    enc = build_encoder("clip_vit_l14_336", dtype=torch.bfloat16, device="cuda")
+    x128 = torch.from_numpy(golden_frames(128)).to(dev)
+    takes = PK.kernel_takes
+    times = {"launches": [], "plain_chains": []}
+    with torch.inference_mode():
+        for label in ("launches", "plain_chains", "plain_chains", "launches"):
+            PK.kernel_takes = takes if label == "launches" else (lambda *a, **k: False)
+            try:
+                times[label].append(cuda_ms(lambda: enc.encode(x128), 5))
+            finally:
+                PK.kernel_takes = takes
+    out["encode_ms_batch128"] = times
+    print(f"[16] clip_vit_l14_336 bf16 encode, batch 128, in turns: with the launches "
+          f"{', '.join(f'{m:.2f}' for m in times['launches'])} ms, with the plain chains "
+          f"{', '.join(f'{m:.2f}' for m in times['plain_chains'])} ms "
+          f"({128e3 / min(times['launches']):.1f} against "
+          f"{128e3 / min(times['plain_chains']):.1f} frames/s); {smi}")
+    g8 = golden_frames(8)
+    _, got = launches_of(lambda: enc.encode(g8))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        enc.encode(g8)
+        torch.cuda.synchronize()
+    counters = profiling.recorded().counters
+    elements = 8 * 577 * 1024 * 49 + 8 * 577 * 4096 * 24
+    out["vit_l14_336_batch8"] = {"launches": got, "counters": counters}
+    print(f"[16] clip_vit_l14_336 bf16, 8 frames: launches {got}; pw.elements "
+          f"{counters.get('pw.elements')}, pw.fused_elements "
+          f"{counters.get('pw.fused_elements')} (expected {elements} each)")
+    check(got == {"fused_preprocess": 1, **vit_pointwise_launches(24)}
+          and counters.get("pw.elements") == counters.get("pw.fused_elements") == elements,
+          "clip_vit_l14_336 bf16 encode: 49 LayerNorm and 24 QuickGELU launches, every "
+          "element counted fused")
     return out
 
 
@@ -3658,7 +3830,10 @@ def main(argv) -> int:
     # -- 15. the fused attention launch ----------------------------------------------------
     attention = check_attention(card, smi)
 
-    # -- 16. results ---------------------------------------------------------------------
+    # -- 16. the per-element launches of the ViT blocks -------------------------------------
+    pointwise = check_pointwise(card, smi)
+
+    # -- 17. results ---------------------------------------------------------------------
     src = "embodied_clip_tpu_torch/csrc/"
     pallas = "embodied_clip_tpu/ops/pallas/"
     rows = [{
@@ -3778,6 +3953,7 @@ def main(argv) -> int:
     print(json.dumps({"int8_options": {k: v for k, v in options.items() if k != "kernels"},
                       "card": smi}))
     print(json.dumps({"attention": attention, "card": smi}))
+    print(json.dumps({"pointwise": pointwise, "card": smi}))
     check(not descendants(), f"every process the script started has ended, left: "
                              f"{descendants()}")
     print(json.dumps({"kernels": rows}))

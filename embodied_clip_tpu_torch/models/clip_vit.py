@@ -12,9 +12,10 @@ The patch embed is the JAX package's stride-P VALID conv computed as a matmul of
 P×P patches with the (width, P·P·3) weight: the same products, and no cuDNN conv, whose
 TF32 default would touch the f32 path. `x + pos` stays in the compute dtype, ln_pre is
 cast to it, and ln_post of the class token stays f32 into the f32 projection
-(`clip_vit.py:43-48`). The forward is three spans inside the encoder's `encode.trunk`:
-`vit.embed` (patch embed, class token, positional add, ln_pre), `vit.blocks` and
-`vit.head` (ln_post, projection).
+(`clip_vit.py:43-48`); ln_pre and the blocks' per-element chains are one launch each
+on the card in bf16 (`models/transformer.py`). The forward is three spans inside the
+encoder's `encode.trunk`: `vit.embed` (patch embed, class token, positional add,
+ln_pre), `vit.blocks` and `vit.head` (ln_post, projection).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from embodied_clip_tpu_torch.models.transformer import Transformer, layer_norm_f32
+from embodied_clip_tpu_torch.models.transformer import (Transformer, layer_norm_cast,
+                                                        layer_norm_f32)
 from embodied_clip_tpu_torch.utils.profiling import span
 
 __all__ = ["VisionTransformer", "CLIP_VIT_CONFIGS", "patch_embed"]
@@ -61,7 +63,7 @@ class VisionTransformer(nn.Module):
             x = patch_embed(x.to(self.dtype), self.conv1.weight)
             cls = self.class_embedding.expand(x.shape[0], 1, -1)
             x = torch.cat([cls, x], dim=1) + self.positional_embedding
-            x = layer_norm_f32(x, self.ln_pre).to(self.dtype)
+            x = layer_norm_cast(x, self.ln_pre, self.dtype)
         with span("vit.blocks"):
             x = self.transformer(x)
         with span("vit.head"):

@@ -20,6 +20,12 @@ statistics, the unnormalised probabilities rounded to bf16 for the p·v product)
 f32, the text tower's causal mask and the int8 ViT keep `attention_core`. The core is the
 span `attn.core` either way; the launch adds the counters `attn.useful_macs` and
 `attn.issued_macs` (`utils/profiling.py`).
+
+Likewise each per-element chain of a block is one launch on the card in bf16
+(`ops/kernels/pointwise_kernel.py`, where `kernel_takes`): `ln_1` with its cast, the
+attention's residual add with `ln_2` and its cast, QuickGELU; elsewhere the plain chains.
+The LayerNorms and QuickGELUs add their elements to the counter `pw.elements`, those on
+the launches to `pw.fused_elements`.
 """
 
 from __future__ import annotations
@@ -32,20 +38,34 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from embodied_clip_tpu_torch.ops.kernels import attention_kernel as AK
+from embodied_clip_tpu_torch.ops.kernels import pointwise_kernel as PK
+from embodied_clip_tpu_torch.ops.kernels.pointwise_kernel import layer_norm_f32, quick_gelu
 from embodied_clip_tpu_torch.utils.profiling import count, span
 
 __all__ = ["quick_gelu", "attention_core", "MultiHeadAttention", "ResidualAttentionBlock",
-           "Transformer", "layer_norm_f32"]
+           "Transformer", "layer_norm_f32", "layer_norm_cast", "mlp_activation"]
 
 
-def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(1.702 * x)
+def layer_norm_cast(x: torch.Tensor, ln: nn.LayerNorm, dtype,
+                    residual: Optional[torch.Tensor] = None):
+    """`layer_norm_f32(x, ln).to(dtype)`; with `residual`, (s, that of s) for s = x +
+    residual. One launch where it takes the call (bf16 on the card), else the plain
+    chain."""
+    count("pw.elements", x.numel())
+    if dtype == torch.bfloat16 and PK.kernel_takes(x, residual, ln):
+        count("pw.fused_elements", x.numel())
+        return PK.layer_norm_bf16(x, ln, residual)
+    return PK.layer_norm_plain(x, ln, residual, dtype)
 
 
-def layer_norm_f32(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
-    """LayerNorm over the last axis in f32 (its parameters are f32); the result is
-    f32."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+def mlp_activation(y: torch.Tensor) -> torch.Tensor:
+    """QuickGELU of the MLP's hidden tensor: one launch where it takes the call, else the
+    plain chain."""
+    count("pw.elements", y.numel())
+    if PK.kernel_takes(y):
+        count("pw.fused_elements", y.numel())
+        return PK.quick_gelu_bf16(y)
+    return quick_gelu(y)
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
@@ -106,9 +126,9 @@ class ResidualAttentionBlock(nn.Module):
         ]))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn(layer_norm_f32(x, self.ln_1).to(self.dtype), mask)
-        y = self.mlp.c_fc(layer_norm_f32(x, self.ln_2).to(self.dtype))
-        return x + self.mlp.c_proj(quick_gelu(y))
+        delta = self.attn(layer_norm_cast(x, self.ln_1, self.dtype), mask)
+        x, h = layer_norm_cast(x, self.ln_2, self.dtype, residual=delta)
+        return x + self.mlp.c_proj(mlp_activation(self.mlp.c_fc(h)))
 
 
 class Transformer(nn.Module):

@@ -19,8 +19,9 @@ import numpy as np
 
 __all__ = ["golden_frames", "cosine_distance", "verify_encoder_parity", "bf16_disagreement",
            "bf16_share_limit", "stage1_block_disagreements", "stride_block_disagreement",
-           "stem12_step_disagreement", "BF16_KERNEL_RTOL", "BF16_KERNEL_SHARE",
-           "BF16_SHARE_REF_TERMS", "STEM12_SHARE", "STEM12_STEPS"]
+           "stem12_step_disagreement", "layer_norm_step_disagreement", "BF16_KERNEL_RTOL",
+           "BF16_KERNEL_SHARE", "BF16_SHARE_REF_TERMS", "STEM12_SHARE", "STEM12_STEPS",
+           "LN_SHARE", "LN_STEPS", "LN_STEP_FLOOR"]
 
 # K6/K7 vs their plain versions, both bf16 with f32 accumulation: at most 1% of output
 # elements differ, each by at most two bf16 steps (rtol 2⁻⁶) with atol 2⁻⁶ × the
@@ -51,6 +52,15 @@ BF16_SHARE_REF_TERMS = 9 * 512
 # the output's RMS.
 STEM12_SHARE = 1e-3
 STEM12_STEPS = 1.0
+# The LayerNorm launch (`ops/kernels/pointwise_kernel.py`) against its plain chain,
+# `layer_norm_f32(x, ln).to(bf16)`: the same f32 arithmetic but for the order of the
+# statistics' sums (the row's sum, then its centred squares, against PyTorch's Welford),
+# a few f32 ulps of the mean and 1/σ (~1e-7 of an output), which can move an output to the
+# neighbouring bf16 value: at most 0.1% of the outputs, each by one step. Near zero that
+# is more than a step of the tiny value, so a step is counted at no less than 2^-10.
+LN_SHARE = 1e-3
+LN_STEPS = 1.0
+LN_STEP_FLOOR = 2.0 ** -10
 
 
 def golden_frames(n: int = 8, size: int = 300, seed: int = 0) -> np.ndarray:
@@ -176,11 +186,25 @@ def stem12_step_disagreement(got, want):
     the bf16 grid, a difference counted in steps at the larger of |got|, |want| and
     RMS(want); the stem12 contract holds when the share is ≤ STEM12_SHARE and the worst
     ≤ STEM12_STEPS."""
+    return _step_disagreement(got, want, float(want.float().square().mean().sqrt()))
+
+
+def layer_norm_step_disagreement(got, want):
+    """(share of elements that differ, worst difference in bf16 steps) of two tensors on
+    the bf16 grid, a difference counted in steps at the larger of |got|, |want| and
+    LN_STEP_FLOOR; the LayerNorm contract holds when the share is ≤ LN_SHARE and the
+    worst ≤ LN_STEPS."""
+    return _step_disagreement(got, want, LN_STEP_FLOOR)
+
+
+def _step_disagreement(got, want, floor: float):
+    """(share of elements that differ, worst difference in bf16 steps at the larger of
+    |got|, |want| and `floor`)."""
     import torch
 
     got, want = got.float(), want.float()
     diff = (got - want).abs()
-    mag = torch.maximum(torch.maximum(got.abs(), want.abs()), want.square().mean().sqrt())
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(floor)
     step = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
     return float((diff != 0).float().mean()), float((diff / step).max())
 

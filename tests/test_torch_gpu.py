@@ -1234,17 +1234,68 @@ def test_attention_kernel_matches_plain(cuda, n, t, heads):
 
 def test_vit_l14_336_encode_on_the_card_matches_the_cpu():
     """`build_encoder("clip_vit_l14_336")` in bf16 on the card, through `FrozenEncoder.encode`
-    (K1 to 336, the attention launch in each of the 24 blocks), against the f32 encoder of
-    the same seed-0 weights on the CPU: within 1e-3 cosine (the north star)."""
+    (K1 to 336, the attention launch in each of the 24 blocks, the LayerNorm launches of
+    ln_pre, ln_1 and ln_2 and the QuickGELU launch of each block), against the f32 encoder
+    of the same seed-0 weights on the CPU: within 1e-3 cosine (the north star)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from embodied_clip_tpu_torch.ops.kernels import attention_kernel as AK
+    from embodied_clip_tpu_torch.ops.kernels import pointwise_kernel as PK
 
     frames = golden_frames(2)
     cpu = build_encoder("clip_vit_l14_336", torch.float32, device="cpu").encode(frames)
-    before = AK.attention_bf16.launches
+    kernels = (AK.attention_bf16, PK.layer_norm_bf16, PK.quick_gelu_bf16)
+    before = [k.launches for k in kernels]
     card = build_encoder("clip_vit_l14_336", torch.bfloat16, device="cuda").encode(frames)
     torch.cuda.synchronize()
-    assert AK.attention_bf16.launches == before + 24
+    assert [k.launches - b for k, b in zip(kernels, before)] == [24, 49, 24]
     assert card["clip_embed"].shape == (2, 768) and card["clip_embed"].dtype == torch.bfloat16
     assert cosine_distance(card["clip_embed"].cpu(), cpu["clip_embed"]) <= 1e-3
+
+
+def test_quick_gelu_kernel_on_every_bf16_value(cuda):
+    """QuickGELU's launch against `quick_gelu` on the card, on all 65,536 bf16 bit
+    patterns: the same bits wherever the plain chain gives a number, NaN where it gives
+    NaN."""
+    from embodied_clip_tpu_torch.ops.kernels import pointwise_kernel as PK
+
+    y = torch.arange(-32768, 32768, device=cuda).to(torch.int16).view(torch.bfloat16)
+    got, want = PK.quick_gelu_bf16(y), PK.quick_gelu(y)
+    nan = torch.isnan(want)
+    assert torch.equal(got[~nan].view(torch.int16), want[~nan].view(torch.int16))
+    assert bool(torch.isnan(got[nan]).all())
+
+
+@pytest.mark.parametrize("shape", [(16, 577, 1024), (4, 50, 768), (3, 77, 512), (5, 520),
+                                   (13, 4096), (1, 8)])
+def test_pointwise_kernels_match_their_chains(cuda, shape):
+    """ViT-L/14@336px's, ViT-B/32's and the text tower's widths and ragged widths and
+    rows: the LayerNorm, alone and after the residual add, within
+    `parity.layer_norm_step_disagreement`'s contract of its chain, the sum bit-exact;
+    QuickGELU on the (…, 4C) hidden tensor bit-exact; one launch a call."""
+    from embodied_clip_tpu_torch.ops.kernels import pointwise_kernel as PK
+    from embodied_clip_tpu_torch.parity import (LN_SHARE, LN_STEPS,
+                                                layer_norm_step_disagreement)
+
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    c = shape[-1]
+    ln = torch.nn.LayerNorm(c, device=cuda).requires_grad_(False)
+    ln.weight.copy_(1 + 0.1 * torch.randn(c, generator=gen, device=cuda))
+    ln.bias.copy_(0.05 * torch.randn(c, generator=gen, device=cuda))
+    x = (1.5 * torch.randn(shape, generator=gen, device=cuda)
+         + 0.5 * torch.randn((*shape[:-1], 1), generator=gen, device=cuda)).to(torch.bfloat16)
+    d = (0.5 * torch.randn(shape, generator=gen, device=cuda)).to(torch.bfloat16)
+    h = (1.5 * torch.randn((*shape[:-1], 4 * c), generator=gen, device=cuda)).to(torch.bfloat16)
+    before = (PK.layer_norm_bf16.launches, PK.quick_gelu_bf16.launches)
+    y = PK.layer_norm_bf16(x, ln)
+    s, y_res = PK.layer_norm_bf16(x, ln, d)
+    g = PK.quick_gelu_bf16(h)
+    torch.cuda.synchronize()
+    assert (PK.layer_norm_bf16.launches, PK.quick_gelu_bf16.launches) == \
+        (before[0] + 2, before[1] + 1)
+    s_want, y_res_want = PK.layer_norm_plain(x, ln, d)
+    assert torch.equal(s, s_want)
+    for got, want in ((y, PK.layer_norm_plain(x, ln)), (y_res, y_res_want)):
+        share, steps = layer_norm_step_disagreement(got, want)
+        assert share <= LN_SHARE and steps <= LN_STEPS
+    assert torch.equal(g, PK.quick_gelu(h))

@@ -188,3 +188,26 @@ def test_vit_spans_nest_under_the_trunk():
     assert rec.by_name()["attn.core"].calls == CLIP_VIT_CONFIGS["ViTtiny"]["layers"]
     assert "attn.issued_macs" not in rec.counters   # no launch on the CPU
     assert math.isfinite(rec.by_name()["vit.blocks"].host_s)
+
+
+def test_vit_counts_its_per_element_work():
+    """Under a profiler session the tower counts the elements of every LayerNorm (ln_pre,
+    ln_1 and ln_2 a block) and QuickGELU into `pw.elements`; on the CPU none goes through
+    the launches, so `pw.fused_elements` is never counted (the metric
+    `pointwise_fused_pct.encode` reads the two)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from embodied_clip_tpu_torch.parity import golden_frames
+
+    cfg = CLIP_VIT_CONFIGS["ViTtiny"]
+    enc = E.build_encoder("clip_vit_tiny", torch.bfloat16, device="cpu")
+    frames = golden_frames(2, 60, 60)
+    enc.encode(frames)   # outside a session: the next session starts a fresh store
+    with profile(activities=[ProfilerActivity.CPU]):
+        enc.encode(frames)
+    counters = recorded().counters
+    tokens = 2 * ((cfg["image_size"] // cfg["patch_size"]) ** 2 + 1)
+    width, layers = cfg["width"], cfg["layers"]
+    assert counters["pw.elements"] == tokens * width * (2 * layers + 1) + \
+        tokens * 4 * width * layers
+    assert "pw.fused_elements" not in counters
