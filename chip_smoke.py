@@ -26,9 +26,7 @@ Phases:
   4. drive the bf16 path: BN-folded `clip_rn50` serving four requests of fresh uint8
      frames (batch 1, 8, 32, 128, NHWC and flat); check keys, shapes, finite values
      and the launches per request (K1 1, K7 1, K6 10); hold the bf16 features to the
-     port's unfolded f32 encoder (TF32 off) at ≤1e-3 cosine; time a batch-128 encode
-     with the kernels and on the cuDNN route (`fold_bn(fused_bottlenecks=False)`, the
-     same weights), in turns;
+     port's unfolded f32 encoder (TF32 off) at ≤1e-3 cosine; time a batch-128 encode;
   5. quantize that encoder (calibrated on golden_frames(32)) and encode
      golden_frames(128) through path A (stem12 + K2 + K3 + K5 + the stride blocks) and
      path B (stem12 + K2 + K3 + K4 + the stride blocks up to cb3), recording every kernel
@@ -233,7 +231,6 @@ prints no result, where no CUDA device is available.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import shutil
@@ -2187,8 +2184,6 @@ def check_clip_towers(smi):
             clip = build_clip(name, dtype, device="cuda")
             build_s = time.perf_counter() - t0
             pre = make_preprocessor("clip", image_size_of(name), dtype)
-            if dtype == torch.bfloat16:
-                pre = dataclasses.replace(pre, use_kernel=True)
             with full_f32():
                 table = text_goal_table(clip, tok, names)  # an ordinary tensor
                 with torch.inference_mode():
@@ -3625,8 +3620,7 @@ def main(argv) -> int:
     bound_ms, bound_by = k1_times[128]["bound_ms"], k1_times[128]["bound_by"]
 
     # -- 4. the bf16 path: BN-folded clip_rn50 serving requests -------------------------
-    base = build_encoder("clip_rn50", dtype=torch.bfloat16, device="cuda")
-    enc = base.fold_bn()
+    enc = build_encoder("clip_rn50", dtype=torch.bfloat16, device="cuda").fold_bn()
     rng = np.random.RandomState(1)
     reqs = []
     for n, layout in REQUESTS:
@@ -3687,13 +3681,9 @@ def main(argv) -> int:
     f32_ref = build_encoder("clip_rn50", dtype=torch.float32, device="cuda").encode(g8)
     limits = dict.fromkeys(f32_ref, COSINE_LIMIT)
     fidelity(enc, f32_ref, "4 bf16 folded, K6/K7", limits)
-    enc_cudnn = base.fold_bn(fused_bottlenecks=False)
-    check(not enc_cudnn.module.uses_fused_bottlenecks, "the cuDNN route is reachable")
-    fidelity(enc_cudnn, f32_ref, "4 bf16 folded, cuDNN route", limits)
 
     x128 = torch.from_numpy(reqs[-1]).to(dev)
-    clip_times = encode_times({"bf16 folded (K6/K7)": enc,
-                               "bf16 folded (cuDNN route)": enc_cudnn}, "4", "clip_rn50")
+    clip_times = encode_times({"bf16 folded (K6/K7)": enc}, "4", "clip_rn50")
     encode_ms = clip_times["bf16 folded (K6/K7)"]
 
     if profile:
@@ -3768,8 +3758,7 @@ def main(argv) -> int:
           f"path A makes no qmm or im2col3x3 call: {library_calls}")
 
     # -- 7. K6/K7 against their plain versions on batch-128 main-path inputs -------------
-    ibase = build_encoder("imagenet_rn50", dtype=torch.bfloat16, device="cuda")
-    ienc = ibase.fold_bn()
+    ienc = build_encoder("imagenet_rn50", dtype=torch.bfloat16, device="cuda").fold_bn()
     with torch.inference_mode():
         bf16_results = check_bf16_kernels({"clip_rn50": enc, "imagenet_rn50": ienc}, g128,
                                           card)
@@ -3777,18 +3766,14 @@ def main(argv) -> int:
     # -- 8. the ImageNet family: bf16 folded rn50/rn18, then rn50 int8 --------------------
     imagenet_launches, imagenet_ms, imagenet_cos = {}, {}, {}
     for model, folded in (("imagenet_rn50", ienc), ("imagenet_rn18", None)):
-        unfolded = ibase if folded is not None else build_encoder(
-            model, dtype=torch.bfloat16, device="cuda")
-        folded = folded or unfolded.fold_bn()
+        folded = folded or build_encoder(model, dtype=torch.bfloat16, device="cuda").fold_bn()
         imagenet_launches[model] = serve_bf16(folded, "8", model)
         ref = build_encoder(model, dtype=torch.float32, device="cuda").encode(g8)
         imagenet_cos[model] = fidelity(folded, ref, f"8 {model} bf16 folded",
                                        dict.fromkeys(ref, COSINE_LIMIT))
-        encoders = {"bf16 folded": folded}
         if model == "imagenet_rn50":
-            encoders["bf16 folded (cuDNN route)"] = unfolded.fold_bn(fused_bottlenecks=False)
             iref = ref
-        imagenet_ms[model] = encode_times(encoders, "8", model)
+        imagenet_ms[model] = encode_times({"bf16 folded": folded}, "8", model)
     t0 = time.perf_counter()
     iqenc = ienc.quantize(golden_frames(32))
     torch.cuda.synchronize()

@@ -52,12 +52,11 @@ class CLIPVisual(ModifiedResNet):
     A subclass of the trunk with `attnpool` beside it, so its state_dict keys are
     exactly those of openai/CLIP's `visual.*` (prefix stripped)."""
 
-    def __init__(self, model_name: str, dtype=torch.float32, folded: bool = False,
-                 fused_bottlenecks: bool = True):
+    def __init__(self, model_name: str, dtype=torch.float32, folded: bool = False):
         if model_name not in CLIP_RESNET_CONFIGS:
             raise ValueError(f"unknown CLIP ResNet visual: {model_name}")
         cfg = CLIP_RESNET_CONFIGS[model_name]
-        super().__init__(cfg["stage_sizes"], cfg["width"], dtype, folded, fused_bottlenecks)
+        super().__init__(cfg["stage_sizes"], cfg["width"], dtype, folded)
         self.attnpool = AttentionPool2d(cfg["image_size"] // 32, self.embed_dim,
                                         cfg["num_heads"], cfg["output_dim"], dtype)
 
@@ -80,13 +79,12 @@ class CLIPViTVisual(VisionTransformer):
         return {"embed": super().forward(x)}
 
 
-def clip_visual(model_name: str, dtype=torch.float32, folded: bool = False,
-                fused_bottlenecks: bool = True) -> nn.Module:
+def clip_visual(model_name: str, dtype=torch.float32, folded: bool = False) -> nn.Module:
     """The visual tower of `model_name`: `CLIPVisual` for the ResNets, `CLIPViTVisual`
-    for the ViTs (which take no folding options)."""
+    for the ViTs (which have no BN to fold)."""
     if model_name in CLIP_VIT_CONFIGS:
         return CLIPViTVisual(model_name, dtype)
-    return CLIPVisual(model_name, dtype, folded=folded, fused_bottlenecks=fused_bottlenecks)
+    return CLIPVisual(model_name, dtype, folded=folded)
 
 
 class CLIP(TextTransformer):

@@ -10,8 +10,7 @@ Module and parameter names are openai/CLIP's (`conv1`/`bn1` … `layerS.B.conv1`
 `load_state_dict`. The public layout is the JAX package's NHWC; inside, convs run on
 channels-last tensors. BN runs in f32 under a bf16 trunk; `folded=True` trunks carry
 conv biases and no BN (ops/fold_bn.py). A folded bf16 trunk runs stage 1 through kernel
-K7 and its stride-1 identity blocks through K6 (models/stages.py) unless built with
-`fused_bottlenecks=False`.
+K7 and its stride-1 identity blocks through K6 (models/stages.py).
 """
 
 from __future__ import annotations
@@ -94,9 +93,9 @@ class ModifiedResNet(StagesMixin, nn.Module):
     (N,7,7,2048 for RN50 at 224px)."""
 
     def __init__(self, stage_sizes: Sequence[int], width: int = 64,
-                 dtype=torch.float32, folded: bool = False, fused_bottlenecks: bool = True):
+                 dtype=torch.float32, folded: bool = False):
         super().__init__()
-        self._init_stages(fused_bottlenecks)
+        self._init_stages()
         self.dtype = dtype
         self.folded = folded
         self.conv1 = _conv(3, width // 2, 3, 2, dtype, folded)

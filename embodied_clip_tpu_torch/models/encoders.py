@@ -63,12 +63,10 @@ ENCODER_SPECS = {
 }
 
 
-def _new_module(spec: EncoderSpec, dtype=torch.float32, folded: bool = False,
-                fused_bottlenecks: bool = True) -> nn.Module:
+def _new_module(spec: EncoderSpec, dtype=torch.float32, folded: bool = False) -> nn.Module:
     if spec.family == "imagenet":
-        return ResNet(dtype=dtype, folded=folded, fused_bottlenecks=fused_bottlenecks,
-                      **RESNET_CONFIGS[spec.arch])
-    return clip_visual(spec.arch, dtype, folded=folded, fused_bottlenecks=fused_bottlenecks)
+        return ResNet(dtype=dtype, folded=folded, **RESNET_CONFIGS[spec.arch])
+    return clip_visual(spec.arch, dtype, folded=folded)
 
 
 def _random_state_dict(spec: EncoderSpec, seed: int) -> Dict[str, torch.Tensor]:
@@ -81,12 +79,11 @@ def _random_state_dict(spec: EncoderSpec, seed: int) -> Dict[str, torch.Tensor]:
     return init_weights_(module, torch.Generator().manual_seed(seed)).state_dict()
 
 
-def _make_module(spec: EncoderSpec, dtype, folded: bool, sd, device,
-                 fused_bottlenecks: bool = True) -> nn.Module:
+def _make_module(spec: EncoderSpec, dtype, folded: bool, sd, device) -> nn.Module:
     """The spec's module on `device` in `dtype` holding `sd`: frozen, eval,
     channels-last."""
     with torch.device("meta"):
-        module = _new_module(spec, dtype, folded, fused_bottlenecks)
+        module = _new_module(spec, dtype, folded)
     module = module.to_empty(device=device)
     module.load_state_dict(sd)
     return module.to(memory_format=torch.channels_last).eval().requires_grad_(False)
@@ -114,18 +111,15 @@ class FrozenEncoder:
         self.dtype = dtype
         self.device = torch.device(device)
         self.preprocess = make_preprocessor(spec.family, image_size, dtype)
-        if dtype == torch.bfloat16:
-            # Throughput mode: kernel K1 on CUDA frames. f32 encoders keep the
-            # full-precision plain path.
-            self.preprocess = dataclasses.replace(self.preprocess, use_kernel=True)
 
-    def _input(self, frames) -> torch.Tensor:
-        """The frames on the device, preprocessed: the spans `encode.to_device` and
-        `encode.preprocess`."""
-        with span("encode.to_device"):
-            frames = _frames(frames).to(self.device)
-        with span("encode.preprocess"):
-            return self.preprocess(frames)
+    def _trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """Preprocessed frames → the NHWC conv map, or a ViT's embedding."""
+        if isinstance(self.module, CLIPViTVisual):
+            return self.module(x)["embed"]
+        # CLIPVisual's trunk alone: its forward adds the heads.
+        if isinstance(self.module, CLIPVisual):
+            return ModifiedResNet.forward(self.module, x)
+        return self.module(x)
 
     @torch.inference_mode()
     def encode(self, frames) -> Dict[str, torch.Tensor]:
@@ -134,37 +128,30 @@ class FrozenEncoder:
         `encode.to_device`, `.preprocess`, `.trunk` and `.heads` inside (a ViT's tower
         is all trunk)."""
         with span("encode"):
-            x = self._input(frames)
-            if isinstance(self.module, CLIPViTVisual):
-                with span("encode.trunk"):
-                    return {"clip_embed": self.module(x)["embed"]}
+            with span("encode.to_device"):
+                frames = _frames(frames).to(self.device)
+            with span("encode.preprocess"):
+                x = self.preprocess(frames)
             with span("encode.trunk"):
-                # CLIPVisual's trunk alone: its forward adds the heads.
-                conv = (ModifiedResNet.forward(self.module, x)
-                        if isinstance(self.module, CLIPVisual) else self.module(x))
+                out = self._trunk(x)
+                if isinstance(self.module, CLIPViTVisual):
+                    return {"clip_embed": out}
             with span("encode.heads"):
                 if self.spec.family == "imagenet":
-                    return {"imagenet_conv": conv, "imagenet_avgpool": _avgpool(conv)}
-                return {"clip_conv": conv, "clip_avgpool": _avgpool(conv),
-                        "clip_attnpool": self.module.attnpool(conv)}
+                    return {"imagenet_conv": out, "imagenet_avgpool": _avgpool(out)}
+                return {"clip_conv": out, "clip_avgpool": _avgpool(out),
+                        "clip_attnpool": self.module.attnpool(out)}
 
-    def fold_bn(self, fused_bottlenecks: bool = True) -> "FrozenEncoder":
+    def fold_bn(self) -> "FrozenEncoder":
         """A new encoder with frozen BN folded into the conv weights (ops/fold_bn.py):
         the serving configuration, conv+bias+relu in the compute dtype. In bf16 its
         bottleneck trunk runs stage 1 through kernel K7 and the stride-1 identity blocks
-        through K6; `fused_bottlenecks=False` keeps every block on the cuDNN route (the
-        yardstick). f32 encoders always take the cuDNN route. A ViT has no BN: its
-        encoder is returned as it is."""
-        if isinstance(self.module, CLIPViTVisual):
+        through K6; in f32 every block runs its own forward. An encoder already folded,
+        and a ViT, which has no BN, are returned as they are."""
+        if isinstance(self.module, CLIPViTVisual) or self.module.folded:
             return self
-        if self.module.folded:
-            if self.module.fused_bottlenecks == fused_bottlenecks:
-                return self
-            sd = self.module.state_dict()
-        else:
-            sd = fold_conv_bn_state_dict(self.module.state_dict())
-        module = _make_module(self.spec, self.dtype, True, sd, self.device,
-                              fused_bottlenecks)
+        sd = fold_conv_bn_state_dict(self.module.state_dict())
+        module = _make_module(self.spec, self.dtype, True, sd, self.device)
         return FrozenEncoder(self.spec, module, self.image_size, self.dtype, self.device)
 
     def quantize(self, calibration_frames) -> "FrozenEncoder":
@@ -222,7 +209,7 @@ class FrozenEncoder:
 class _QuantizedEncoder(FrozenEncoder):
     """An encoder whose bottleneck trunk is int8 (see FrozenEncoder.quantize); the
     module keeps the folded weights of the parts that stay in the compute dtype.
-    `kernels` holds the keywords its encode passes to the int8 graph;
+    `kernels` holds the keywords its `_trunk` passes to the int8 graph;
     `with_kernels(...)` gives an encoder on the same quantized weights with others."""
 
     def __init__(self, folded: FrozenEncoder, qtrunk, stage_sizes, kernels=None):
@@ -236,9 +223,6 @@ class _QuantizedEncoder(FrozenEncoder):
         enc = copy.copy(self)
         enc.kernels = {**self.kernels, **switches}
         return enc
-
-    def fold_bn(self, fused_bottlenecks: bool = True) -> "FrozenEncoder":
-        return self  # already folded and quantized
 
     def quantize(self, calibration_frames) -> "FrozenEncoder":
         return self  # idempotent: already quantized
@@ -260,18 +244,11 @@ class _QuantizedCLIPEncoder(_QuantizedEncoder):
 
         super().__init__(folded, qtrunk, stage_sizes, PATH_A)
 
-    @torch.inference_mode()
-    def encode(self, frames) -> Dict[str, torch.Tensor]:
+    def _trunk(self, x: torch.Tensor) -> torch.Tensor:
         from embodied_clip_tpu_torch.ops.quantize import quantized_trunk_apply
 
-        with span("encode"):
-            x = self._input(frames)
-            with span("encode.trunk"):
-                conv = quantized_trunk_apply(self.qtrunk, x, self.stage_sizes,
-                                             out_dtype=self.dtype, **self.kernels)
-            with span("encode.heads"):
-                return {"clip_conv": conv, "clip_avgpool": _avgpool(conv),
-                        "clip_attnpool": self.module.attnpool(conv)}
+        return quantized_trunk_apply(self.qtrunk, x, self.stage_sizes, out_dtype=self.dtype,
+                                     **self.kernels)
 
 
 class _QuantizedViTEncoder(_QuantizedEncoder):
@@ -282,16 +259,11 @@ class _QuantizedViTEncoder(_QuantizedEncoder):
         super().__init__(folded, qtower, ())
         self.num_heads, self.layers = num_heads, layers
 
-    @torch.inference_mode()
-    def encode(self, frames) -> Dict[str, torch.Tensor]:
+    def _trunk(self, x: torch.Tensor) -> torch.Tensor:
         from embodied_clip_tpu_torch.ops.quantize_vit import quantized_vit_apply
 
-        with span("encode"):
-            x = self._input(frames)
-            with span("encode.trunk"):
-                return {"clip_embed": quantized_vit_apply(self.qtrunk, x, self.num_heads,
-                                                          self.layers, out_dtype=self.dtype,
-                                                          **self.kernels)}
+        return quantized_vit_apply(self.qtrunk, x, self.num_heads, self.layers,
+                                   out_dtype=self.dtype, **self.kernels)
 
 
 class _QuantizedResNetEncoder(_QuantizedEncoder):
@@ -303,17 +275,11 @@ class _QuantizedResNetEncoder(_QuantizedEncoder):
         super().__init__(folded, qtrunk, stage_sizes)
         self.block = block
 
-    @torch.inference_mode()
-    def encode(self, frames) -> Dict[str, torch.Tensor]:
+    def _trunk(self, x: torch.Tensor) -> torch.Tensor:
         from embodied_clip_tpu_torch.ops.quantize import quantized_resnet_apply
 
-        with span("encode"):
-            x = self._input(frames)
-            with span("encode.trunk"):
-                conv = quantized_resnet_apply(self.qtrunk, x, self.stage_sizes, self.block,
-                                              out_dtype=self.dtype, **self.kernels)
-            with span("encode.heads"):
-                return {"imagenet_conv": conv, "imagenet_avgpool": _avgpool(conv)}
+        return quantized_resnet_apply(self.qtrunk, x, self.stage_sizes, self.block,
+                                      out_dtype=self.dtype, **self.kernels)
 
 
 def _module_state_dict(spec: EncoderSpec, sd) -> Dict[str, torch.Tensor]:

@@ -94,10 +94,9 @@ class ResNet(StagesMixin, nn.Module):
     """Trunk only: 7×7/2 stem + max pool, 4 stages. NHWC in, NHWC conv map out."""
 
     def __init__(self, stage_sizes: Sequence[int], block: str = "bottleneck",
-                 width: int = 64, dtype=torch.float32, folded: bool = False,
-                 fused_bottlenecks: bool = True):
+                 width: int = 64, dtype=torch.float32, folded: bool = False):
         super().__init__()
-        self._init_stages(fused_bottlenecks)
+        self._init_stages()
         self.dtype = dtype
         self.folded = folded
         self.conv1 = _conv(3, width, 7, 2, dtype, folded)

@@ -3,19 +3,18 @@ is the folded bf16 serving configuration.
 
 Both ResNet families of the port (CLIP's `ModifiedResNet` and torchvision's `ResNet`)
 keep their blocks as `layer1` … `layerN` with torchvision/openai names (`conv1`-`conv3`,
-`downsample.0`) and inherit `run_stages` from `StagesMixin`. A trunk that is BN-folded,
-bf16 and built with `fused_bottlenecks=True` runs:
+`downsample.0`) and inherit `run_stages` from `StagesMixin`. A trunk that is BN-folded and
+bf16 runs:
 
   stage 1   K7 `fused_stage1` when its block 0 is a stride-1 bottleneck whose shortcut
             is a 1×1 stride-1 conv and every later block is an identity bottleneck
   block     K6 `fused_bottleneck` for every other stride-1 identity bottleneck
   others    the block's own forward (stride-2 blocks, basic blocks): cuDNN convs
 
-f32 trunks, unfolded trunks and `fused_bottlenecks=False` take every block's own
-forward: the cuDNN route, which rounds the conv output to bf16 before its bias and
-again after the residual add (so the two bf16 routes are not bit-equal; each is held to
-f32). The kernels' operands — 1×1 weights as (Cin, Cout), 3×3 as HWIO, in the trunk's
-dtype, biases f32 — are built once, on first use, and dropped when a state_dict loads.
+f32 trunks and unfolded trunks take every block's own forward (cuDNN convs): the f32
+trunk is the reference that tests hold K6/K7 to. The kernels' operands — 1×1 weights as
+(Cin, Cout), 3×3 as HWIO, in the trunk's dtype, biases f32 — are built once, on first
+use, and dropped when a state_dict loads.
 On CPU tensors the kernels' wrappers take their plain versions, so the same dispatch
 runs everywhere. Each step of the fused route is a span (`bf16.stage1`, `bf16.bottleneck`,
 `bf16.block`; the trunks' stems open `bf16.stem`): `utils/profiling.py`.
@@ -71,14 +70,13 @@ def _conv_shortcut(block: nn.Module):
 class StagesMixin:
     """`layer1` … `layer{n_stages}` of an nn.Module trunk with `dtype`, `folded`."""
 
-    def _init_stages(self, fused_bottlenecks: bool) -> None:
-        self.fused_bottlenecks = fused_bottlenecks
+    def _init_stages(self) -> None:
         self._fused_ops: List = []
         self.register_load_state_dict_post_hook(lambda module, _: module._fused_ops.clear())
 
     @property
-    def uses_fused_bottlenecks(self) -> bool:
-        return self.folded and self.dtype == torch.bfloat16 and self.fused_bottlenecks
+    def runs_fused_plan(self) -> bool:
+        return self.folded and self.dtype == torch.bfloat16
 
     def fused_plan(self) -> List[Tuple[str, nn.Module]]:
         """The trunk's stages as steps: ('stage1', layer) for K7, ('bottleneck', block)
@@ -109,7 +107,7 @@ class StagesMixin:
 
     def run_stages(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW channels-last map after the stem → the NHWC contiguous conv map."""
-        if not self.uses_fused_bottlenecks:
+        if not self.runs_fused_plan:
             for s in range(self.n_stages):
                 x = getattr(self, f"layer{s + 1}")(x)
             return x.permute(0, 2, 3, 1).contiguous()

@@ -29,12 +29,12 @@ normalised probabilities to bf16; both are bf16 probabilities, and
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
 
 from embodied_clip_tpu_torch.ops.int8 import full_f32
+from embodied_clip_tpu_torch.ops.kernels._build import Library, stream
 
 __all__ = ["attention_bf16", "attention_plain", "kernel_takes", "issued_macs", "useful_macs",
            "HEAD_DIM", "KEY_TILE"]
@@ -103,17 +103,8 @@ def issued_macs(n: int, t: int, c: int) -> int:
     return n * rows * (qk_keys + pv_keys) * c
 
 
-@functools.lru_cache(maxsize=1)
-def _lib():
-    from embodied_clip_tpu_torch.ops.kernels import _build
-
-    lib = _build.load("attention_bf16")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ect_attention_bf16.argtypes = [p, p, i, i, i, i, p]
-    lib.ect_attention_bf16.restype = ctypes.c_int
-    lib.ect_error_string.argtypes = [ctypes.c_int]
-    lib.ect_error_string.restype = ctypes.c_char_p
-    return lib
+_p, _i = ctypes.c_void_p, ctypes.c_int
+LIB = Library("attention_bf16", {"ect_attention_bf16": [_p, _p, _i, _i, _i, _i, _p]})
 
 
 def attention_bf16(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -129,13 +120,7 @@ def attention_bf16(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     out = torch.empty((n, t, c3 // 3), dtype=torch.bfloat16, device=qkv.device)
     if n == 0 or t == 0:
         return out
-    lib = _lib()
-    err = lib.ect_attention_bf16(qkv.data_ptr(), out.data_ptr(), n, t, num_heads,
-                                 qkv.device.index or 0,
-                                 torch.cuda.current_stream(qkv.device).cuda_stream)
-    if err:
-        raise RuntimeError("attention kernel launch failed: " +
-                           lib.ect_error_string(err).decode())
+    LIB.ect_attention_bf16(qkv.data_ptr(), out.data_ptr(), n, t, num_heads, *stream(qkv))
     attention_bf16.launches += 1
     return out
 

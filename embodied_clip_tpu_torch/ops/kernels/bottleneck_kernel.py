@@ -62,7 +62,6 @@ graph: under `recip` they take the reciprocal at every requant.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, Mapping, Sequence, Tuple
 
 import torch
@@ -76,6 +75,7 @@ from embodied_clip_tpu_torch.ops.int8 import (
     requant,
     requant_signed,
 )
+from embodied_clip_tpu_torch.ops.kernels._build import Library, stream
 from embodied_clip_tpu_torch.utils import profiling
 
 __all__ = ["fused_stage1_int8", "fused_cb3_cb1_int8", "fused_resblocks_int8",
@@ -243,50 +243,22 @@ def fused_stage1_int8_reference(x8, ops, recip=False):
 # ---------------------------------------------------------------------- the library
 
 
-@functools.lru_cache(maxsize=1)
-def _lib():
-    from embodied_clip_tpu_torch.ops.kernels import _build
-
-    return _bind_int8(_build.load("bottleneck_int8"))
-
-
-def _bind_int8(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a library built from `csrc/bottleneck_int8.cu`."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    sig = {
-        "ect_conv1x1_s8": [p, i, i, p, i, p, p, p, p, p, p, i, i, i, p],
-        "ect_conv3x3_s8": [p, i, i, i, i, p, i, p, p, p, p, i, i, p],
-        "ect_shortcut_s8": [p, p, i, i, p, p, i, p, p, p, p, p, i, i, p],
-        "ect_pool2_scale_s8": [p, i, i, i, i, p, p, p, i, p],
-        "ect_avg_pool2_s8": [p, i, i, i, i, p, i, p],
-        "ect_cb3_cb1_s8": [p, p, i, i, i, i] + [p] * 11 + [i, i, p],
-        "ect_stage1_entry": [p, i, i, p, i, p, p, p, p, i, p, p, p, p, p, p, i, p],
-    }
-    for name, args in sig.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = args, ctypes.c_int
-    for name in ("ect_stage1_entry_ties", "ect_shortcut_ties"):
-        getattr(lib, name).argtypes = [i, i]
-        getattr(lib, name).restype = ctypes.c_longlong
-    lib.ect_error_string.argtypes = [ctypes.c_int]
-    lib.ect_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _call(fn, *args) -> None:
-    err = fn(*args)
-    if err:
-        raise RuntimeError(f"{fn.__name__} launch failed: "
-                           + _lib().ect_error_string(err).decode())
+_p, _i = ctypes.c_void_p, ctypes.c_int
+LIB_INT8 = Library("bottleneck_int8", {
+    "ect_conv1x1_s8": [_p, _i, _i, _p, _i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
+    "ect_conv3x3_s8": [_p, _i, _i, _i, _i, _p, _i, _p, _p, _p, _p, _i, _i, _p],
+    "ect_shortcut_s8": [_p, _p, _i, _i, _p, _p, _i, _p, _p, _p, _p, _p, _i, _i, _p],
+    "ect_pool2_scale_s8": [_p, _i, _i, _i, _i, _p, _p, _p, _i, _p],
+    "ect_avg_pool2_s8": [_p, _i, _i, _i, _i, _p, _i, _p],
+    "ect_cb3_cb1_s8": [_p, _p, _i, _i, _i, _i] + [_p] * 11 + [_i, _i, _p],
+    "ect_stage1_entry": [_p, _i, _i, _p, _i, _p, _p, _p, _p, _i, _p, _p, _p, _p, _p, _p, _i,
+                         _p],
+}, sizes={"ect_stage1_entry_ties": [_i, _i], "ect_shortcut_ties": [_i, _i]})
 
 
 def _ptr(t: torch.Tensor, i: int = 0) -> int:
     """Device address of element i of a contiguous f32 vector (a scale of scl)."""
     return t.data_ptr() + 4 * i
-
-
-def _stream(t: torch.Tensor):
-    return t.device.index or 0, torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _check_s8(name: str, t: torch.Tensor, device) -> None:
@@ -353,9 +325,10 @@ def _conv1x1(x8, kt, s, b, r_out_ptr, out, res=None, r_res_ptr=None, recip=False
     else:
         _check_s8("residual", res, dev)
         kind = _OUT_KIND[out.dtype]
-    _call(_lib().ect_conv1x1_s8, x8.data_ptr(), x8.numel() // cin, cin, kt.data_ptr(), cout,
-          s.data_ptr(), b.data_ptr(), 0 if res is None else res.data_ptr(),
-          r_res_ptr or 0, r_out_ptr, out.data_ptr(), kind, int(recip), *_stream(x8))
+    LIB_INT8.ect_conv1x1_s8(x8.data_ptr(), x8.numel() // cin, cin, kt.data_ptr(), cout,
+                            s.data_ptr(), b.data_ptr(), 0 if res is None else res.data_ptr(),
+                            r_res_ptr or 0, r_out_ptr, out.data_ptr(), kind, int(recip),
+                            *stream(x8))
 
 
 def _conv3x3(x8, k2t, s, b, r_out_ptr, out, recip=False):
@@ -370,8 +343,8 @@ def _conv3x3(x8, k2t, s, b, r_out_ptr, out, recip=False):
     _check_width("3x3", cout)
     _check_f32("3x3 scale", s, dev, cout)
     _check_f32("3x3 bias", b, dev, cout)
-    _call(_lib().ect_conv3x3_s8, x8.data_ptr(), n, h, w, c, k2t.data_ptr(), cout,
-          s.data_ptr(), b.data_ptr(), r_out_ptr, out.data_ptr(), int(recip), *_stream(x8))
+    LIB_INT8.ect_conv3x3_s8(x8.data_ptr(), n, h, w, c, k2t.data_ptr(), cout, s.data_ptr(),
+                            b.data_ptr(), r_out_ptr, out.data_ptr(), int(recip), *stream(x8))
 
 
 def _avg_pool2(x8):
@@ -381,7 +354,7 @@ def _avg_pool2(x8):
         raise ValueError(f"2x2 pool: H and W must be even, got {tuple(x8.shape)}")
     _check_s8("2x2 pool input", x8, x8.device)
     out = torch.empty((n, h // 2, w // 2, c), dtype=torch.int8, device=x8.device)
-    _call(_lib().ect_avg_pool2_s8, x8.data_ptr(), n, h, w, c, out.data_ptr(), *_stream(x8))
+    LIB_INT8.ect_avg_pool2_s8(x8.data_ptr(), n, h, w, c, out.data_ptr(), *stream(x8))
     return out
 
 
@@ -395,8 +368,8 @@ def _pool2_scale(x8, s_in_ptr):
     _check_s8("pool + scale input", x8, x8.device)
     x0 = torch.empty((n, h // 2, w // 2, c), dtype=torch.bfloat16, device=x8.device)
     rnorm = torch.empty((n, h // 2, w // 2), dtype=torch.float32, device=x8.device)
-    _call(_lib().ect_pool2_scale_s8, x8.data_ptr(), n, h, w, c, s_in_ptr, x0.data_ptr(),
-          rnorm.data_ptr(), *_stream(x8))
+    LIB_INT8.ect_pool2_scale_s8(x8.data_ptr(), n, h, w, c, s_in_ptr, x0.data_ptr(),
+                                rnorm.data_ptr(), *stream(x8))
     return x0, rnorm
 
 
@@ -431,17 +404,16 @@ def _shortcut(x0, rnorm, ops, dsc_ptr, recip=False):
     _check_f32("bsc", bsc, dev, cout)
     colm = _shortcut_margins(ops)
     _check_f32("wsc_m", colm, dev, cout)
-    lib = _lib()
     sc8 = torch.empty((*x0.shape[:-1], cout), dtype=torch.int8, device=dev)
-    words = lib.ect_shortcut_ties(m, cout)
+    words = LIB_INT8.ect_shortcut_ties(m, cout)
     # While a profiler session records, the flag words are held for a count
     # (`fused_stride_block_int8`): they come from the recorder's arena.
     ties = profiling.buffer(words, torch.int64, dev)
     if ties is None:
         ties = torch.empty(words, dtype=torch.int64, device=dev)
-    _call(lib.ect_shortcut_s8, x0.data_ptr(), rnorm.data_ptr(), m, cin, wsc.data_ptr(),
-          wsct.data_ptr(), cout, colm.data_ptr(), bsc.data_ptr(), dsc_ptr, sc8.data_ptr(),
-          ties.data_ptr(), int(recip), *_stream(x0))
+    LIB_INT8.ect_shortcut_s8(x0.data_ptr(), rnorm.data_ptr(), m, cin, wsc.data_ptr(),
+                             wsct.data_ptr(), cout, colm.data_ptr(), bsc.data_ptr(), dsc_ptr,
+                             sc8.data_ptr(), ties.data_ptr(), int(recip), *stream(x0))
     return sc8, ties
 
 
@@ -515,11 +487,11 @@ def _stage1_entry(x8, ops, r1_ptr, s_in_ptr, dsc_ptr):
     q1 = torch.empty((*x8.shape[:-1], cm), dtype=torch.int8, device=dev)
     sc8 = torch.empty((*x8.shape[:-1], cout), dtype=torch.int8, device=dev)
     # The shortcut's near-tie flag words (1/8 of sc8's bytes).
-    ties = torch.empty(_lib().ect_stage1_entry_ties(m, cout), dtype=torch.int64, device=dev)
-    _call(_lib().ect_stage1_entry, x8.data_ptr(), m, cin, k1t.data_ptr(), cm,
-          ops["s1a"].data_ptr(), ops["b1a"].data_ptr(), r1_ptr, wsc.data_ptr(), cout,
-          s_in_ptr, bsc.data_ptr(), dsc_ptr, q1.data_ptr(), sc8.data_ptr(), ties.data_ptr(),
-          *_stream(x8))
+    ties = torch.empty(LIB_INT8.ect_stage1_entry_ties(m, cout), dtype=torch.int64, device=dev)
+    LIB_INT8.ect_stage1_entry(x8.data_ptr(), m, cin, k1t.data_ptr(), cm, ops["s1a"].data_ptr(),
+                              ops["b1a"].data_ptr(), r1_ptr, wsc.data_ptr(), cout, s_in_ptr,
+                              bsc.data_ptr(), dsc_ptr, q1.data_ptr(), sc8.data_ptr(),
+                              ties.data_ptr(), *stream(x8))
     return q1, sc8, ties
 
 
@@ -544,10 +516,11 @@ def _cb3_cb1(x8, res8, k3t, s3, b3, k1t, s1, b1, r_res_ptr, r_out_ptr, r_next_pt
     out8 = torch.empty((*x8.shape[:-1], c), dtype=torch.int8, device=dev)
     y8 = torch.empty((*x8.shape[:-1], c1), dtype=torch.int8, device=dev)
     # The kernel refuses a C whose resident block-output tile leaves no room for a ring.
-    _call(_lib().ect_cb3_cb1_s8, x8.data_ptr(), res8.data_ptr(), x8.numel() // cm, cm, c, c1,
-          k3t.data_ptr(), s3.data_ptr(), b3.data_ptr(), k1t.data_ptr(), s1.data_ptr(),
-          b1.data_ptr(), r_res_ptr, r_out_ptr, r_next_ptr, out8.data_ptr(), y8.data_ptr(),
-          int(recip_out) | 2 * int(recip_next), *_stream(x8))
+    LIB_INT8.ect_cb3_cb1_s8(x8.data_ptr(), res8.data_ptr(), x8.numel() // cm, cm, c, c1,
+                            k3t.data_ptr(), s3.data_ptr(), b3.data_ptr(), k1t.data_ptr(),
+                            s1.data_ptr(), b1.data_ptr(), r_res_ptr, r_out_ptr, r_next_ptr,
+                            out8.data_ptr(), y8.data_ptr(),
+                            int(recip_out) | 2 * int(recip_next), *stream(x8))
     return out8, y8
 
 
@@ -798,21 +771,8 @@ def fused_stage1_reference(x, blocks: Sequence[Mapping[str, torch.Tensor]],
 # ------------------------------------------------------------------ K6, K7: wrappers
 
 
-@functools.lru_cache(maxsize=1)
-def _lib_bf16():
-    from embodied_clip_tpu_torch.ops.kernels import _build
-
-    return _bind_bf16(_build.load("bottleneck_bf16"))
-
-
-def _bind_bf16(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a library built from `csrc/bottleneck_bf16.cu`."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ect_gemm_bf16.argtypes = [p, i, i, p, i, p, p, i, p, p, p, p, i, i, i, i, p]
-    lib.ect_gemm_bf16.restype = ctypes.c_int
-    lib.ect_error_string.argtypes = [ctypes.c_int]
-    lib.ect_error_string.restype = ctypes.c_char_p
-    return lib
+LIB_BF16 = Library("bottleneck_bf16", {
+    "ect_gemm_bf16": [_p, _i, _i, _p, _i, _p, _p, _i, _p, _p, _p, _p, _i, _i, _i, _i, _p]})
 
 
 def _check_bf16(name: str, t: torch.Tensor, device, shape) -> None:
@@ -859,14 +819,11 @@ def _gemm(a, w, bias, out, conv3=False, res=None, a2=None, w2=None, bias2=None) 
     if n % 8:
         raise ValueError(f"output channels must be a multiple of 8, got {n}")
     h, wd = (a.shape[1], a.shape[2]) if conv3 else (1, 1)
-    lib = _lib_bf16()
-    err = lib.ect_gemm_bf16(
+    LIB_BF16.ect_gemm_bf16(
         a.data_ptr(), a.numel() // c, k, w.data_ptr(), n, bias.data_ptr(),
         a2.data_ptr() if a2 is not None else 0, k2, w2.data_ptr() if a2 is not None else 0,
         bias2.data_ptr() if a2 is not None else 0, res.data_ptr() if res is not None else 0,
-        out.data_ptr(), c if conv3 else 0, h, wd, *_stream(a))
-    if err:
-        raise RuntimeError("ect_gemm_bf16 launch failed: " + lib.ect_error_string(err).decode())
+        out.data_ptr(), c if conv3 else 0, h, wd, *stream(a))
 
 
 def _bottleneck_launches(x, blk, h1, h2, shortcut=None) -> torch.Tensor:

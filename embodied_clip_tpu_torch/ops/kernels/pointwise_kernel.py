@@ -30,12 +30,13 @@ included (bf16(1.702·y), bf16(σ), bf16(y·σ)).
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from embodied_clip_tpu_torch.ops.kernels._build import Library, stream
 
 __all__ = ["layer_norm_f32", "quick_gelu", "layer_norm_bf16", "quick_gelu_bf16",
            "layer_norm_plain", "fits", "kernel_takes", "MAX_WIDTH"]
@@ -92,28 +93,10 @@ def kernel_takes(x: torch.Tensor, residual: Optional[torch.Tensor] = None,
     return x.is_cuda and fits(x, residual, ln)
 
 
-@functools.lru_cache(maxsize=1)
-def _lib():
-    from embodied_clip_tpu_torch.ops.kernels import _build
-
-    lib = _build.load("pointwise_bf16")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ect_layer_norm_bf16.argtypes = [p, p, p, p, p, p, ll, i, ctypes.c_float, i, p]
-    lib.ect_layer_norm_bf16.restype = i
-    lib.ect_quick_gelu_bf16.argtypes = [p, p, ll, i, p]
-    lib.ect_quick_gelu_bf16.restype = i
-    lib.ect_error_string.argtypes = [i]
-    lib.ect_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check(lib, err: int, what: str) -> None:
-    if err:
-        raise RuntimeError(f"{what} kernel launch failed: " + lib.ect_error_string(err).decode())
-
-
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LIB = Library("pointwise_bf16", {
+    "ect_layer_norm_bf16": [_p, _p, _p, _p, _p, _p, _ll, _i, ctypes.c_float, _i, _p],
+    "ect_quick_gelu_bf16": [_p, _p, _ll, _i, _p]})
 
 
 def layer_norm_bf16(x: torch.Tensor, ln: nn.LayerNorm, residual: Optional[torch.Tensor] = None):
@@ -130,13 +113,11 @@ def layer_norm_bf16(x: torch.Tensor, ln: nn.LayerNorm, residual: Optional[torch.
     y = torch.empty_like(x)
     s = None if residual is None else torch.empty_like(x)
     if x.numel():
-        lib = _lib()
         c = x.shape[-1]
-        _check(lib, lib.ect_layer_norm_bf16(
+        LIB.ect_layer_norm_bf16(
             x.data_ptr(), None if residual is None else residual.data_ptr(),
             None if s is None else s.data_ptr(), y.data_ptr(), ln.weight.data_ptr(),
-            ln.bias.data_ptr(), x.numel() // c, c, float(ln.eps), x.device.index or 0,
-            _stream(x)), "LayerNorm")
+            ln.bias.data_ptr(), x.numel() // c, c, float(ln.eps), *stream(x))
         layer_norm_bf16.launches += 1
     return y if residual is None else (s, y)
 
@@ -155,9 +136,7 @@ def quick_gelu_bf16(y: torch.Tensor) -> torch.Tensor:
                          f"{tuple(y.shape)} on {y.device}")
     out = torch.empty_like(y)
     if y.numel():
-        lib = _lib()
-        _check(lib, lib.ect_quick_gelu_bf16(y.data_ptr(), out.data_ptr(), y.numel(),
-                                            y.device.index or 0, _stream(y)), "QuickGELU")
+        LIB.ect_quick_gelu_bf16(y.data_ptr(), out.data_ptr(), y.numel(), *stream(y))
         quick_gelu_bf16.launches += 1
     return out
 

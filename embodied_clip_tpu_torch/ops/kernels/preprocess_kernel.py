@@ -27,6 +27,7 @@ import functools
 import numpy as np
 import torch
 
+from embodied_clip_tpu_torch.ops.kernels._build import Library, stream
 from embodied_clip_tpu_torch.ops.resize import resize_plan
 
 __all__ = ["TapPlan", "tap_plan", "work_items", "item_bands", "rows_done", "band_copy",
@@ -291,17 +292,8 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-@functools.lru_cache(maxsize=1)
-def _lib():
-    from embodied_clip_tpu_torch.ops.kernels import _build
-
-    lib = _build.load("preprocess")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ect_fused_preprocess.argtypes = ([p] * 10 + [i] * 16 + [f] * 6 + [i, p])
-    lib.ect_fused_preprocess.restype = ctypes.c_int
-    lib.ect_error_string.argtypes = [ctypes.c_int]
-    lib.ect_error_string.restype = ctypes.c_char_p
-    return lib
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LIB = Library("preprocess", {"ect_fused_preprocess": [_p] * 10 + [_i] * 16 + [_f] * 6 + [_i, _p]})
 
 
 def fused_preprocess(frames: torch.Tensor, size: int, mean, std,
@@ -328,17 +320,12 @@ def fused_preprocess(frames: torch.Tensor, size: int, mean, std,
     plan, tabs = _device_tables((h, w), size, method, frames.device)
     chunks, chunk_rows, grid = work_items(plan, n, _sm_count(frames.device))
     inv, shift = _norm_consts(mean, std)
-    lib = _lib()
-    err = lib.ect_fused_preprocess(
+    LIB.ect_fused_preprocess(
         frames.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tabs),
         n, h, w, size, plan.taps, plan.pair_gap, plan.rows_par, plan.xf_stride,
         plan.band_rows, plan.ring_rows, chunks, chunk_rows, grid, plan.stage_bytes,
         plan.smem_bytes, int(dtype == torch.bfloat16), *(float(v) for v in inv),
-        *(float(v) for v in shift), frames.device.index or 0,
-        torch.cuda.current_stream(frames.device).cuda_stream)
-    if err:
-        raise RuntimeError("fused preprocess kernel launch failed: "
-                           + lib.ect_error_string(err).decode())
+        *(float(v) for v in shift), *stream(frames))
     fused_preprocess.launches += 1
     return out
 

@@ -24,12 +24,12 @@ instantiates both forms. Each wrapper's `.launches` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
 
 from embodied_clip_tpu_torch.ops.int8 import avg_pool_int8, full_f32, requant
+from embodied_clip_tpu_torch.ops.kernels._build import Library, stream
 
 __all__ = ["stem3_requant_pool_int8", "stem3_requant_pool_int8_reference",
            "stem3_weight_matrix", "stem12_f32", "stem12_f32_reference", "stem12_weights",
@@ -71,19 +71,9 @@ def stem3_requant_pool_int8_reference(x: torch.Tensor, kernel: torch.Tensor,
     return avg_pool_int8(requant(y, _scale_tensor(scale, x.device), recip), 2)
 
 
-@functools.lru_cache(maxsize=1)
-def _lib():
-    from embodied_clip_tpu_torch.ops.kernels import _build
-
-    lib = _build.load("stem_int8")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ect_stem3_requant_pool.argtypes = [p] * 5 + [i] * 6 + [i, p]
-    lib.ect_stem3_requant_pool.restype = ctypes.c_int
-    lib.ect_stem12_f32.argtypes = [p, i] + [p] * 5 + [i] * 5 + [p]
-    lib.ect_stem12_f32.restype = ctypes.c_int
-    lib.ect_error_string.argtypes = [ctypes.c_int]
-    lib.ect_error_string.restype = ctypes.c_char_p
-    return lib
+_p, _i = ctypes.c_void_p, ctypes.c_int
+LIB = Library("stem_int8", {"ect_stem3_requant_pool": [_p] * 5 + [_i] * 6 + [_i, _p],
+                            "ect_stem12_f32": [_p, _i] + [_p] * 5 + [_i] * 5 + [_p]})
 
 
 def stem3_requant_pool_int8(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
@@ -122,13 +112,8 @@ def stem3_requant_pool_int8(x: torch.Tensor, kernel: torch.Tensor, bias: torch.T
     out = torch.empty((n, h // 2, w // 2, cout), dtype=torch.int8, device=x.device)
     if n == 0:
         return out
-    lib = _lib()
-    err = lib.ect_stem3_requant_pool(
-        x.data_ptr(), wmat.data_ptr(), b.data_ptr(), s.data_ptr(), out.data_ptr(),
-        n, h, w, cin, cout, int(recip), x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError("stem3 kernel launch failed: " + lib.ect_error_string(err).decode())
+    LIB.ect_stem3_requant_pool(x.data_ptr(), wmat.data_ptr(), b.data_ptr(), s.data_ptr(),
+                               out.data_ptr(), n, h, w, cin, cout, int(recip), *stream(x))
     stem3_requant_pool_int8.launches += 1
     return out
 
@@ -212,13 +197,9 @@ def stem12_f32(x: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor, k2: torch.Te
     out = torch.empty((n, h // 2, w // 2, c), dtype=torch.bfloat16, device=x.device)
     if out.numel() == 0:
         return out
-    lib = _lib()
-    err = lib.ect_stem12_f32(
-        x.data_ptr(), int(x.dtype == torch.float32), ops["w1"].data_ptr(),
-        ops["b1"].data_ptr(), ops["w2"].data_ptr(), ops["b2"].data_ptr(), out.data_ptr(),
-        n, h, w, c, x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError("stem12 kernel launch failed: " + lib.ect_error_string(err).decode())
+    LIB.ect_stem12_f32(x.data_ptr(), int(x.dtype == torch.float32), ops["w1"].data_ptr(),
+                       ops["b1"].data_ptr(), ops["w2"].data_ptr(), ops["b2"].data_ptr(),
+                       out.data_ptr(), n, h, w, c, *stream(x))
     stem12_f32.launches += 1
     return out
 

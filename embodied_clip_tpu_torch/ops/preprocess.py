@@ -6,9 +6,10 @@
     Normalize(CLIP mean/std); n = 224 for RN50, 384 for RN50x16.
 
 The raw uint8 batch is shipped to the device once; resize (crop folded into the
-matrices), normalise and the dtype cast run there. On a CUDA tensor with `use_kernel`
-the whole pipeline is one launch of kernel K1 (`ops/kernels/preprocess_kernel.py`);
-otherwise it is the plain f32 path below.
+matrices), normalise and the dtype cast run there. A bf16 preprocessor given uint8
+frames on CUDA that need a resize runs the whole pipeline as one launch of kernel K1
+(`ops/kernels/preprocess_kernel.py`); every other call, f32 output included, takes the
+plain f32 path below.
 """
 
 from __future__ import annotations
@@ -31,9 +32,6 @@ class Preprocessor:
     std: Tuple[float, float, float]
     method: str = "bicubic"
     dtype: torch.dtype = torch.float32
-    # Run the whole pipeline as kernel K1 on CUDA tensors. Requires uint8 input with
-    # an actual resize; other inputs, and CPU tensors, take the plain f32 path.
-    use_kernel: bool = False
 
     def __call__(self, frames: torch.Tensor) -> torch.Tensor:
         """uint8/float NHWC (or HWC) frames → normalized NHWC in self.dtype.
@@ -51,8 +49,8 @@ class Preprocessor:
             frames = frames[None]
         n, h, w, c = frames.shape
         is_u8 = frames.dtype == torch.uint8
-        if (self.use_kernel and is_u8 and (h, w) != (self.size, self.size)
-                and frames.is_cuda):
+        if (self.dtype == torch.bfloat16 and is_u8 and frames.is_cuda
+                and (h, w) != (self.size, self.size)):
             from embodied_clip_tpu_torch.ops.kernels.preprocess_kernel import (
                 fused_preprocess,
             )

@@ -676,17 +676,16 @@ def test_bf16_kernels_reject_what_they_cannot_take(cuda):
                                         ("imagenet_rn18", 0, 0)])
 def test_bf16_folded_encoder_launch_counts(cuda, name, k7, k6):
     """One request through a folded bf16 encoder launches K1 once, K7 once per
-    bottleneck stage 1 and K6 once per stride-1 identity bottleneck; its cuDNN route
-    (`fold_bn(fused_bottlenecks=False)`) launches neither."""
-    base = build_encoder(name, dtype=torch.bfloat16)
+    bottleneck stage 1 and K6 once per stride-1 identity bottleneck; through the folded
+    f32 encoder, whose preprocessor and trunk stay on the plain route, none of them."""
     counted = (K.fused_preprocess, BK.fused_stage1, BK.fused_bottleneck)
-    for enc, want in ((base.fold_bn(), [1, k7, k6]),
-                      (base.fold_bn(fused_bottlenecks=False), [1, 0, 0])):
+    for dtype, want in ((torch.bfloat16, [1, k7, k6]), (torch.float32, [0, 0, 0])):
+        enc = build_encoder(name, dtype=dtype).fold_bn()
         before = [f.launches for f in counted]
         out = enc.encode(golden_frames(2))
         torch.cuda.synchronize()
         assert [f.launches - b for f, b in zip(counted, before)] == want
-        assert all(v.dtype == torch.bfloat16 and bool(torch.isfinite(v.float()).all())
+        assert all(v.dtype == dtype and bool(torch.isfinite(v.float()).all())
                    for v in out.values())
 
 

@@ -6,7 +6,6 @@ held to the JAX functions they port. K1 itself runs only on a GPU
 band copies) and a numpy walk through the kernel's phases is held to the plain version.
 """
 
-import dataclasses
 
 import numpy as np
 import pytest
@@ -295,11 +294,14 @@ def test_wrapper_takes_plain_version_for_cpu_tensors_only():
         K.fused_preprocess(frames.to("meta"), 224, mean, std)
 
 
-def test_preprocessor_kernel_flag_keeps_cpu_frames_on_the_plain_path():
+def test_preprocessor_kernel_flag_keeps_cpu_frames_on_the_plain_path(monkeypatch):
+    """A bf16 preprocessor hands only CUDA frames to K1: CPU frames that need a resize
+    take the plain f32 path, cast once at its end, and never reach K1's wrapper."""
+    calls = []
+    monkeypatch.setattr(K, "fused_preprocess", lambda *args, **kw: calls.append(args))
     frames = torch.from_numpy(
         np.random.RandomState(4).randint(0, 256, (2, 300, 300, 3), np.uint8))
-    plain = make_preprocessor("clip", 224, torch.bfloat16)
-    flagged = dataclasses.replace(plain, use_kernel=True)
-    before = K.fused_preprocess.launches
-    assert torch.equal(flagged(frames), plain(frames))
-    assert K.fused_preprocess.launches == before
+    bf16 = make_preprocessor("clip", 224, torch.bfloat16)
+    f32 = make_preprocessor("clip", 224, torch.float32)
+    assert torch.equal(bf16(frames), f32(frames).to(torch.bfloat16))
+    assert not calls

@@ -78,7 +78,7 @@ def test_resnet_matches_jax(jax_resnet, dtype, route):
     with torch.no_grad():
         got = port(torch.from_numpy(x))
     assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == ref.shape
-    assert port.uses_fused_bottlenecks == (folded and dtype == "bfloat16")
+    assert port.runs_fused_plan == (folded and dtype == "bfloat16")
     if dtype == "float32":
         np.testing.assert_allclose(got.numpy(), ref, atol=2e-4, rtol=2e-4)
     else:
@@ -121,6 +121,4 @@ def test_fused_plan_routes_bottleneck_trunks():
         + ["module"] + ["bottleneck"] * 2)
     rn18 = ResNet(**RESNET_CONFIGS["resnet18"], width=8, dtype=torch.bfloat16, folded=True)
     assert {k for k, _ in rn18.fused_plan()} == {"module"}
-    off = ResNet(**RESNET_CONFIGS["resnet50"], width=8, dtype=torch.bfloat16, folded=True,
-                 fused_bottlenecks=False)
-    assert rn50.uses_fused_bottlenecks and not off.uses_fused_bottlenecks
+    assert rn50.runs_fused_plan

@@ -23,7 +23,6 @@ device, or when a source does not build or breaks the contract.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
@@ -178,12 +177,11 @@ def main(argv) -> int:
                 for m in opts.models.split(",")}
     sources = opts.source.split(",") if opts.source else [
         str(_build.CSRC / "bottleneck_bf16.cu")]
-    repo_lib = BK._lib_bf16
+    repo_lib = BK.LIB_BF16
     results, ok_all = [], True
     for path in sources:
         lib_path, log = _build.build_variant(path, "bf16")
-        lib = BK._bind_bf16(ctypes.CDLL(lib_path))
-        BK._lib_bf16 = lambda lib=lib: lib
+        BK.LIB_BF16 = repo_lib.variant(lib_path)
         warn = sorted({line.split(")")[0] + ")" for line in log.splitlines() if "(C7" in line})
         regs = [line.split(":")[-1].strip() for line in log.splitlines() if "Used" in line]
         print(f"{path}: ptxas {regs}; warnings {warn or 'none'}")
@@ -203,7 +201,7 @@ def main(argv) -> int:
                         entry.update(model=model, launches=n, rows=rows, summed_ms=total,
                                      bound_ms=bound)
         finally:
-            BK._lib_bf16 = repo_lib
+            BK.LIB_BF16 = repo_lib
         results.append(entry)
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/bench_bf16_gemm.json", "w") as f:

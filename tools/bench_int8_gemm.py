@@ -30,7 +30,7 @@ golden_frames(32) (`bench.py`'s recipe); the frames are golden_frames(128). The 
     and the stride blocks on path A; K3, K4 and the stride blocks on path B), and each
     stride-block launch kind over the three blocks.
 
-A `--source` file must have the repository file's C interface (`BK._bind_int8`); an
+A `--source` file must have the repository file's C interface (`BK.LIB_INT8`); an
 older file is compared at the commit where it was measured.
 
 Writes everything to chiprun_out/bench_int8_gemm.json. Exits non-zero without a CUDA
@@ -40,7 +40,6 @@ device, or when a source does not build or disagrees.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
@@ -164,11 +163,13 @@ class Launch:
         return 2 * m * k * n, 0, nbytes + k * n + (res.numel() if res is not None else 0)
 
     def run(self, lib):
-        """One launch through `lib` into self.outs."""
+        """One launch through `lib` (`BK.LIB_INT8` or a variant of it) into self.outs."""
         import torch
 
+        from embodied_clip_tpu_torch.ops.kernels._build import stream as stream_of
+
         dev = self.args[0].device
-        stream = (dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        stream = stream_of(self.args[0])
         if self.step == "d":
             x8, ops, r1, s_in, dsc = self.args
             m, (cin, cm, cout) = self.shapes()
@@ -177,62 +178,59 @@ class Launch:
             if self.scratch is None:  # the near-tie flag words
                 self.scratch = torch.empty(lib.ect_stage1_entry_ties(m, cout),
                                            dtype=torch.int64, device=dev)
-            err = lib.ect_stage1_entry(x8.data_ptr(), m, cin, k1t.data_ptr(), cm,
-                                       ops["s1a"].data_ptr(), ops["b1a"].data_ptr(), r1,
-                                       wsc.data_ptr(), cout, s_in, ops["bsc"].data_ptr(),
-                                       dsc, q1.data_ptr(), sc8.data_ptr(),
-                                       self.scratch.data_ptr(), *stream)
+            lib.ect_stage1_entry(x8.data_ptr(), m, cin, k1t.data_ptr(), cm,
+                                 ops["s1a"].data_ptr(), ops["b1a"].data_ptr(), r1,
+                                 wsc.data_ptr(), cout, s_in, ops["bsc"].data_ptr(),
+                                 dsc, q1.data_ptr(), sc8.data_ptr(),
+                                 self.scratch.data_ptr(), *stream)
         elif self.step == "e":
             x0, rnorm, ops, dsc, recip = self.args
             m, (cin, cout) = self.shapes()
             if self.scratch is None:  # the near-tie flag words
                 self.scratch = torch.empty(lib.ect_shortcut_ties(m, cout), dtype=torch.int64,
                                            device=dev)
-            err = lib.ect_shortcut_s8(x0.data_ptr(), rnorm.data_ptr(), m, cin,
-                                      ops["wsc"].data_ptr(), ops["wsc_t"].data_ptr(), cout,
-                                      ops["wsc_m"].data_ptr(), ops["bsc"].data_ptr(), dsc,
-                                      self.outs[0].data_ptr(), self.scratch.data_ptr(),
-                                      int(recip), *stream)
+            lib.ect_shortcut_s8(x0.data_ptr(), rnorm.data_ptr(), m, cin,
+                                ops["wsc"].data_ptr(), ops["wsc_t"].data_ptr(), cout,
+                                ops["wsc_m"].data_ptr(), ops["bsc"].data_ptr(), dsc,
+                                self.outs[0].data_ptr(), self.scratch.data_ptr(),
+                                int(recip), *stream)
         elif self.step == "f'":
             x8, s_in = self.args
             n, h, w, c = x8.shape
-            err = lib.ect_pool2_scale_s8(x8.data_ptr(), n, h, w, c, s_in,
-                                         self.outs[0].data_ptr(), self.outs[1].data_ptr(),
-                                         *stream)
+            lib.ect_pool2_scale_s8(x8.data_ptr(), n, h, w, c, s_in,
+                                   self.outs[0].data_ptr(), self.outs[1].data_ptr(),
+                                   *stream)
         elif self.step == "f":
             n, h, w, c = self.args[0].shape
-            err = lib.ect_avg_pool2_s8(self.args[0].data_ptr(), n, h, w, c,
-                                       self.outs[0].data_ptr(), *stream)
+            lib.ect_avg_pool2_s8(self.args[0].data_ptr(), n, h, w, c,
+                                 self.outs[0].data_ptr(), *stream)
         elif self.step == "a":
             x8, kt, s, b, r_out, out = self.args
             res, r_res = self.kw.get("res"), self.kw.get("r_res_ptr")
             kind = 0 if res is None else {torch.int8: 1, torch.bfloat16: 2,
                                           torch.float32: 3}[out.dtype]
-            err = lib.ect_conv1x1_s8(x8.data_ptr(), x8.numel() // x8.shape[-1], kt.shape[1],
-                                     kt.data_ptr(), kt.shape[0],
-                                     s.data_ptr(), b.data_ptr(),
-                                     0 if res is None else res.data_ptr(), r_res or 0, r_out,
-                                     self.outs[0].data_ptr(), kind,
-                                     int(self.kw.get("recip", False)), *stream)
+            lib.ect_conv1x1_s8(x8.data_ptr(), x8.numel() // x8.shape[-1], kt.shape[1],
+                               kt.data_ptr(), kt.shape[0],
+                               s.data_ptr(), b.data_ptr(),
+                               0 if res is None else res.data_ptr(), r_res or 0, r_out,
+                               self.outs[0].data_ptr(), kind,
+                               int(self.kw.get("recip", False)), *stream)
         elif self.step == "b":
             x8, k2t, s, b, r_out, _ = self.args
             n, h, w, c = x8.shape
-            err = lib.ect_conv3x3_s8(x8.data_ptr(), n, h, w, c, k2t.data_ptr(), k2t.shape[0],
-                                     s.data_ptr(), b.data_ptr(), r_out,
-                                     self.outs[0].data_ptr(),
-                                     int(self.kw.get("recip", False)), *stream)
+            lib.ect_conv3x3_s8(x8.data_ptr(), n, h, w, c, k2t.data_ptr(), k2t.shape[0],
+                               s.data_ptr(), b.data_ptr(), r_out,
+                               self.outs[0].data_ptr(),
+                               int(self.kw.get("recip", False)), *stream)
         else:
             x8, res8, k3t, s3, b3, k1t, s1, b1, r_res, r_out, r_next = self.args
             m, (cm, c, c1) = self.shapes()
-            err = lib.ect_cb3_cb1_s8(x8.data_ptr(), res8.data_ptr(), m, cm, c, c1,
-                                     k3t.data_ptr(), s3.data_ptr(), b3.data_ptr(),
-                                     k1t.data_ptr(), s1.data_ptr(), b1.data_ptr(), r_res, r_out,
-                                     r_next, self.outs[0].data_ptr(), self.outs[1].data_ptr(),
-                                     int(self.kw.get("recip_out", False))
-                                     | 2 * int(self.kw.get("recip_next", False)), *stream)
-        if err:
-            raise RuntimeError(f"({self.step}) launch failed: "
-                               + lib.ect_error_string(err).decode())
+            lib.ect_cb3_cb1_s8(x8.data_ptr(), res8.data_ptr(), m, cm, c, c1,
+                               k3t.data_ptr(), s3.data_ptr(), b3.data_ptr(),
+                               k1t.data_ptr(), s1.data_ptr(), b1.data_ptr(), r_res, r_out,
+                               r_next, self.outs[0].data_ptr(), self.outs[1].data_ptr(),
+                               int(self.kw.get("recip_out", False))
+                               | 2 * int(self.kw.get("recip_next", False)), *stream)
 
 
 def record(BK, encoders, frames):
@@ -387,7 +385,7 @@ def main(argv) -> int:
         entry = distinct.setdefault(ln.key(), {"launch": ln, "count": {}})
         tag = f"{path}:{ln.wrapper}"
         entry["count"][tag] = entry["count"].get(tag, 0) + 1
-    repo_lib = BK._lib()
+    repo_lib = BK.LIB_INT8
     with torch.inference_mode():
         for entry in distinct.values():  # the expected outputs: the repository's library
             ln = entry["launch"]
@@ -410,7 +408,7 @@ def main(argv) -> int:
     libs, reports = {}, {}
     for path in sources:
         lib_path, log = _build.build_variant(path, "int8")
-        libs[path], reports[path] = BK._bind_int8(ctypes.CDLL(lib_path)), ptxas_report(log)
+        libs[path], reports[path] = BK.LIB_INT8.variant(lib_path), ptxas_report(log)
         print(f"{path}: {len(reports[path])} kernel(s) spill or serialize their wgmmas")
         for k, v in reports[path].items():
             print(f"  {k}: {v}")

@@ -42,7 +42,6 @@ version disagrees with its plain version.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import re
@@ -118,18 +117,13 @@ def bench_k2(n):
     for name, line in BUILDS.items():
         path = _build.BUILD_DIR / f"stem_int8_{name.replace(' ', '_')}.cu"
         path.write_text(src if line is None else src.replace(_REQUANT, line))
-        lib = ctypes.CDLL(_build.build_variant(str(path), "stem")[0])
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ect_stem3_requant_pool.argtypes = [p] * 5 + [i] * 6 + [i, p]
-        libs[name] = lib
+        libs[name] = SK.LIB.variant(_build.build_variant(str(path), "stem")[0])
 
     def launch(name):
         build, recip = VARIANTS[name]
-        err = libs[build].ect_stem3_requant_pool(
+        libs[build].ect_stem3_requant_pool(
             x.data_ptr(), wmat.data_ptr(), bias.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            n, 112, 112, 32, 64, recip, 0, torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"stem3 launch failed: {err}")
+            n, 112, 112, 32, 64, recip, *_build.stream(x))
 
     vs_plain = {}
     for name in ("kernel", "reciprocal"):
@@ -178,16 +172,12 @@ def bench_stem12(n, sources):
     runs = {"kernel": lambda: SK.stem12_f32(x, k1, b1, k2, b2, ops=ops)}
     out = torch.empty((n, hw // 2, hw // 2, c), dtype=torch.bfloat16, device="cuda")
     for path in sources:
-        lib = ctypes.CDLL(_build.build_variant(path, "stem")[0])
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ect_stem12_f32.argtypes = [p, i] + [p] * 5 + [i] * 5 + [p]
+        lib = SK.LIB.variant(_build.build_variant(path, "stem")[0])
 
         def launch(lib=lib):
-            err = lib.ect_stem12_f32(x.data_ptr(), 0, ops["w1"].data_ptr(), ops["b1"].data_ptr(),
-                                     ops["w2"].data_ptr(), ops["b2"].data_ptr(), out.data_ptr(),
-                                     n, hw, hw, c, 0, torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"stem12 launch failed: {err}")
+            lib.ect_stem12_f32(x.data_ptr(), 0, ops["w1"].data_ptr(), ops["b1"].data_ptr(),
+                               ops["w2"].data_ptr(), ops["b2"].data_ptr(), out.data_ptr(),
+                               n, hw, hw, c, *_build.stream(x))
             return out
         runs[os.path.basename(path)] = launch
 
