@@ -1,4 +1,5 @@
-// Kernels K6 and K7: the bf16 stride-1 bottlenecks of the folded (serving) ResNet trunks.
+// Kernels K6 and K7: the bf16 stride-1 bottlenecks of the folded (serving) ResNet trunks;
+// CLIP's anti-aliased stride-2 blocks on the same GEMM, with the 2×2 pool P.
 //
 // Replaces (embodied_clip_tpu/ops/pallas/bottleneck_kernel.py):
 //   K6 fused_bottleneck  one stride-1 bottleneck, BN folded:
@@ -17,6 +18,14 @@
 //       beside b3.
 // h1/h2 (Cm = C/4 wide) go through device memory, mostly L2: a TPU core keeps a stage in
 // VMEM, but one RN50 stage-1 image (1.6 MB in bf16) is far above an SM's 227 KB.
+//
+// CLIP's anti-aliased stride-2 blocks (block 0 of stages 2-4; no TPU kernel: the JAX
+// package leaves them to XLA) take the same GEMM: (a) and (b) at the block's input
+// resolution (CLIP's 3×3 runs at stride 1, before the pool), then P, the one launch here
+// that is not a GEMM, pools h2 and the block input x, then (c) is K7's block-0 form:
+// out = bf16(relu(p·w3 + xp·wds + b3 + bds)) with the pooled shortcut as the second K
+// loop. P (avg_pool2_pair_bf16_kernel) is bound by bytes: at batch 128 it moves
+// 385 / 193 / 96 MB in stages 2 / 3 / 4 (0.115 / 0.058 / 0.029 ms at 3.35 TB/s).
 //
 // Bound on an H100 at batch 128 (RN50 shapes; 3.35 TB/s, 989 TFLOP/s dense bf16): a
 // stage-3 or stage-4 K6 call does ≈5.6e10 operations (≈0.0565 ms, operations); a stage-2
@@ -310,6 +319,55 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_bf16_kernel(const __grid_con
   }
 }
 
+// P: the 2×2 average pools of a CLIP stride block's h2 and of its input x in one launch,
+// each an NHWC bf16 tensor (n, H, W, C) with C a multiple of 8 → (n, H/2, W/2, C), floor
+// division where H or W is odd (the last row or column is not read), as avg_pool2d does.
+// The arithmetic is avg_pool2d's on bf16: the window summed in f32 from +0 in row-major
+// order, divided by 4 (×0.25 is the same correctly rounded quotient) and rounded once to
+// bf16, so the two are bit-equal, signed zeros included. Each thread turns four 16-byte
+// loads (8 channels of the window's pixels) into one 16-byte store; the flat index runs
+// over h2's outputs and then x's, so one grid-stride loop balances both.
+__device__ __forceinline__ uint32_t avg4_bf16x2(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  const float2 fa = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a));
+  const float2 fb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&b));
+  const float2 fc = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&c));
+  const float2 fd = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&d));
+  const float x = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(0.0f, fa.x), fb.x), fc.x), fd.x);
+  const float y = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(0.0f, fa.y), fb.y), fc.y), fd.y);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(__fmul_rn(x, 0.25f), __fmul_rn(y, 0.25f));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+__global__ void avg_pool2_pair_bf16_kernel(const uint4* __restrict__ a, uint4* __restrict__ pa,
+                                           int a8, const uint4* __restrict__ b,
+                                           uint4* __restrict__ pb, int b8, int H, int W,
+                                           long long total_a, long long total) {
+  const int H2 = H / 2, W2 = W / 2;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const bool second = i >= total_a;
+    const long long j = second ? i - total_a : i;
+    const int c8 = second ? b8 : a8;  // 16-byte groups of channels per pixel
+    const uint4* x = second ? b : a;
+    const int cg = static_cast<int>(j % c8);
+    const long long pix = j / c8;
+    const int ox = static_cast<int>(pix % W2);
+    const long long r = pix / W2;
+    const int oy = static_cast<int>(r % H2);
+    const long long img = r / H2;
+    const uint4* p = x + ((img * H + 2 * oy) * W + 2 * ox) * c8 + cg;
+    const size_t row = static_cast<size_t>(W) * c8;
+    const uint4 v00 = __ldg(p), v01 = __ldg(p + c8), v10 = __ldg(p + row),
+                v11 = __ldg(p + row + c8);
+    uint4 o;
+    o.x = avg4_bf16x2(v00.x, v01.x, v10.x, v11.x);
+    o.y = avg4_bf16x2(v00.y, v01.y, v10.y, v11.y);
+    o.z = avg4_bf16x2(v00.z, v01.z, v10.z, v11.z);
+    o.w = avg4_bf16x2(v00.w, v01.w, v10.w, v11.w);
+    (second ? pb : pa)[j] = o;
+  }
+}
+
 // ---------------------------------------------------------------- host side
 
 // A row-major (rows, cols) bf16 matrix, loaded or stored as 64 × box_rows boxes, 128-byte
@@ -397,6 +455,28 @@ extern "C" int ect_gemm_bf16(const void* a, int M, int K, const void* b, int N,
   err = N <= 64 ? launch_kind<64>(p, M, device, sms, s, conv3, with_res)
                 : launch_kind<128>(p, M, device, sms, s, conv3, with_res);
   return (int)err;
+}
+
+// P: pa (n, H/2, W/2, Ca) and pb (n, H/2, W/2, Cb) = the 2×2 average pools of the NHWC
+// bf16 tensors a (n, H, W, Ca) and b (n, H, W, Cb); Ca and Cb multiples of 8, every pointer
+// 16-byte aligned; odd H or W drop the last row or column.
+extern "C" int ect_avg_pool2_pair_bf16(const void* a, int Ca, const void* b, int Cb, int n,
+                                       int H, int W, void* pa, void* pb, int device,
+                                       void* stream) {
+  if (Ca <= 0 || Cb <= 0 || Ca % 8 || Cb % 8 || n < 0 || H < 0 || W < 0)
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = prepare_launch(device, &sms);
+  if (err != cudaSuccess) return (int)err;
+  const long long pixels = (long long)n * (H / 2) * (W / 2);
+  const long long total_a = pixels * (Ca / 8), total = total_a + pixels * (Cb / 8);
+  if (total <= 0) return 0;
+  const long long blocks = (total + 255) / 256;
+  const int grid = static_cast<int>(blocks < 16LL * sms ? blocks : 16LL * sms);
+  avg_pool2_pair_bf16_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(a), static_cast<uint4*>(pa), Ca / 8,
+      static_cast<const uint4*>(b), static_cast<uint4*>(pb), Cb / 8, H, W, total_a, total);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* ect_error_string(int code) {

@@ -13,8 +13,12 @@ and `:446-473`):
   `fused_stride_block_int8`  block 0 of stages 2-4: cb1, cb2, the 2×2 pools, the pooled
                              conv shortcut and cb3 + residual + requant
   `conv3x3_int8`             the int8-stem options' s8 3×3 stem convs (and the pool)
+  `fused_stride_block_bf16`  CLIP's anti-aliased stride-2 bottleneck of a folded bf16
+                             trunk (`embodied_clip_tpu/models/clip_resnet.py`'s block
+                             with stride 2, BN folded)
 The CUDA sources are `embodied_clip_tpu_torch/csrc/bottleneck_int8.cu` (K3-K5, the
-stride blocks, `conv3x3_int8`) and `bottleneck_bf16.cu` (K6, K7); their headers state the bound and the design. A stage does not fit one SM's
+stride blocks, `conv3x3_int8`) and `bottleneck_bf16.cu` (K6, K7, the bf16 stride block);
+their headers state the bound and the design. A stage does not fit one SM's
 shared memory as it fits a TPU core's VMEM, so each is a short sequence of launches
 through a few device functions:
 
@@ -32,6 +36,9 @@ through a few device functions:
                  norms: the shortcut's A operand, converted once), the conv shortcut (e)
                  on x0, both operands from shared memory, cb3 + residual + requant (a)
                  (left out on path B, where K4 takes cb3)
+  bf16 stride block  4  cb1 (a) and 3×3 cb2 (b) at the input's resolution, P (the 2×2
+                 pools of cb2's output and of the block input, one launch), cb3 + the
+                 pooled conv shortcut (c) in K7's block-0 form
 
 The int8 launches run s8 products on the tensor cores (wgmma), which read both operands
 K-major: they take each s8 weight's K-major copy `k…_t`, built once by the operand
@@ -83,7 +90,9 @@ __all__ = ["fused_stage1_int8", "fused_cb3_cb1_int8", "fused_resblocks_int8",
            "fused_resblocks_int8_reference", "fused_stride_block_int8",
            "fused_stride_block_int8_reference", "conv3x3_int8", "conv3x3_int8_reference",
            "fused_bottleneck", "fused_stage1", "fused_bottleneck_reference",
-           "fused_stage1_reference"]
+           "fused_stage1_reference", "fused_stride_block_bf16",
+           "fused_stride_block_bf16_reference", "avg_pool2_bf16_reference",
+           "pooled_cb3_reference"]
 
 _OUT_KIND = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 3}  # residual epilogues
 
@@ -735,14 +744,21 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), w.to(a.dtype).float())
 
 
-def _bottleneck_pre(x: torch.Tensor, blk: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """One stride-1 bottleneck before its residual: f32 h2·w3 + b3 (`_bottleneck_body`)."""
+def _h2(x: torch.Tensor, blk: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """A bottleneck's (a) and (b) at x's resolution: h2 = relu(conv3x3(relu(x·w1 + b1))
+    + b2), h1 and h2 each rounded once to x's dtype."""
     dt = x.dtype
     with full_f32():
         h1 = torch.relu(_mm(x, blk["w1"]) + blk["b1"].float()).to(dt)
         k2 = blk["w2"].to(dt).float().permute(3, 2, 0, 1)  # HWIO → OIHW
         acc = F.conv2d(h1.float().permute(0, 3, 1, 2), k2, padding=1).permute(0, 2, 3, 1)
-        h2 = torch.relu(acc + blk["b2"].float()).to(dt)
+        return torch.relu(acc + blk["b2"].float()).to(dt)
+
+
+def _bottleneck_pre(x: torch.Tensor, blk: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """One stride-1 bottleneck before its residual: f32 h2·w3 + b3 (`_bottleneck_body`)."""
+    h2 = _h2(x, blk)
+    with full_f32():
         return _mm(h2, blk["w3"]) + blk["b3"].float()
 
 
@@ -768,11 +784,34 @@ def fused_stage1_reference(x, blocks: Sequence[Mapping[str, torch.Tensor]],
     return out
 
 
+def avg_pool2_bf16_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of P on one NHWC tensor: `F.avg_pool2d(·, 2)` on its NCHW view (each
+    2×2 window summed in f32, rounded once to x's dtype; odd H or W floor-sized)."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+
+def pooled_cb3_reference(p, xp, w3, b3, wds, bds) -> torch.Tensor:
+    """Plain version of the bf16 stride block's (c): relu(p·w3 + b3 + xp·wds + bds) in
+    f32, cast to p's dtype."""
+    with full_f32():
+        out = _mm(p, w3) + b3.float() + (_mm(xp, wds) + bds.float())
+    return torch.relu(out).to(p.dtype)
+
+
+def fused_stride_block_bf16_reference(x, w1, b1, w2, b2, w3, b3, wds, bds) -> torch.Tensor:
+    """Plain version of `fused_stride_block_bf16`: h1, h2 at x's resolution as K6 rounds
+    them, p and xp the 2×2 pools of h2 and x (`avg_pool2_bf16_reference`), then
+    `pooled_cb3_reference`."""
+    p = avg_pool2_bf16_reference(_h2(x, _block(w1, b1, w2, b2, w3, b3)))
+    return pooled_cb3_reference(p, avg_pool2_bf16_reference(x), w3, b3, wds, bds)
+
+
 # ------------------------------------------------------------------ K6, K7: wrappers
 
 
 LIB_BF16 = Library("bottleneck_bf16", {
-    "ect_gemm_bf16": [_p, _i, _i, _p, _i, _p, _p, _i, _p, _p, _p, _p, _i, _i, _i, _i, _p]})
+    "ect_gemm_bf16": [_p, _i, _i, _p, _i, _p, _p, _i, _p, _p, _p, _p, _i, _i, _i, _i, _p],
+    "ect_avg_pool2_pair_bf16": [_p, _i, _p, _i, _i, _i, _i, _p, _p, _i, _p]})
 
 
 def _check_bf16(name: str, t: torch.Tensor, device, shape) -> None:
@@ -889,5 +928,51 @@ def fused_stage1(x: torch.Tensor, blocks: Sequence[Mapping[str, torch.Tensor]],
     return out
 
 
+def _avg_pool2_pair(a: torch.Tensor, b: torch.Tensor):
+    """P, one launch: the 2×2 average pools (`avg_pool2_bf16_reference`, bit for bit) of
+    the NHWC bf16 tensors a and b, which share N, H and W."""
+    n, h, w, _ = a.shape
+    if b.ndim != 4 or tuple(b.shape[:3]) != (n, h, w):
+        raise ValueError(f"2x2 pools: a {tuple(a.shape)} and b {tuple(b.shape)} must share "
+                         "N, H and W")
+    outs = []
+    for t in (a, b):
+        _check_bf16("pool input", t, a.device, t.shape)
+        if t.shape[-1] % 8:
+            raise ValueError(f"2x2 pools: C must be a multiple of 8, got {t.shape[-1]}")
+        outs.append(torch.empty((n, h // 2, w // 2, t.shape[-1]), dtype=t.dtype,
+                                device=t.device))
+    LIB_BF16.ect_avg_pool2_pair_bf16(a.data_ptr(), a.shape[-1], b.data_ptr(), b.shape[-1],
+                                     n, h, w, outs[0].data_ptr(), outs[1].data_ptr(),
+                                     *stream(a))
+    return outs[0], outs[1]
+
+
+def fused_stride_block_bf16(x: torch.Tensor, w1, b1, w2, b2, w3, b3, wds, bds) -> torch.Tensor:
+    """CLIP's anti-aliased stride-2 bottleneck with BN folded in: relu(conv1x1_3(pool2(
+    relu(conv3x3(relu(conv1x1_1(x)))))) + conv1x1_ds(pool2(x))), every conv at stride 1
+    and both 2×2 average pools floor-sized.
+
+    x (N, H, W, Cin) NHWC; w1 (Cin, Cm), w2 (3, 3, Cm, Cm) HWIO, w3 (Cm, Cout) and the
+    shortcut's wds (Cin, Cout) in x's dtype; b1, b2 (Cm,), b3, bds (Cout,) f32. Four
+    launches: (a) and (b) of K6 at x's resolution, P (the pools of h2 and x), and (c) with
+    the pooled shortcut as K7's second K loop. The same kernel requirements as
+    `fused_bottleneck` (Cin, Cm and Cout multiples of 8); it agrees with the plain version
+    up to the roundings that the f32 sum order flips on near-ties."""
+    if _cuda_bf16_input("fused_stride_block_bf16", x):
+        return fused_stride_block_bf16_reference(x, w1, b1, w2, b2, w3, b3, wds, bds)
+    n, h, w, _ = x.shape
+    h1 = torch.empty((n, h, w, w1.shape[-1]), dtype=x.dtype, device=x.device)
+    h2 = torch.empty_like(h1)
+    _gemm(x, w1, b1, h1)
+    _gemm(h1, w2, b2, h2, conv3=True)
+    p, xp = _avg_pool2_pair(h2, x)
+    out = torch.empty((n, h // 2, w // 2, w3.shape[-1]), dtype=x.dtype, device=x.device)
+    _gemm(p, w3, b3, out, a2=xp, w2=wds, bias2=bds)
+    fused_stride_block_bf16.launches += 1
+    return out
+
+
 fused_bottleneck.launches = 0
 fused_stage1.launches = 0
+fused_stride_block_bf16.launches = 0

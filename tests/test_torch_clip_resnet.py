@@ -130,9 +130,10 @@ def test_openai_state_dict_loads_and_matches_oracle():
 
 def test_folded_bf16_trunk_runs_k6_k7_and_matches_jax():
     """A width-8 CLIP trunk with stage sizes (3, 2, 2, 2): its folded bf16 forward runs
-    stage 1 through K7 and the identity blocks of stages 2-4 through K6 (their plain
-    versions on the CPU). Held to JAX's folded bf16 trunk and to the port's own f32
-    trunk at ≤1e-3 cosine."""
+    stage 1 through K7, the anti-aliased stride-2 blocks of stages 2-4 through the
+    `stride` step and their identity blocks through K6 (their plain versions on the
+    CPU). Held to JAX's folded bf16 trunk and to the port's own f32 trunk at ≤1e-3
+    cosine."""
     from embodied_clip_tpu.models.clip_resnet import ModifiedResNet as JaxResNet
     from embodied_clip_tpu.ops.fold_bn import fold_conv_bn_tree
 
@@ -152,14 +153,15 @@ def test_folded_bf16_trunk_runs_k6_k7_and_matches_jax():
     sd = {k: v for k, v in from_flax_variables(
         {"params": {"trunk": folded, "attnpool": pool}}).items()
         if not k.startswith("attnpool.")}
-    outs = {}
+    outs, trunks = {}, {}
     for label, dtype in (("k6k7", torch.bfloat16), ("f32", torch.float32)):
-        trunk = ModifiedResNet(stage_sizes, 8, dtype, folded=True)
+        trunks[label] = trunk = ModifiedResNet(stage_sizes, 8, dtype, folded=True)
         trunk.load_state_dict(sd)
         with torch.no_grad():
             outs[label] = trunk(torch.from_numpy(x))
-    kinds = [k for k, _ in trunk.fused_plan()]
+    kinds = [k for k, _ in trunks["k6k7"].fused_plan()]
     assert kinds.count("stage1") == 1 and kinds.count("bottleneck") == 3
+    assert kinds.count("stride") == 3
     assert outs["k6k7"].dtype == torch.bfloat16 and outs["k6k7"].shape == (2, 2, 2, 256)
     assert cosine_distance(outs["k6k7"], ref) <= 1e-3
     assert cosine_distance(outs["k6k7"], outs["f32"]) <= 1e-3

@@ -29,6 +29,7 @@ from embodied_clip_tpu_torch.parity import (
     STEM12_SHARE,
     STEM12_STEPS,
     bf16_disagreement,
+    bf16_share_limit,
     cosine_distance,
     golden_frames,
     stage1_block_disagreements,
@@ -652,6 +653,59 @@ def test_fused_stage1_kernel_matches_plain_version(cuda, n, h, cin, cm, cout, nb
     assert all(s <= BF16_KERNEL_SHARE and w <= 1.0 for s, w in per_block), per_block
 
 
+# (n, h, w, cm, cin): h2 and the block input of RN50's stride blocks of stages 2-4 at
+# batch 2; an odd map (the floor rule) at the test width.
+@pytest.mark.parametrize("n,h,w,cm,cin", [(2, 56, 56, 128, 256), (2, 28, 28, 256, 512),
+                                          (2, 14, 14, 512, 1024), (3, 7, 9, 8, 24)])
+def test_bf16_stride_pool_is_avg_pool2d_bit_for_bit(cuda, n, h, w, cm, cin):
+    """P, one launch for both pools, against `F.avg_pool2d(·, 2)` on the card (the NCHW
+    channels-last views the module route pools) and its plain version: bit-equal, on
+    values over 40 binades (so the f32 sums round) and planted -0 windows."""
+    g = torch.Generator().manual_seed(h + cm)
+
+    def draw(c):
+        scale = torch.exp2(torch.randint(-20, 20, (n, h, w, c), generator=g).float())
+        t = (torch.randn(n, h, w, c, generator=g) * scale).to(torch.bfloat16)
+        t[0, :2, :2, :8] = -0.0
+        return t.to(cuda)
+
+    h2, x = draw(cm), draw(cin)
+    p, xp = BK._avg_pool2_pair(h2, x)
+    torch.cuda.synchronize()
+    for got, t in ((p, h2), (xp, x)):
+        want = F.avg_pool2d(t.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+        assert got.shape == (n, h // 2, w // 2, t.shape[-1])
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        plain = BK.avg_pool2_bf16_reference(t.cpu()).to(cuda)
+        assert torch.equal(got.view(torch.int16), plain.view(torch.int16))
+
+
+# (n, h, cin, cm): RN50's stride blocks of stages 2-4 at batches 2-4, the tiny trunk's
+# stage 2, and an odd map.
+@pytest.mark.parametrize("n,h,cin,cm", [(2, 56, 256, 128), (3, 28, 512, 256),
+                                        (4, 14, 1024, 512), (2, 16, 32, 16), (2, 15, 64, 16)])
+def test_fused_stride_block_bf16_matches_plain_version(cuda, n, h, cin, cm):
+    """CLIP's stride block on its four launches ((a), (b), P, (c)) vs its plain version:
+    K6's card contract (`bf16_share_limit` of the block); a second call on the same input
+    is bit-equal."""
+    rng = np.random.RandomState(9)
+    blk = _bf16_block(rng, cin, cm, 4 * cm, cuda)
+    blk["wds"] = _t(rng.randn(cin, 4 * cm).astype(np.float32) / np.sqrt(cin), cuda,
+                    torch.bfloat16)
+    blk["bds"] = _t(rng.randn(4 * cm).astype(np.float32) * 0.1, cuda)
+    x = _t(np.abs(rng.randn(n, h, h, cin)).astype(np.float32), cuda, torch.bfloat16)
+    before = BK.fused_stride_block_bf16.launches
+    got = BK.fused_stride_block_bf16(x, **blk)
+    again = BK.fused_stride_block_bf16(x, **blk)
+    torch.cuda.synchronize()
+    assert BK.fused_stride_block_bf16.launches == before + 2
+    assert got.shape == (n, h // 2, h // 2, 4 * cm) and torch.equal(got, again)
+    assert bool(torch.isfinite(got.float()).all())
+    share, worst = bf16_disagreement(got, BK.fused_stride_block_bf16_reference(x, **blk))
+    print(f"bf16 stride block on {tuple(x.shape)}: {share:.2e} differ, worst {worst:.3f}")
+    assert share <= bf16_share_limit([blk]) and worst <= 1.0, (share, worst)
+
+
 def test_bf16_kernels_reject_what_they_cannot_take(cuda):
     rng = np.random.RandomState(8)
     blk = _bf16_block(rng, 32, 8, 32, cuda)
@@ -670,16 +724,22 @@ def test_bf16_kernels_reject_what_they_cannot_take(cuda):
         BK.fused_bottleneck(x, blk["w1"].float(), *w[1:])
     with pytest.raises(ValueError, match="bfloat16"):
         BK.fused_stage1(x.float(), [blk], (blk["w1"], blk["b1"]))
+    with pytest.raises(ValueError, match="bfloat16"):
+        BK.fused_stride_block_bf16(x.float(), *w, blk["w1"], blk["b1"])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        BK._avg_pool2_pair(x[..., :12].contiguous(), x)
 
 
-@pytest.mark.parametrize("name,k7,k6", [("clip_rn50", 1, 10), ("imagenet_rn50", 1, 10),
-                                        ("imagenet_rn18", 0, 0)])
-def test_bf16_folded_encoder_launch_counts(cuda, name, k7, k6):
+@pytest.mark.parametrize("name,k7,k6,sb", [("clip_rn50", 1, 10, 3), ("imagenet_rn50", 1, 10, 0),
+                                           ("imagenet_rn18", 0, 0, 0)])
+def test_bf16_folded_encoder_launch_counts(cuda, name, k7, k6, sb):
     """One request through a folded bf16 encoder launches K1 once, K7 once per
-    bottleneck stage 1 and K6 once per stride-1 identity bottleneck; through the folded
-    f32 encoder, whose preprocessor and trunk stay on the plain route, none of them."""
-    counted = (K.fused_preprocess, BK.fused_stage1, BK.fused_bottleneck)
-    for dtype, want in ((torch.bfloat16, [1, k7, k6]), (torch.float32, [0, 0, 0])):
+    bottleneck stage 1, K6 once per stride-1 identity bottleneck and the bf16 stride block
+    once per CLIP stride-2 block (torchvision's stay on cuDNN); through the folded f32
+    encoder, whose preprocessor and trunk stay on the plain route, none of them."""
+    counted = (K.fused_preprocess, BK.fused_stage1, BK.fused_bottleneck,
+               BK.fused_stride_block_bf16)
+    for dtype, want in ((torch.bfloat16, [1, k7, k6, sb]), (torch.float32, [0, 0, 0, 0])):
         enc = build_encoder(name, dtype=dtype).fold_bn()
         before = [f.launches for f in counted]
         out = enc.encode(golden_frames(2))
