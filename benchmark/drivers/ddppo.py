@@ -24,6 +24,15 @@ noise from seed to seed (PERF.md gives their readings). The reference follows th
 program's rollouts, which depend on the program's own state: the encoder that produced
 their features is judged on its own by `cos.*`. In a control run the reference itself,
 in bfloat16 products, stands in for the program's training step.
+
+On more than one card (`harness/ranks.py`) every rank runs this driver on its own card
+and its own slice of the global env batch, with env streams of the seed of its own, and
+the program sums the gradients over the ranks. After the window rank 0 takes the worst
+`cos.*` over all ranks' kept features, sums the ranks' shares of each PPO step's loss,
+and replays the followed iterations on the ranks' rollouts joined into one batch of all
+the envs (the program's update is the one-process update on that union); and
+`rank_param_gap`, the largest absolute difference of any rank's parameters from rank
+0's after the followed iterations and after the window, is 0 when the replicas agree.
 """
 
 from __future__ import annotations
@@ -34,13 +43,17 @@ import statistics
 import torch
 
 from benchmark.drivers.encode import max_distances
+from benchmark.harness import ranks
 from benchmark.harness.inputs import CALIBRATION, ENV, POLICY, SAMPLES, reference_module, tf32_off
 from benchmark.harness.program import build_encoder, program_section
 from benchmark.harness.runner import log
 from benchmark.harness.weights import fill_, seeded_generator
 from benchmark.reference import actor_critic_ppo as ac
 
+KIND = "training"
 B1 = 0.9   # Adam's first-moment decay, which the first moment is divided back by
+RANK_STREAMS = 16   # rank r draws its envs from the seed's stream ENV + 16 r
+ENV_AXIS_0 = ("h0", "last_value")   # rollout entries batched on axis 0, the rest on 1
 
 
 class _Sampler:
@@ -68,8 +81,9 @@ def _gaps(prog: dict, ref: dict, leaves) -> dict:
 
 
 class Driver:
-    def __init__(self, cell, seed: int, device, control: bool = False):
+    def __init__(self, cell, seed: int, device, control: bool = False, group=None):
         self.cell, self.seed, self.device, self.control = cell, seed, torch.device(device), control
+        self.group = group or ranks.Solo()   # this rank's place among the run's ranks
         self.t = cell.traffic
         self.min_units = 1
 
@@ -110,10 +124,12 @@ class Driver:
         learner = DDPPOLearner(env, policy, DDPPOConfig(
             rollout_len=t["rollout_len"], env_batch=t["env_batch"],
             ppo=PPOConfig(**self.ppo)), encode_fn=self.sampler, device=dev)
-        self.gen = seeded_generator(seed, ENV, dev)
+        self.gen = seeded_generator(seed, ENV + RANK_STREAMS * self.group.rank, dev)
         self.act = learner.init(self.gen)
         self.learner = learner
         self._follow(policy)
+        if self.group.size > 1:
+            self.param_gaps = [self._rank_param_gap()]
 
     def _follow(self, policy):
         """The first iterations, through the window's own call, with their rollouts,
@@ -158,6 +174,33 @@ class Driver:
                               rewards=r.rewards, dones=r.dones, h0=r.h0, last_value=lv)
                          for r, lv in rollouts]
 
+    def _rank_param_gap(self) -> float:
+        """The largest absolute difference of this rank's parameters from rank 0's."""
+        import torch.distributed as dist
+
+        flat = torch.cat([p.detach().reshape(-1) for p in self.learner.policy.parameters()])
+        first = flat.clone()
+        dist.broadcast(first, 0)
+        return float((flat - first).abs().max())
+
+    def _joined_rollouts(self):
+        """On rank 0, the followed rollouts of every rank joined, in rank order, into one
+        batch of all the envs; the other ranks send theirs and get None."""
+        import torch.distributed as dist
+
+        rank, size = self.group.rank, self.group.size
+        joined = []
+        for ro in self.rollouts:
+            out = {}
+            for k, t in ro.items():
+                t = t.contiguous()
+                parts = [torch.empty_like(t) for _ in range(size)] if rank == 0 else None
+                dist.gather(t, parts, dst=0)
+                if rank == 0:
+                    out[k] = torch.cat(parts, 0 if k in ENV_AXIS_0 else 1)
+            joined.append(out)
+        return None if rank else joined
+
     def start_window(self):
         self.sampler.on = True
 
@@ -173,17 +216,30 @@ class Driver:
     def release(self):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.flags
         self.samples = list(self.sampler.kept)
+        if self.group.size > 1:
+            self.param_gaps.append(self._rank_param_gap())
         del self.learner, self.sampler, self.act
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 
     def readings(self) -> dict:
         key = self.t["feature_key"]
-        if not self.samples:
+        readings = {}
+        if self.samples:
+            frames = torch.cat([f for f, _ in self.samples])
+            outs = {key: torch.cat([o for _, o in self.samples])}
+            readings = max_distances(self.ref, self.cell.config, frames, outs, keys=[key])
+        if self.group.size > 1:
+            every = self.group.gather({"readings": readings, "losses": self.losses,
+                                       "gap": max(self.param_gaps)})
+            self.rollouts = self._joined_rollouts()
+            if self.group.rank or not all(r["readings"] for r in every):
+                return {}
+            readings = {k: max(r["readings"][k] for r in every) for k in readings}
+            self.losses = [sum(step) for step in zip(*(r["losses"] for r in every))]
+            readings["rank_param_gap"] = max(r["gap"] for r in every)
+        elif not self.samples:
             return {}
-        frames = torch.cat([f for f, _ in self.samples])
-        outs = {key: torch.cat([o for _, o in self.samples])}
-        readings = max_distances(self.ref, self.cell.config, frames, outs, keys=[key])
         hsz = self.t["hidden"]
         mask = torch.ones(3 * hsz, device=self.device)
         mask[:2 * hsz] = 0   # the recurrent r and z biases: not parameters of the cell

@@ -25,6 +25,7 @@ from benchmark.harness.runner import log
 from benchmark.harness.weights import seeded_generator
 from benchmark.reference.preprocess import preprocess
 
+KIND = "encode"
 REFERENCE_BLOCK = 128   # frames per reference call
 
 
@@ -54,7 +55,8 @@ def max_distances(ref: torch.nn.Module, config: dict, frames: torch.Tensor, outs
 
 
 class Driver:
-    def __init__(self, cell, seed: int, device, control: bool = False):
+    def __init__(self, cell, seed: int, device, control: bool = False, group=None):
+        # `group` (`harness/ranks.py`) is unused: an encode cell runs on one card.
         self.cell, self.seed, self.device, self.control = cell, seed, torch.device(device), control
         t = cell.traffic
         self.batch, self.pool_size = t["batch"], t["pool"]

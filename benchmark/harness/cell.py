@@ -29,6 +29,7 @@ class Cell:
     per_layer: List[dict]
     layers: Dict[str, dict]
     chips: int = 1
+    faults: List[str] = dataclasses.field(default_factory=list)   # planted (harness/faults.py)
 
 
 def _json(path: Path) -> dict:

@@ -16,7 +16,9 @@ the span or counter, a CPU run's missing stream times.
 - `idle_pct_under`: the share of the traced window in which the card is idle while the
   innermost program span open on the host when the gap began lies under one of the
   given spans (the harness's rule for its own spans, on the same busy intervals);
-- `counter_pct`: one counter over another, percent.
+- `counter_pct`: one counter over another, percent;
+- `stream_ms_per_unit`: stream ms of a span name's calls per traced unit;
+- `rank_host_ms`: each rank's mean host ms a call of a span name, in a multi-rank run.
 """
 
 from __future__ import annotations
@@ -75,28 +77,50 @@ def stream_roofline(view, name: str, kind: str) -> Optional[float]:
     return 100.0 * card.least_seconds(kinds[kind]) * view.units / st.stream_s
 
 
-def idle_pct_under(view, names: Iterable[str]) -> Optional[float]:
-    rec = recording()
-    if rec is None or not rec.spans:
-        return None
+def _under(rec, names: Iterable[str]):
+    """(by id, is a span id's span under one of `names`)."""
     names = set(names)
     by_id = {s.id: s for s in rec.spans}
 
-    def under(s) -> bool:
+    def under(sid) -> bool:
+        s = by_id.get(sid)
         while s is not None:
             if s.name in names:
                 return True
             s = by_id.get(s.parent)
         return False
+    return under
 
+
+def _host(rec):
+    return [(s.id, s.thread, s.start_ns * 1e-9, s.end_ns * 1e-9) for s in rec.spans]
+
+
+def idle_pct_under(view, names: Iterable[str]) -> Optional[float]:
+    rec = recording()
+    if rec is None or not rec.spans:
+        return None
+    under = _under(rec, names)
     lo, hi = view.trace.window
     edges = [lo] + [x for iv in view.trace.busy_intervals() for x in iv] + [hi]
     gaps = [(max(a, lo), min(b, hi)) for a, b in zip(edges[0::2], edges[1::2])]
     gaps = [(a, b) for a, b in gaps if b > a]
-    host = [(s.id, s.thread, s.start_ns * 1e-9, s.end_ns * 1e-9) for s in rec.spans]
-    idle = sum(b - a for (a, b), inside in zip(gaps, _sweep(host, [a for a, _ in gaps]))
-               if inside and under(by_id[max(inside)[1]]))
+    idle = sum(b - a for (a, b), inside in zip(gaps, _sweep(_host(rec), [a for a, _ in gaps]))
+               if inside and under(max(inside)[1]))
     return 100.0 * idle / view.trace.window_s
+
+
+def stream_ms_per_unit(view, name: str) -> Optional[float]:
+    st = _stat(name)
+    return None if st is None or not st.stream_s else 1e3 * st.stream_s / view.units
+
+
+def rank_host_ms(view, name: str) -> Optional[list]:
+    """[each rank's mean host ms a call of span `name`] in a multi-rank run; None in one
+    process or where a rank never called it."""
+    if not view.ranks or any(name not in r for r in view.ranks):
+        return None
+    return [1e3 * r[name][1] / r[name][0] for r in view.ranks]
 
 
 def counter_pct(part: str, whole: str) -> Optional[float]:

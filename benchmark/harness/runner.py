@@ -1,5 +1,7 @@
 """One run of a cell: set-up, warm-up, the measured window (traced or not), the
-program freed, then its outputs judged against the reference.
+program freed, then its outputs judged against the reference. A cell on more than one
+card runs the same on every rank, in lockstep (`harness/ranks.py`), and rank 0 gives
+the one result: the cards used, every rank's peak memory, the failed operations of all.
 
 With `trace` off the metrics are the cell's end-to-end metrics; with it on, the
 layers' spans are wrapped and `torch.profiler` records a steady stretch of the window
@@ -18,13 +20,25 @@ import numpy as np
 import torch
 
 from benchmark.harness import device as card
-from benchmark.harness import spans, trace as tracing
+from benchmark.harness import ranks, spans, trace as tracing
 from benchmark.harness.cell import Cell, metric_reader, module
 from benchmark.harness.compare import judge
 
 
+PREFIX = ""   # a rank above 0 marks its lines
+# What no rank may have loaded once the window has closed, by top-level module name.
+FORBIDDEN = {"jax", "jaxlib", "flax", "embodied_clip_tpu"}
+
+
 def log(msg: str):
-    print(msg, file=sys.stderr, flush=True)
+    # One write a line, so that the ranks' lines on a shared stderr do not interleave.
+    sys.stderr.write(PREFIX + msg + "\n")
+    sys.stderr.flush()
+
+
+def forbidden_loaded() -> list:
+    """The FORBIDDEN top-level modules this process has loaded, sorted."""
+    return sorted({m.split(".")[0] for m in sys.modules} & FORBIDDEN)
 
 
 def process_start() -> float:
@@ -43,8 +57,10 @@ class View:
     """What a per-layer metric's reader sees: the traced stretch and the work of the
     units in it."""
 
-    def __init__(self, trace: tracing.Trace, units: int, work: dict, host_times: dict):
+    def __init__(self, trace: tracing.Trace, units: int, work: dict, host_times: dict,
+                 ranks=None):
         self.trace, self.units, self.work, self.host_times = trace, units, work, host_times
+        self.ranks = ranks   # in a multi-rank run, each rank's {span: [calls, host s]}
 
     def roofline(self, layer: str):
         """Percent of the layer's least time (its work at the peaks) over its device
@@ -84,24 +100,56 @@ def _sync(dev):
 
 def run(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
         control: bool = False, started: float = None):
-    """One run: returns (the result line without its checks, the checks)."""
+    """One run: returns (the result line without its checks, the checks). A cell on
+    more than one card runs as one process per card (`harness/ranks.py`), this process
+    rank 0."""
+    group = ranks.start(cell, seed, seconds, trace, device, control) if cell.chips > 1 \
+        else ranks.Solo()
+    try:
+        out = run_rank(cell, seed, seconds, trace, group.device(device), control, group,
+                       started)
+    except BaseException:
+        group.abort()
+        raise
+    group.close()
+    return out
+
+
+def _rank_stats() -> dict:
+    """{program span name: [calls, host seconds]} of this rank's traced stretch."""
+    from benchmark.harness.program_spans import recording
+
+    rec = recording()
+    if rec is None:
+        return {}
+    return {k: [st.calls, st.host_s] for k, st in rec.by_name().items()}
+
+
+def run_rank(cell: Cell, seed: int, seconds: float, trace: bool, device, control: bool,
+             group, started: float = None):
+    """One rank's run. Every rank runs the same units; rank 0 returns (the result line
+    without its checks, the checks), the others None."""
     dev = torch.device(device)
     started = time.time() if started is None else started
     if "host_threads" in cell.traffic:   # the process's CPU thread pool, where the mix sets it
         torch.set_num_threads(cell.traffic["host_threads"])
     t_harness = time.time()
-    driver = module("drivers", cell.traffic["driver"]).Driver(cell, seed, dev, control)
+    driver = module("drivers", cell.traffic["driver"]).Driver(cell, seed, dev, control,
+                                                                group)
     driver.setup()
     t_setup = time.time()
     for i in range(cell.traffic["warmup_units"]):
         driver.unit(i)
     _sync(dev)
+    group.barrier()
+    group.expect("unit")
     driver.start_window()
     setup_s = time.time() - started
     log(f"[bench] set-up {setup_s:.3f} s: to the harness {t_harness - started:.3f} (interpreter, "
         f"imports), the cell's set-up {t_setup - t_harness:.3f}, warm-up "
         f"{time.time() - t_setup:.3f}; TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cuDNN TF32 {torch.backends.cudnn.allow_tf32} in the window")
+    log("[bench] " + ranks.host_line())
 
     skip, want = cell.traffic["trace_skip"], cell.traffic["trace_units"]
     prof, window_span, traced_done = None, None, not trace
@@ -131,25 +179,44 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
                 window_span.__exit__(None, None, None)
                 prof.__exit__(None, None, None)
                 traced_done = True
-            if time.perf_counter() - t0 >= seconds and traced_done and n >= driver.min_units:
+            if group.decide(time.perf_counter() - t0 >= seconds and traced_done and
+                            n >= driver.min_units):
                 break
         _sync(dev)
+        group.barrier()
         elapsed = time.perf_counter() - t0
+    group.expect("judge")
 
     memory_peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-    result = {"correct": False, "attempted": n, "failed": 0, "metrics": {}, "device": {
-        "platform": "gpu" if dev.type == "cuda" else "cpu",
-        "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-        "count": 1, "memory_peak_bytes": int(memory_peak)}}
+    tr = tracing.from_profiler(prof) if trace else None
+    mine = {"peak": int(memory_peak), "failed": getattr(driver, "failed", 0),
+            "busy": (tr.busy_s(), tr.window_s) if trace else None,
+            "spans": _rank_stats() if trace and group.size > 1 else None}
+    every = group.gather(mine)
+    if group.rank != 0:
+        driver.release()
+        gc.collect()
+        driver.readings()   # its part of the collectives; rank 0 judges
+        _sync(dev)
+        group.barrier()
+        return None
+    peaks = [r["peak"] for r in every]
+    result = {"correct": False, "attempted": n, "failed": sum(r["failed"] for r in every),
+              "metrics": {}, "device": {
+                  "platform": "gpu" if dev.type == "cuda" else "cpu",
+                  "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+                  "count": group.size, "memory_peak_bytes": max(peaks)}}
+    if group.size > 1:
+        result["device"]["memory_peak_bytes_by_rank"] = peaks
     if trace:
-        tr = tracing.from_profiler(prof)
-        view = View(tr, want, driver.unit_work(), host_times)
+        view = View(tr, want, driver.unit_work(), host_times,
+                    [r["spans"] for r in every] if group.size > 1 else None)
         for m in cell.per_layer:
             value = metric_reader(m["name"])(view)
             if value is not None:
                 result["metrics"][m["name"]] = {"value": value, "unit": m["unit"]}
-        result["device"]["busy_s"] = tr.busy_s()
-        result["device"]["window_s"] = tr.window_s
+        result["device"]["busy_s"] = sum(r["busy"][0] for r in every) / len(every)
+        result["device"]["window_s"] = sum(r["busy"][1] for r in every) / len(every)
         result["breakdown"] = {"device_ops": tr.top_ops(), "idle_gaps": tr.idle_gaps()}
         shares = {}
         for a in tr.activities:
@@ -159,6 +226,12 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
             f"{k} {100 * v / total:.2f}%" for k, v in sorted(shares.items())) +
             f"; activities inside a span {100 * tr.span_share:.2f}%, linked to their "
             f"launch {100 * tr.linked_share:.2f}%")
+        if group.size > 1:
+            nccl = [a for a in tr.activities if a.name.startswith("nccl")]
+            log("[bench] busy share by rank: " + ", ".join(
+                f"{100 * b / w:.2f}%" for b, w in (r["busy"] for r in every)) +
+                f"; rank 0's NCCL kernels {len(nccl)}: "
+                f"{sorted({a.name.split('(')[0] for a in nccl})}")
         del prof
     else:
         e2e = driver.window_metrics(n, elapsed, unit_times)
@@ -171,11 +244,16 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
     q = 1e3 * np.percentile(unit_times, [50, 95, 99, 100])
     log(f"[bench] window {elapsed:.3f} s, {n} units (ms a unit: p50 {q[0]:.4f}, p95 "
         f"{q[1]:.4f}, p99 {q[2]:.4f}, max {q[3]:.4f}; "
-        f"{torch.get_num_threads()} CPU threads); peak memory {memory_peak} B; "
+        f"{torch.get_num_threads()} CPU threads); peak memory {memory_peak} B"
+        f"{f' on rank 0, {peaks} by rank' if group.size > 1 else ''}; "
         f"{card.power_limit()}; peaks: {card.PEAK_SOURCE}")
 
+    t_judge = time.perf_counter()
     driver.release()
     gc.collect()
-    correct, checks = judge(driver.readings(), cell.limits)
+    readings = driver.readings()
+    group.barrier()
+    correct, checks = judge(readings, cell.limits)
     result["correct"] = correct
+    log(f"[bench] judged in {time.perf_counter() - t_judge:.3f} s")
     return result, checks

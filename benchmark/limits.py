@@ -10,8 +10,10 @@ compared; then the same for `--control-seeds` seeds with the configuration's `co
 section laid over its `program` section (the program's own lower-precision path). The
 summary gives, for each number, the largest sound reading, the smallest control
 reading and their ratio. With `--fault <name>` every run has that fault of
-`harness/faults.py` planted (a fault's readings are upper readings too). Each limit in `limits/<cell>.json` lies between the two
-(PERF.md gives the readings each was set from).
+`harness/faults.py` planted (a fault's readings are upper readings too; in every rank of
+a cell on more than one card, whose runs start their other ranks each time). Each limit
+in `limits/<cell>.json` lies between the two (PERF.md gives the readings each was set
+from).
 """
 
 import argparse

@@ -1,22 +1,21 @@
 """A run with the timed path broken underneath comes out not correct: once for each
 fault a cell can have (`harness/faults.py`: an answer altered where it is produced;
-half of the batch left out; for training, a step that returns its state unchanged).
-The chip check is skipped: these runs drive the rest of a run on the CPU at a test's
-size, against the cells' own limits."""
+half of the batch left out; for training, a step that returns its state unchanged; on
+more than one card, the exchange between cards left out on one rank). The chip check is
+skipped: these runs drive the rest of a run on the CPU at a test's size, against the
+cells' own limits (a four-card cell as four gloo processes)."""
 
 import json
 
 import pytest
 
-from benchmark.harness.cell import REPO
-from benchmark.harness.faults import FAULTS
+from benchmark.harness.cell import REPO, resolve
+from benchmark.harness.faults import FAULTS, applies
 from benchmark.harness.runner import run
 from benchmark.tests.conftest import SEED
 
-CELLS = {w["name"]: w["traffic"]
-         for w in json.loads((REPO / "BENCHMARK.json").read_text())["workloads"]}
-CASES = [(c, f) for c, t in CELLS.items() for f in FAULTS
-         if f != "unchanged_state" or t.startswith("ddppo")]
+CELLS = [w["name"] for w in json.loads((REPO / "BENCHMARK.json").read_text())["workloads"]]
+CASES = [(c, f) for c in CELLS for f in FAULTS if applies(f, resolve(c))]
 
 
 def _run(cell):
@@ -24,7 +23,7 @@ def _run(cell):
     return result["correct"], checks
 
 
-@pytest.mark.parametrize("name", list(CELLS))
+@pytest.mark.parametrize("name", CELLS)
 def test_sound_run_is_correct(tiny_cell, name):
     correct, checks = _run(tiny_cell(name))
     assert correct, checks
@@ -41,3 +40,6 @@ def test_fault_is_not_correct(tiny_cell, name, fault):
         assert checks["update_gap"]["value"] > 0.5
     if fault == "half_batch" and cell.traffic["driver"] == "encode":
         assert all(c["value"] == float("inf") for c in checks.values())
+    if fault == "local_gradient":   # the replicas part; rank 0's own update is sound
+        assert checks["rank_param_gap"]["value"] > 0
+        assert checks["grad_gap"]["value"] <= checks["grad_gap"]["limit"]

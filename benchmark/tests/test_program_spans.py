@@ -20,9 +20,9 @@ from embodied_clip_tpu_torch.utils.profiling import Recording, SpanRecord
 BENCH = json.loads((REPO / "BENCHMARK.json").read_text())
 NEW = [m for m in BENCH["per_layer"]
        if "program_spans" in (REPO / "benchmark" / "metrics" / f"{m['name']}.py").read_text()]
+TRAIN = {"env_step_ms.train", "policy_ms.train", "optimizer_ms.train", "env_idle_pct.train"}
 HOST = {"clip_rn50_int8.act_b8": {"h2d_ms.act", "dispatch_idle_pct.act"},
-        "clip_rn50_int8.ddppo_gridnav": {"env_step_ms.train", "policy_ms.train",
-                                         "optimizer_ms.train", "env_idle_pct.train"}}
+        "clip_rn50_int8.ddppo_gridnav_4chip": TRAIN | {"rank_skew_pct.train"}}
 
 
 def _config(name):
@@ -33,8 +33,10 @@ def test_the_new_metrics():
     assert [m["name"] for m in NEW] == [
         "int8_stem_roofline", "k3_roofline", "stride_blocks_roofline", "k5_roofline",
         "near_tie_pct.encode", "k7_roofline", "k6_roofline", "bf16_stride_blocks_roofline",
-        "bf16_stem_roofline", "h2d_ms.act", "dispatch_idle_pct.act", "env_step_ms.train", "policy_ms.train",
-        "optimizer_ms.train", "env_idle_pct.train"]
+        "bf16_stem_roofline", "h2d_ms.act", "dispatch_idle_pct.act", "env_step_ms.train",
+        "policy_ms.train", "optimizer_ms.train", "env_idle_pct.train", "attention_roofline",
+        "attention_pad_pct.encode", "pointwise_fused_pct.encode",
+        "bf16_stride_fused_pct.encode", "allreduce_ms.train", "rank_skew_pct.train"]
 
 
 @pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]])
